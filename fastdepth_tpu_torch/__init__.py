@@ -1,0 +1,58 @@
+"""fastdepth_tpu_torch — the PyTorch/CUDA port of fastdepth_tpu.
+
+The same FastDepth models, metrics and evaluation as the JAX package
+beside it, on one NVIDIA GPU (written for the H100): PyTorch for the
+plain tensor code, cuDNN for the encoder's convolutions, and a kernel
+written by hand in CUDA C++ for every kernel the JAX package wrote in
+Pallas for the TPU (``ops/cuda/``).  Module paths mirror
+``fastdepth_tpu``'s, so each counterpart sits under the same name.
+
+The JAX package's modules that hold no JAX are reused, not copied:
+``fastdepth_tpu.config``, ``fastdepth_tpu.data``, the npz checkpoint
+format of ``fastdepth_tpu.checkpoint.io`` and ``fastdepth_tpu.viz``.
+This package never imports ``jax``.
+"""
+
+__version__ = "0.1.0"
+
+from fastdepth_tpu.config import (  # noqa: F401
+    ModelConfig,
+    MOBILENET_V1_CHANNELS,
+    PRUNED_ENCODER_CHANNELS,
+    PRUNED_DECODER_CHANNELS,
+)
+
+# Lazy top-level re-exports (PEP 562), as in fastdepth_tpu/__init__.py:
+# `import fastdepth_tpu_torch` stays cheap and pulls in no model code.
+_EXPORTS = {
+    "Model": "fastdepth_tpu_torch.models.registry",
+    "build": "fastdepth_tpu_torch.models.registry",
+    "from_name": "fastdepth_tpu_torch.models.registry",
+    "fastdepth_pruned": "fastdepth_tpu_torch.models.registry",
+    "fastdepth_unpruned": "fastdepth_tpu_torch.models.registry",
+    "params_from_jax": "fastdepth_tpu_torch.checkpoint.from_jax",
+    "params_to_jax": "fastdepth_tpu_torch.checkpoint.from_jax",
+    "load_checkpoint": "fastdepth_tpu.checkpoint.io",
+    "NYUDataset": "fastdepth_tpu.data.nyu",
+    "BatchLoader": "fastdepth_tpu.data.loader",
+    "ValPipeline": "fastdepth_tpu.data.pipeline",
+    "RAW_SIZE": "fastdepth_tpu.data.nyu",
+    "OUTPUT_SIZE": "fastdepth_tpu.data.nyu",
+    "Evaluator": "fastdepth_tpu_torch.engine.evaluator",
+    "validate": "fastdepth_tpu_torch.engine.evaluator",
+    "Result": "fastdepth_tpu_torch.metrics",
+    "AverageMeter": "fastdepth_tpu_torch.metrics",
+}
+
+
+def __getattr__(name: str):
+    target = _EXPORTS.get(name)
+    if target is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(target), name)
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

@@ -1,0 +1,47 @@
+"""The JAX package's npz parameter tree <-> the port's state dict.
+
+The tree (``fastdepth_tpu.checkpoint.io``; nested dicts of numpy arrays,
+NHWC/HWIO layout) is the interchange format.  A state-dict key is the
+npz key with ``/`` replaced by ``.``; conv weights turn HWIO
+``(kh, kw, cin, cout)`` -> OIHW ``(cout, cin, kh, kw)``, which maps a
+depthwise ``(k, k, 1, C)`` to ``(C, 1, k, k)``.  Every other leaf (folded
+bias ``b``, BatchNorm ``scale/bias/mean/var``) is copied as is, so both
+``{'w','bn'}`` and ``{'w','b'}`` trees convert, and the round trip is
+bit-exact.  Covers the forward-conv model families the port builds (no
+transposed-conv decoders yet).
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from fastdepth_tpu.checkpoint.io import flatten_tree, unflatten_tree
+
+
+def _is_conv_weight(key: str, arr) -> bool:
+    return key.rsplit(".", 1)[-1] == "w" and arr.ndim == 4
+
+
+def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
+    """npz parameter tree -> flat state dict of CPU tensors (OIHW convs)."""
+    sd = {}
+    for key, arr in flatten_tree(tree).items():
+        key = key.replace("/", ".")
+        if _is_conv_weight(key, arr):
+            arr = arr.transpose(3, 2, 0, 1)
+        sd[key] = torch.tensor(arr)  # a copy: npz and JAX arrays may be read-only
+    return sd
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
+    """Flat state dict -> npz parameter tree of numpy arrays (HWIO convs)."""
+    flat = {}
+    for key, t in state_dict.items():
+        arr = t.detach().cpu().numpy()
+        if _is_conv_weight(key, arr):
+            arr = arr.transpose(2, 3, 1, 0)
+        flat[key.replace(".", "/")] = np.ascontiguousarray(arr)
+    return unflatten_tree(flat)

@@ -1,0 +1,145 @@
+"""K1: the fused FastDepth decoder stage, a hand-written Hopper kernel.
+
+Counterpart of the Pallas TPU kernel
+``fastdepth_tpu/ops/pallas/fused_decoder.py::fused_decoder_stage``: one
+launch runs a whole NNConv5(dw) decoder level,
+
+    dw5x5 (+folded-BN bias) -> ReLU -> pw1x1 (+bias) -> ReLU
+        -> nearest x2 upsample -> [+ skip]
+
+with the intermediates kept out of device memory.  The CUDA source is
+``fastdepth_tpu_torch/csrc/fused_decoder.cu`` (its header says what
+bounds the kernel on the card and how the design answers it); it is built
+by ``_build`` at the first launch.
+
+Layouts: activations are logical NCHW tensors stored channels_last
+(NHWC memory), so the kernel reads the encoder's cuDNN output with no
+transpose.  Weights come in K1's own layout, ``dw_w (25, C)`` and
+``pw_w (C, Cout)``; :func:`kernel_weights` derives it from the OIHW
+weights once, when the model is folded.
+
+Dispatch: a CPU tensor takes :func:`fused_decoder_stage_reference`, the
+plain PyTorch version of the same math; a CUDA tensor launches K1 or
+raises.  ``LAUNCHES`` counts the launches of K1 and nothing else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+LAUNCHES = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_GRID_YZ = 65535
+_COUT_TILE = 64  # the widest Cout tile of the kernel's launch
+_fn = None
+
+
+def kernel_weights(dw_w: torch.Tensor, pw_w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """OIHW depthwise ``(C, 1, 5, 5)`` and pointwise ``(Cout, C, 1, 1)``
+    weights -> K1's ``(25, C)`` (tap-major) and ``(C, Cout)``."""
+    C, Cout = dw_w.shape[0], pw_w.shape[0]
+    if tuple(dw_w.shape) != (C, 1, 5, 5) or tuple(pw_w.shape) != (Cout, C, 1, 1):
+        raise ValueError(
+            f"K1 takes a 5x5 depthwise and a 1x1 pointwise weight; got "
+            f"{tuple(dw_w.shape)} and {tuple(pw_w.shape)}")
+    return (dw_w.reshape(C, 25).t().contiguous(),
+            pw_w.reshape(Cout, C).t().contiguous())
+
+
+def fused_decoder_stage_reference(x, dw_w, dw_b, pw_w, pw_b, skip=None):
+    """Plain PyTorch version of K1 (same arguments): computed in f32 and
+    cast back to ``x``'s dtype, like the TPU kernel."""
+    C, Cout = pw_w.shape
+    f32 = torch.float32
+    y = F.conv2d(x.to(f32), dw_w.to(f32).t().reshape(C, 1, 5, 5),
+                 dw_b.to(f32), padding=2, groups=C)
+    y = F.conv2d(torch.relu(y), pw_w.to(f32).t().reshape(Cout, C, 1, 1),
+                 pw_b.to(f32))
+    y = F.interpolate(torch.relu(y), scale_factor=2, mode="nearest")
+    if skip is not None:
+        y = y + skip.to(f32)
+    return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _check(x, dw_w, dw_b, pw_w, pw_b, skip):
+    if x.dim() != 4:
+        raise ValueError(f"x must be (N, C, H, W), got {tuple(x.shape)}")
+    N, C, H, W = x.shape
+    if pw_w.dim() != 2 or pw_w.shape[0] != C:
+        raise ValueError(f"pw_w must be (C={C}, Cout), got {tuple(pw_w.shape)}")
+    Cout = pw_w.shape[1]
+    want = {"dw_w": (dw_w, (25, C)), "dw_b": (dw_b, (C,)), "pw_b": (pw_b, (Cout,))}
+    if skip is not None:
+        want["skip"] = (skip, (N, Cout, 2 * H, 2 * W))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    tensors = [x, dw_w, dw_b, pw_w, pw_b] + ([skip] if skip is not None else [])
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in tensors):
+        raise ValueError(
+            "K1 takes float32 or bfloat16, one dtype for every operand; got "
+            + ", ".join(str(t.dtype) for t in tensors))
+    if any(t.device != x.device for t in tensors):
+        raise ValueError("K1's operands must lie on one device")
+    for name, t in (("x", x), ("skip", skip)):
+        if t is not None and not t.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError(f"{name} must be channels_last contiguous (NHWC memory)")
+    for name, t in (("dw_w", dw_w), ("dw_b", dw_b), ("pw_w", pw_w), ("pw_b", pw_b)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError("K1 is inference-only: it has no backward yet")
+    return N, C, H, W, Cout
+
+
+def _kernel():
+    global _fn
+    if _fn is None:
+        from fastdepth_tpu_torch.ops.cuda import _build
+
+        fn = _build.load().fd_fused_decoder_stage
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _fn = fn
+    return _fn
+
+
+def fused_decoder_stage(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
+                        pw_w: torch.Tensor, pw_b: torch.Tensor,
+                        skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One fused decoder level.
+
+    x ``(N, C, H, W)`` and skip ``(N, Cout, 2H, 2W)`` channels_last;
+    dw_w ``(25, C)``, dw_b ``(C,)``, pw_w ``(C, Cout)``, pw_b ``(Cout,)``
+    (:func:`kernel_weights`).  Returns ``(N, Cout, 2H, 2W)``
+    channels_last in ``x``'s dtype.  On the CPU this is the plain
+    version; on a CUDA tensor it launches K1 or raises."""
+    global LAUNCHES
+    N, C, H, W, Cout = _check(x, dw_w, dw_b, pw_w, pw_b, skip)
+    if x.device.type == "cpu":
+        return fused_decoder_stage_reference(x, dw_w, dw_b, pw_w, pw_b, skip)
+    if x.device.type != "cuda":
+        raise ValueError(f"K1 runs on CUDA devices (or the plain version on "
+                         f"the CPU), got a {x.device.type} tensor")
+    if N > _MAX_GRID_YZ or -(-Cout // _COUT_TILE) > _MAX_GRID_YZ:
+        raise ValueError(f"K1's grid takes at most {_MAX_GRID_YZ} images and "
+                         f"Cout tiles, got N={N}, Cout={Cout}")
+    kernel = _kernel()
+    out = torch.empty((N, Cout, 2 * H, 2 * W), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    with torch.cuda.device(x.device):
+        err = kernel(
+            x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(),
+            pw_b.data_ptr(), skip.data_ptr() if skip is not None else None,
+            out.data_ptr(), N, H, W, C, Cout, _DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return out
