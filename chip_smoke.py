@@ -8,15 +8,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. device: a CUDA device must be present; prints the card's name and
    power limit (nvidia-smi) and turns TF32 off for the f32 phases;
 2. build: compiles every kernel of the port from fastdepth_tpu_torch/csrc;
-3. kernels: each kernel against its plain PyTorch version, on the card,
-   at the shapes the flagship's main path gives it (f32 and bf16), with
-   both times (CUDA events);
-4. end to end: the committed trained weights (docs/rehearsal_model_r5.npz)
+3. kernels: each kernel (K1-K4) against its plain PyTorch version, on
+   the card, at the shapes the flagship's paths give it (f32 and bf16),
+   with both times (CUDA events);
+4. eval path: the committed trained weights (docs/rehearsal_model_r5.npz)
    -> build -> fold -> Evaluator(impl='auto') -> validate() over seeded
    raw 480x640 frames put through the shared val pipeline, at f32 and
-   bf16; counts K1's launches on that run, and holds the fused forward
-   against the port's straight (plain PyTorch) forward;
-5. prints the kernels' JSON line, then the result line.
+   bf16; counts K1's and K4's launches on that run, and holds the fused
+   forward against the port's straight (plain PyTorch) forward;
+5. v2 / v3 forwards: the same weights through K2 or K3 and K4 at batch
+   8, held against the straight forward, with their launch counts;
+6. deploy path: cli.deploy.main on a seeded 224x224 rgb npy, f32 and
+   --bf16, with randomized-input timing; its saved prediction against the
+   straight forward, and K1's and K4's launches on every call;
+7. prints the kernels' JSON line, then the result line.
 
 The port reuses the JAX package's jax-free modules (config, the data
 pipeline, the npz checkpoint reader); nothing here imports JAX.
@@ -24,10 +29,14 @@ pipeline, the npz checkpoint reader); nothing here imports JAX.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -39,11 +48,16 @@ BATCH = 8
 E2E_BATCHES = 4
 STAGES_PER_FORWARD = 5
 
-# (H=W, C, Cout, skip) of the decoder levels K1 runs: the pruned flagship's
-# five, then the unpruned model's first
+DEPLOY_WARMUP, DEPLOY_RUN = 10, 50
+OUTPUT_HW = (224, 224)
+
+# (H=W, C, Cout, skip) of the decoder levels K1-K3 run: the pruned
+# flagship's five, then the unpruned model's first
 PRUNED_STAGES = [(7, 512, 200, False), (14, 200, 256, True), (28, 256, 120, True),
                  (56, 120, 56, True), (112, 56, 16, False)]
 UNPRUNED_STAGE1 = (7, 1024, 512, False)
+# (H=W, C) of the 1x1 head K4 runs: the pruned flagship's, then the unpruned
+HEADS = [("pruned", 224, 16), ("unpruned", 224, 32)]
 
 
 def fail(msg: str) -> None:
@@ -74,9 +88,23 @@ def build_phase() -> None:
     t0 = time.perf_counter()
     path, log = _build.build()
     print(f"build: {os.path.relpath(path, REPO)} in {time.perf_counter() - t0:.2f} s")
+    # ptxas -v, per source: kernels, register range, spills
+    per_src = {}
+    kernel = None
     for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"  ptxas: {line.strip()}")
+        m = re.search(r"Compiling entry function '_ZN\d+_GLOBAL__N__\w+?_\d+_(\w+?)_cu_", line)
+        if m:
+            kernel = per_src.setdefault(m.group(1), {"kernels": 0, "regs": [], "spill": 0})
+            kernel["kernels"] += 1
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and kernel is not None:
+            kernel["spill"] = max(kernel["spill"], int(m.group(1)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel is not None:
+            kernel["regs"].append(int(m.group(1)))
+    for src, k in sorted(per_src.items()):
+        print(f"  ptxas {src}.cu: {k['kernels']} kernels, {min(k['regs'])}-{max(k['regs'])} "
+              f"registers, largest spill {k['spill']} bytes")
 
 
 def _stage_inputs(rng, n, h, c, cout, skip, dtype):
@@ -103,48 +131,94 @@ def _median_ms(fn, args, repeats: int = 5, calls: int = 20) -> float:
                             for _ in range(repeats)])) * 1e3
 
 
-def kernel_phase() -> dict:
-    """K1 vs its plain version at the main path's shapes.  f32 bound:
-    max|K1 - plain| <= 1e-4 * max(1, max|plain|) (different summation
-    order only); bf16: the plain version runs in f32 on the same bf16
-    inputs and is rounded, bound 2^-7 * max|plain| (one bf16 rounding of
-    the output, plus the order)."""
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K
+def _check_kernel(label, mod, fn, plain, args, kwargs, dtype):
+    """One kernel launch against its plain version: (max|diff|, bound,
+    max|plain|, kernel ms, plain ms).  f32 bound: max|diff| <=
+    1e-4 * max(1, max|plain|) (different summation order only); bf16:
+    the plain version runs in f32 on the same bf16 inputs and is rounded,
+    bound 2^-7 * max|plain| (one bf16 rounding of the output, plus the
+    order).  These launches are not counted for the paths below."""
+    with torch.inference_mode():
+        before = mod.LAUNCHES
+        got = fn(*args, **kwargs)
+        if mod.LAUNCHES != before + 1:
+            fail(f"the wrapper did not launch {label} on a CUDA tensor")
+        want = plain(*args)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        scale = float(want.float().abs().max())
+        bound = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 2.0 ** -7 * scale
+        if not (err <= bound) or not torch.isfinite(got.float()).all():
+            fail(f"{label} disagrees with its plain version: max|diff| {err} > {bound}")
+        t_k = _median_ms(lambda *a: fn(*a, **kwargs), args)
+        t_p = _median_ms(plain, args)
+    return err, bound, scale, t_k, t_p
 
-    rng = np.random.RandomState(0)
-    worst_f32, k1_ms, plain_ms = 0.0, 0.0, 0.0
-    shapes = [("pruned", s) for s in PRUNED_STAGES] + [("unpruned", UNPRUNED_STAGE1)]
+
+def kernel_phase() -> dict:
+    """K1-K3 at every decoder level of the flagship (and the unpruned
+    model's first), each at the images per block its forward gives that
+    level; K4 at the heads.  Returns per kernel: the worst f32 error, and
+    the f32 times summed over the pruned flagship's five levels (K4: its
+    head), kernel and plain."""
+    from fastdepth_tpu_torch.models import fused as F
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder_hwbc as K2
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder_v3 as K3
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+
+    stage_kernels = [
+        ("K1", K1, K1.fused_decoder_stage, {}),
+        ("K2", K2, K2.fused_decoder_stage_hwbc, F.V2_BLOCK_BATCHES),
+        ("K3", K3, K3.fused_decoder_stage_v3, F.V3_BLOCK_BATCHES),
+    ]
+    levels = [("pruned", i, s) for i, s in enumerate(PRUNED_STAGES, start=1)]
+    levels.append(("unpruned", 1, UNPRUNED_STAGE1))
+    out = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "rows": []}
+           for k in ("K1", "K2", "K3", "K4")}
     for dtype in (torch.float32, torch.bfloat16):
-        for which, (h, c, cout, skip) in shapes:
-            args = _stage_inputs(rng, BATCH, h, c, cout, skip, dtype)
-            with torch.inference_mode():
-                before = K.LAUNCHES
-                got = K.fused_decoder_stage(*args)
-                if K.LAUNCHES != before + 1:
-                    fail("the wrapper did not launch K1 on a CUDA tensor")
-                want = K.fused_decoder_stage_reference(*args)
-                torch.cuda.synchronize()
-                err = float((got.float() - want.float()).abs().max())
-                scale = float(want.float().abs().max())
-                bound = (1e-4 * max(1.0, scale) if dtype == torch.float32
-                         else 2.0 ** -7 * scale)
-                t_k = _median_ms(K.fused_decoder_stage, args)
-                t_p = _median_ms(K.fused_decoder_stage_reference, args)
-            name = "f32" if dtype == torch.float32 else "bf16"
-            row = {"dtype": name, "model": which, "H": h, "C": c, "Cout": cout,
-                   "skip": skip, "batch": BATCH, "max_abs_err": err, "bound": bound,
-                   "max_abs_plain": scale, "k1_ms": t_k, "plain_ms": t_p}
-            print(f"K1 {name} {which} {h}x{h} {c}->{cout}{' +skip' if skip else ''} "
-                  f"b{BATCH}: max|diff| {err:.3e} (bound {bound:.3e}), "
-                  f"K1 {t_k:.4f} ms, plain {t_p:.4f} ms")
-            if not (err <= bound) or not torch.isfinite(got.float()).all():
-                fail(f"K1 disagrees with its plain version: {row}")
+        name = "f32" if dtype == torch.float32 else "bf16"
+        for label, mod, fn, bbs in stage_kernels:
+            rng = np.random.RandomState(0)
+            for which, level, (h, c, cout, skip) in levels:
+                args = _stage_inputs(rng, BATCH, h, c, cout, skip, dtype)
+                kwargs = {"block_batch": bbs[level]} if bbs else {}
+                err, bound, scale, t_k, t_p = _check_kernel(
+                    label, mod, fn, K1.fused_decoder_stage_reference, args, kwargs, dtype)
+                bb = f" block_batch {bbs[level]}" if bbs else ""
+                print(f"{label} {name} {which} {h}x{h} {c}->{cout}{' +skip' if skip else ''} "
+                      f"b{BATCH}{bb}: max|diff| {err:.3e} (bound {bound:.3e}), "
+                      f"{label} {t_k:.4f} ms, plain {t_p:.4f} ms")
+                row = out[label]
+                row["rows"].append({"dtype": name, "model": which, "H": h, "C": c, "Cout": cout,
+                                    "skip": skip, "ms": t_k, "plain_ms": t_p, "max_abs_err": err})
+                if dtype == torch.float32:
+                    row["max_abs_err"] = max(row["max_abs_err"], err)
+                    if which == "pruned":
+                        row["ms"] += t_k
+                        row["plain_ms"] += t_p
+        rng = np.random.RandomState(1)
+        for which, h, c in HEADS:
+            x = torch.from_numpy(rng.randn(BATCH, c, h, h).astype(np.float32)).to("cuda", dtype)
+            x = x.contiguous(memory_format=torch.channels_last)
+            w = torch.from_numpy((rng.randn(c) / np.sqrt(c)).astype(np.float32)).to("cuda", dtype)
+            b = torch.from_numpy(np.array([0.1], np.float32)).to("cuda", dtype)
+            err, bound, scale, t_k, t_p = _check_kernel(
+                "K4", K4, K4.pointwise_head, K4.pointwise_head_reference, (x, w, b), {}, dtype)
+            print(f"K4 {name} {which} head {h}x{h} {c}->1 b{BATCH}: max|diff| {err:.3e} "
+                  f"(bound {bound:.3e}), K4 {t_k:.4f} ms, plain {t_p:.4f} ms")
+            row = out["K4"]
+            row["rows"].append({"dtype": name, "model": which, "H": h, "C": c, "ms": t_k,
+                                "plain_ms": t_p, "max_abs_err": err})
             if dtype == torch.float32:
-                worst_f32 = max(worst_f32, err)
+                row["max_abs_err"] = max(row["max_abs_err"], err)
                 if which == "pruned":
-                    k1_ms += t_k
-                    plain_ms += t_p
-    return {"max_abs_err": worst_f32, "ms": k1_ms, "plain_ms": plain_ms}
+                    row["ms"], row["plain_ms"] = t_k, t_p
+    for label, row in out.items():
+        print(f"{label} f32 sum over the pruned flagship's "
+              f"{'head' if label == 'K4' else 'five levels'}: {row['ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.4f} ms")
+    return out
 
 
 class _Frames:
@@ -172,14 +246,29 @@ def _frames(pipe, seed: int):
     return batches
 
 
-def e2e_phase() -> dict:
-    from fastdepth_tpu_torch import (OUTPUT_SIZE, RAW_SIZE, Evaluator, ValPipeline,
-                                     build, load_checkpoint, params_from_jax, validate)
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K
+def load_weights():
+    """(model, params on the CPU) of the committed trained weights."""
+    from fastdepth_tpu_torch import build, load_checkpoint, params_from_jax
 
     tree, cfg, _ = load_checkpoint(WEIGHTS)
     model = build(cfg)
-    params = model.load(params_from_jax(tree))
+    return model, model.load(params_from_jax(tree))
+
+
+def _counts(*mods):
+    return tuple(m.LAUNCHES for m in mods)
+
+
+def _reset(*mods):
+    for m in mods:
+        m.LAUNCHES = 0
+
+
+def e2e_phase(model, params) -> dict:
+    from fastdepth_tpu_torch import OUTPUT_SIZE, RAW_SIZE, Evaluator, ValPipeline, validate
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+
     loader = _Frames(_frames(ValPipeline.create(raw_size=RAW_SIZE, output_size=OUTPUT_SIZE),
                              seed=0))
     rgb0, depth0, _ = loader.batches[0]
@@ -188,14 +277,14 @@ def e2e_phase() -> dict:
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         ev = Evaluator(model, params, batch_size=BATCH, dtype=dtype, impl="auto",
                        device="cuda")
-        K.LAUNCHES = 0
+        _reset(K1, K4)
         avg = validate(loader, ev, print_freq=0, make_images=False,
                        log=lambda s: print(s.strip().replace("\n", " ")))
         torch.cuda.synchronize()
-        launches = K.LAUNCHES
-        if launches != STAGES_PER_FORWARD * forwards:
-            fail(f"{name}: K1 launched {launches} times over {forwards} forwards, "
-                 f"want {STAGES_PER_FORWARD} per forward")
+        k1, k4 = _counts(K1, K4)
+        if (k1, k4) != (STAGES_PER_FORWARD * forwards, forwards):
+            fail(f"{name}: K1 launched {k1} and K4 {k4} times over {forwards} forwards, "
+                 f"want {STAGES_PER_FORWARD} and 1 per forward")
         x, d = ev.put(rgb0), ev.put(depth0)
         pred, _ = ev(x, d)
         torch.cuda.synchronize()
@@ -204,7 +293,7 @@ def e2e_phase() -> dict:
                  f"{bool(torch.isfinite(pred).all())}")
         fps = BATCH / _median_ms(ev, (x, d)) * 1e3
         row = {k: getattr(avg, k) for k in ("rmse", "mae", "delta1", "absrel", "lg10")}
-        out[name] = {"launches": launches, "forwards": forwards, "metrics": row,
+        out[name] = {"launches": k1, "k4_launches": k4, "forwards": forwards, "metrics": row,
                      "validate_fps": 1.0 / avg.gpu_time, "step_fps": fps}
         if name == "f32":
             # the fused forward against the port's straight plain-PyTorch
@@ -222,23 +311,151 @@ def e2e_phase() -> dict:
     return out
 
 
+def forwards_phase(model, params) -> dict:
+    """apply_fastdepth_fused_v2 / _v3 at batch 8 on the trained weights:
+    5 launches of K2 or K3 and 1 of K4 per forward; f32 within 1e-3 of the
+    straight forward (TF32 off), bf16 finite.  Also times each forward
+    (and the K1 and straight ones) per call, CUDA events."""
+    from fastdepth_tpu_torch.engine.aot import _prepare
+    from fastdepth_tpu_torch.models import fused as F
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder_hwbc as K2
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder_v3 as K3
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+
+    cfg = model.config
+    rng = np.random.RandomState(2)
+    x = torch.from_numpy(rng.rand(BATCH, *OUTPUT_HW, 3).astype(np.float32)).cuda()
+    runs = 3
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        p, _ = _prepare(model, params, batch_size=BATCH, dtype=dtype, fold_bn=True,
+                        impl="xla", device="cuda")
+        xd = x.to(dtype)
+        forwards = {
+            "v2": (lambda: F.apply_fastdepth_fused_v2(p, xd, cfg), K2),
+            "v3": (lambda: F.apply_fastdepth_fused_v3(p, xd, cfg), K3),
+            "fused": (lambda: F.apply_fastdepth_fused(p, xd, cfg), K1),
+            "straight": (lambda: model.apply(p, xd), None),
+        }
+        with torch.inference_mode():
+            want = model.apply(p, xd).float()
+            row = {}
+            for fwd, (fn, mod) in forwards.items():
+                if mod is not None and fwd != "fused":
+                    _reset(mod, K4)
+                    for _ in range(runs):
+                        got = fn().float()
+                    torch.cuda.synchronize()
+                    launches = _counts(mod, K4)
+                    if launches != (STAGES_PER_FORWARD * runs, runs):
+                        fail(f"{fwd} {name}: launches {launches} over {runs} forwards, want "
+                             f"{STAGES_PER_FORWARD} of the stage kernel and 1 of K4 each")
+                    if tuple(got.shape) != (BATCH, *OUTPUT_HW, 1) or not torch.isfinite(got).all():
+                        fail(f"{fwd} {name}: output of shape {tuple(got.shape)}, finite: "
+                             f"{bool(torch.isfinite(got).all())}")
+                    err = float((got - want).abs().max())
+                    print(f"{fwd} {name}: vs straight forward max|diff| {err:.3e}"
+                          + (" (bound 1e-3)" if dtype == torch.float32 else ""))
+                    if dtype == torch.float32 and not err <= 1e-3:
+                        fail(f"{fwd} forward disagrees with the straight forward: {err}")
+                    row[fwd] = {"launches": launches[0], "k4_launches": launches[1],
+                                "forwards": runs, "max_abs_err_vs_straight": err}
+                row.setdefault(fwd, {})["forward_ms"] = _median_ms(lambda: fn(), ())
+        print(f"forwards {name} b{BATCH}: {json.dumps(row)}")
+        out[name] = row
+    return out
+
+
+def deploy_phase(model, params) -> dict:
+    """cli.deploy.main on a seeded 224x224 rgb npy with the trained
+    weights, f32 and --bf16, with randomized-input timing.  Every call of
+    the forward launches K1 five times and K4 once; the f32 prediction is
+    held against the straight forward (1e-3)."""
+    from fastdepth_tpu_torch.cli import deploy
+    from fastdepth_tpu_torch.engine.aot import compile_forward
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+
+    rgb = np.random.RandomState(3).rand(*OUTPUT_HW, 3).astype(np.float32)
+    # compile_forward's warm run, the saved prediction, then warmup + run
+    # twice (fixed and randomized input)
+    calls = 2 + 2 * (DEPLOY_WARMUP + DEPLOY_RUN)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        in_fp = os.path.join(tmp, "rgb.npy")
+        np.save(in_fp, rgb)
+        for name, extra in (("f32", []), ("bf16", ["--bf16"])):
+            out_fp = os.path.join(tmp, f"pred_{name}.npy")
+            _reset(K1, K4)
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                deploy.main(["--model", WEIGHTS, "--input-fp", in_fp, "--output-fp", out_fp,
+                             "--warmup", str(DEPLOY_WARMUP), "--run", str(DEPLOY_RUN),
+                             "--randomized-input-timing", "--device", "cuda"] + extra)
+            torch.cuda.synchronize()
+            for line in log.getvalue().splitlines():
+                print(f"deploy {name}: {line}")
+            k1, k4 = _counts(K1, K4)
+            if (k1, k4) != (STAGES_PER_FORWARD * calls, calls):
+                fail(f"deploy {name}: K1 launched {k1} and K4 {k4} times over {calls} "
+                     f"calls, want {STAGES_PER_FORWARD} and 1 per call")
+            pred = np.load(out_fp)
+            if pred.shape != (1, 1, *OUTPUT_HW) or not np.isfinite(pred).all():
+                fail(f"deploy {name}: saved prediction of shape {pred.shape}, finite: "
+                     f"{bool(np.isfinite(pred).all())}")
+            timed = re.search(r"\[timed\] mean=([\d.]+) ms  median=([\d.]+) ms", log.getvalue())
+            rand = re.search(r"\[randomized\] mean=([\d.]+) ms  median=([\d.]+) ms",
+                             log.getvalue())
+            out[name] = {"launches": k1, "k4_launches": k4, "calls": calls,
+                         "timed_median_ms": float(timed.group(2)),
+                         "randomized_median_ms": float(rand.group(2))}
+            if name == "f32":
+                fn, p = compile_forward(model, params, batch_size=1, image_size=OUTPUT_HW,
+                                        impl="xla", device="cuda")
+                want = fn(p, torch.from_numpy(rgb[None]).cuda()).permute(0, 3, 1, 2)
+                err = float(np.abs(pred - want.cpu().numpy()).max())
+                print(f"deploy f32: saved prediction vs straight forward max|diff| {err:.3e} "
+                      "(bound 1e-3)")
+                if not err <= 1e-3:
+                    fail(f"deploy prediction disagrees with the straight forward: {err}")
+                out[name]["max_abs_err_vs_straight"] = err
+            print(f"deploy {name}: {json.dumps(out[name])}")
+    return out
+
+
+KERNELS = [
+    # (key, name, source, replaces)
+    ("K1", "fused_decoder_stage", "fastdepth_tpu_torch/csrc/fused_decoder.cu",
+     "fastdepth_tpu/ops/pallas/fused_decoder.py:50"),
+    ("K2", "fused_decoder_stage_hwbc", "fastdepth_tpu_torch/csrc/fused_decoder_hwbc.cu",
+     "fastdepth_tpu/ops/pallas/fused_decoder.py:152"),
+    ("K3", "fused_decoder_stage_v3", "fastdepth_tpu_torch/csrc/fused_decoder_v3.cu",
+     "fastdepth_tpu/ops/pallas/fused_decoder.py:249"),
+    ("K4", "fused_pointwise_head", "fastdepth_tpu_torch/csrc/pointwise_head.cu",
+     "fastdepth_tpu/ops/pallas/fused_decoder.py:379"),
+]
+
+
 def main() -> None:
     device_phase()
     build_phase()
     kernels = kernel_phase()
-    e2e = e2e_phase()
+    model, params = load_weights()
+    e2e = e2e_phase(model, params)
+    fwd = forwards_phase(model, params)
+    dep = deploy_phase(model, params)
+    # launches: each kernel's count on the f32 run of its path (K1: the
+    # eval path, K2/K3: the v2/v3 forwards, K4: the deploy path); ms:
+    # f32, batch 8, summed over the pruned flagship's five levels (K4:
+    # its head), with the worst f32 error over the checked shapes
+    launches = {"K1": e2e["f32"]["launches"], "K2": fwd["f32"]["v2"]["launches"],
+                "K3": fwd["f32"]["v3"]["launches"], "K4": dep["f32"]["k4_launches"]}
     print(json.dumps({"kernels": [{
-        "name": "fused_decoder_stage",
-        "route": "cuda",
-        "source": "fastdepth_tpu_torch/csrc/fused_decoder.cu",
-        "replaces": "fastdepth_tpu/ops/pallas/fused_decoder.py:50",
-        "launches": e2e["f32"]["launches"],
-        # worst f32 error over the checked shapes; ms: the five pruned
-        # levels at batch 8, f32, summed (one forward's decoder)
-        "max_abs_err": kernels["max_abs_err"],
-        "ms": kernels["ms"],
-        "plain_ms": kernels["plain_ms"],
-    }]}))
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": launches[key], "max_abs_err": kernels[key]["max_abs_err"],
+        "ms": kernels[key]["ms"], "plain_ms": kernels[key]["plain_ms"],
+    } for key, name, source, replaces in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

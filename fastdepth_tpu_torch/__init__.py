@@ -39,6 +39,7 @@ _EXPORTS = {
     "RAW_SIZE": "fastdepth_tpu.data.nyu",
     "OUTPUT_SIZE": "fastdepth_tpu.data.nyu",
     "Evaluator": "fastdepth_tpu_torch.engine.evaluator",
+    "compile_forward": "fastdepth_tpu_torch.engine.aot",
     "validate": "fastdepth_tpu_torch.engine.evaluator",
     "Result": "fastdepth_tpu_torch.metrics",
     "AverageMeter": "fastdepth_tpu_torch.metrics",

@@ -38,30 +38,18 @@
 // loads, vectorised stores, and reading each input tile once for all
 // Cout tiles.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "stage_common.cuh"
 
 namespace {
+
+using fdk::from_float;
+using fdk::to_float;
 
 constexpr int kTile = 8;              // input pixels per tile side
 constexpr int kHalo = kTile + 4;      // 5x5 taps: 2 pixels of halo per side
 constexpr int kChunk = 32;            // channels per pass over C
 constexpr int kThreads = 256;
 constexpr int kRows = kThreads / kChunk;
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float v);
-template <>
-__device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
 
 // kCoutTile output channels per block, 4 per thread; the 64 pixels of the
 // tile are spread over the remaining thread dimension.

@@ -1,58 +1,101 @@
-"""Timing on the card: CUDA events around warmed-up calls.
+"""Benchmark protocol: warmup runs then timed repeats, mirroring the
+reference's TVM ``time_evaluator`` flow (deploy/tx2_run_tvm.py:42-65).
 
 Counterpart of ``fastdepth_tpu/engine/benchmark.py``.  PyTorch returns
-before the device finishes, so every time here is read off CUDA events
-recorded on the current stream, after a ``torch.cuda.synchronize``.
-These helpers need a CUDA device and fail without one: a time taken on
-the host's CPU is not a device time.
+before the card finishes, so on a CUDA device every time here is read off
+CUDA events recorded on the current stream around the timed calls, after
+a ``sync``.  ``device="cpu"`` times the plain versions with the host
+clock (CPU ops finish before they return): that is a CPU time, and the
+caller names it so.  The default device is the card, and without one the
+helpers fail rather than time the CPU.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import time
+from typing import Callable, Dict, Union
 
 import numpy as np
 import torch
 
-
-def sync() -> None:
-    """Wait for all queued device work."""
-    torch.cuda.synchronize()
+Device = Union[str, torch.device]
 
 
-def time_fn(fn: Callable, args=(), *, warmup: int = 5, repeats: int = 20) -> Dict[str, float]:
-    """Single-call latency: each repeat runs one call between two events
-    and waits for it, so launch overhead and idle gaps count."""
-    for _ in range(warmup):
-        fn(*args)
-    sync()
-    times = []
-    for _ in range(repeats):
+def sync(device: Device = "cuda") -> None:
+    """Wait for all queued work on ``device`` (nothing to wait for on the
+    CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _stopwatch(device: Device) -> Callable[[Callable[[], object]], float]:
+    """``measure(run)``: seconds that ``run()`` takes on ``device``."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        def measure(run):
+            t0 = time.perf_counter()
+            run()
+            return time.perf_counter() - t0
+        return measure
+    if dev.type != "cuda":
+        raise ValueError(f"cannot time on a {dev.type} device")
+
+    def measure(run):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn(*args)
+        run()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end) / 1e3)
+        return start.elapsed_time(end) / 1e3
+    return measure
+
+
+def _stats(times) -> Dict[str, float]:
     arr = np.asarray(times)
     return {"mean_s": float(arr.mean()), "median_s": float(np.median(arr)),
             "std_s": float(arr.std()), "min_s": float(arr.min())}
 
 
-def time_pipelined(fn: Callable, args=(), *, warmup: int = 3, calls: int = 30) -> Dict[str, float]:
-    """Steady-state throughput: ``calls`` back-to-back calls between two
-    events (the device runs them in order), time per call."""
+def time_fn(fn: Callable, args=(), *, warmup: int = 5, repeats: int = 20,
+            device: Device = "cuda") -> Dict[str, float]:
+    """Single-call latency: each repeat times one call and waits for it,
+    so launch overhead and idle gaps count."""
     for _ in range(warmup):
         fn(*args)
-    sync()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(calls):
+    sync(device)
+    measure = _stopwatch(device)
+    return _stats([measure(lambda: fn(*args)) for _ in range(repeats)])
+
+
+def time_randomized(fn: Callable, make_input: Callable[[int], object], *, warmup: int = 5,
+                    repeats: int = 20, device: Device = "cuda") -> Dict[str, float]:
+    """Randomized-input variant (deploy/tx2_run_tvm.py:56-65): a fresh
+    input for every call, made and put on the device outside the timed
+    region, so nothing can be cached from one call to the next."""
+    for i in range(warmup):
+        fn(make_input(i))
+    sync(device)
+    measure = _stopwatch(device)
+    times = []
+    for i in range(repeats):
+        x = make_input(warmup + i)
+        sync(device)
+        times.append(measure(lambda: fn(x)))
+    return _stats(times)
+
+
+def time_pipelined(fn: Callable, args=(), *, warmup: int = 3, calls: int = 30,
+                   device: Device = "cuda") -> Dict[str, float]:
+    """Steady-state throughput: ``calls`` back-to-back calls timed as one
+    span (the device runs them in order), time per call."""
+    for _ in range(warmup):
         fn(*args)
-    end.record()
-    end.synchronize()
-    total = start.elapsed_time(end) / 1e3
+    sync(device)
+
+    def run():
+        for _ in range(calls):
+            fn(*args)
+    total = _stopwatch(device)(run)
     return {"mean_s": total / calls, "median_s": total / calls,
             "total_s": total, "calls": float(calls)}

@@ -11,7 +11,6 @@ in one stacked fetch per batch.
 
 from __future__ import annotations
 
-import copy
 import csv
 import os
 import time
@@ -22,8 +21,7 @@ import torch
 
 from fastdepth_tpu import viz
 from fastdepth_tpu_torch import metrics as M
-from fastdepth_tpu_torch.engine.aot import _pick_apply
-from fastdepth_tpu_torch.models import fused as F
+from fastdepth_tpu_torch.engine.aot import _prepare
 from fastdepth_tpu_torch.models.registry import Model
 
 CSV_FIELDNAMES = [
@@ -45,23 +43,19 @@ class Evaluator:
         device: Union[str, torch.device] = "cuda",
     ):
         """``params``: the tree from ``Model.load``.  ``impl``: 'auto'
-        runs decoder levels 1-5 through K1 whenever the architecture
-        allows and BN is folded; 'fused', 'opt' and 'xla' force the K1,
-        head-commute and straight forwards (engine/aot.py).  BN folds in
-        f32 before the cast to ``dtype``.  A CUDA ``device`` must exist:
-        there is no CPU fallback."""
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {device} requested but no CUDA device is available")
+        runs decoder levels 1-5 through K1 and the head through K4
+        whenever the architecture allows and BN is folded; 'fused', 'opt'
+        and 'xla' force the K1/K4, head-commute and straight forwards
+        (engine/aot.py, which also folds in f32 before the cast to
+        ``dtype``).  A CUDA ``device`` must exist: there is no CPU
+        fallback."""
         self.model = model
         self.batch_size = batch_size
         self.dtype = dtype
-        self.device = device
-        # both branches copy: the caller's tree is never moved or cast
-        params = (model.fold(params) if fold_bn or not F.tree_has_bn(params)
-                  else copy.deepcopy(params))
-        self.params = params.to(device=device, dtype=dtype)
-        self._apply = _pick_apply(model, self.params, impl, batch_size)
+        self.device = torch.device(device)
+        self.params, self._apply = _prepare(model, params, batch_size=batch_size,
+                                            dtype=dtype, fold_bn=fold_bn, impl=impl,
+                                            device=device)
 
     def put(self, arr: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device, non_blocking=True)

@@ -2,17 +2,25 @@
 counterpart of ``fastdepth_tpu/models/fused.py``.
 
 * :func:`apply_fastdepth_fused`: the encoder through cuDNN, each decoder
-  level 1-5 as ONE launch of K1 (``ops/cuda/fused_decoder.py``), the 1x1
-  head as a plain conv (as the JAX package ran it through XLA).
+  level 1-5 as ONE launch of K1 (``ops/cuda/fused_decoder.py``), then the
+  1x1 head as one launch of K4 (``ops/cuda/head.py``; the JAX package ran
+  the head through XLA, because Mosaic's compile helper crashed on it).
+* :func:`apply_fastdepth_fused_v2` and :func:`apply_fastdepth_fused_v3`:
+  the same forward with the levels through K2 (image groups) or K3
+  (persistent, double-buffered), at the JAX forwards' per-level block
+  batches, then K4.
 * :func:`apply_fastdepth_opt`: plain PyTorch, the 1x1 head commuted
   before the final nearest x2 (exact: the head is a per-pixel affine +
   ReLU).
 
-Both need BN-folded params (``Model.fold``); the fused forward also reads
-the K1 weight layouts that ``Model.fold`` derives (:func:`attach_kernel_weights`).
+All need BN-folded params (``Model.fold``); the fused forwards also read
+the kernel weight layouts that ``Model.fold`` derives
+(:func:`attach_kernel_weights`).
 """
 
 from __future__ import annotations
+
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -22,6 +30,14 @@ from fastdepth_tpu_torch.models import mobilenet as MN
 from fastdepth_tpu_torch.models.fastdepth import SKIP_AFTER, SKIP_TAPS
 from fastdepth_tpu_torch.ops import blocks as B
 from fastdepth_tpu_torch.ops.cuda.fused_decoder import fused_decoder_stage, kernel_weights
+from fastdepth_tpu_torch.ops.cuda.fused_decoder_hwbc import fused_decoder_stage_hwbc
+from fastdepth_tpu_torch.ops.cuda.fused_decoder_v3 import fused_decoder_stage_v3
+from fastdepth_tpu_torch.ops.cuda.head import pointwise_head
+
+# images per block of each decoder level, as the JAX forwards set them
+# (fastdepth_tpu/models/fused.py, apply_fastdepth_fused_v2 / _v3)
+V2_BLOCK_BATCHES = {1: 8, 2: 8, 3: 4, 4: 2, 5: 1}
+V3_BLOCK_BATCHES = {1: 8, 2: 4, 3: 2, 4: 1, 5: 1}
 
 _NNCONV_NAMES = frozenset(f"nnconv{k}{dw}" for k in (3, 5, 7, 9) for dw in ("", "dw"))
 
@@ -47,42 +63,67 @@ def tree_has_bn(params: nn.Module) -> bool:
 
 
 def attach_kernel_weights(params: nn.ModuleDict) -> None:
-    """Give each folded decoder level 1-5 its weights in K1's layout, as
-    non-persistent buffers ``k1_dw (25, C)`` and ``k1_pw (C, Cout)`` on
-    ``decoder.decode_conv{i}``: derived once, here, instead of on every
-    call; they follow the tree through ``.to()`` and stay out of the
+    """Give the folded decoder its weights in the kernels' layouts, as
+    non-persistent buffers: ``k1_dw (25, C)`` and ``k1_pw (C, Cout)`` on
+    each ``decoder.decode_conv{1..5}`` (K1-K3), ``k4_w (C,)`` on
+    ``decoder.decode_conv6`` (K4).  Derived once, here, instead of on
+    every call; they follow the tree through ``.to()`` and stay out of the
     state dict."""
+    dec = params["decoder"]
     for i in range(1, 6):
-        p = params["decoder"][f"decode_conv{i}"]
+        p = dec[f"decode_conv{i}"]
         dw, pw = kernel_weights(p["dw"].w, p["pw"].w)
         p.register_buffer("k1_dw", dw, persistent=False)
         p.register_buffer("k1_pw", pw, persistent=False)
+    head = dec["decode_conv6"]
+    head.register_buffer("k4_w", head["pw"].w.reshape(-1).contiguous(), persistent=False)
 
 
-def _fused_preamble(params, x, cfg):
-    """Guard + encoder pass: (decoder params, features, {stage: skip})."""
+def _fused_forward(params, x, cfg, stage):
+    """Guard + encoder pass, decoder levels 1-5 through
+    ``stage(i, y, p, skip)``, then the head through K4 (NHWC in and out)."""
     if not supports_fused(cfg):
         raise ValueError(
             "fused path supports the MobileNet nnconv5dw skip-add family; "
             f"got encoder={cfg.encoder!r} decoder={cfg.decoder!r} skip={cfg.skip!r}")
-    feats, tapped = MN.apply_encoder(params["encoder"], B.from_nhwc(x),
-                                     relu6=cfg.encoder_relu6, taps=SKIP_TAPS)
-    return params["decoder"], feats, {i: tapped[t] for i, t in SKIP_AFTER.items()}
+    dec = params["decoder"]
+    if not hasattr(dec["decode_conv6"], "k4_w"):
+        raise ValueError("the fused path needs params from Model.fold "
+                         "(folded BN and the kernels' weight layouts)")
+    y, tapped = MN.apply_encoder(params["encoder"], B.from_nhwc(x),
+                                 relu6=cfg.encoder_relu6, taps=SKIP_TAPS)
+    for i in range(1, 6):
+        skip = tapped[SKIP_AFTER[i]] if i in SKIP_AFTER else None
+        y = stage(i, y, dec[f"decode_conv{i}"], skip)
+    head = dec["decode_conv6"]
+    return B.to_nhwc(pointwise_head(y, head.k4_w, head["pw"].b))
 
 
 def apply_fastdepth_fused(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """NHWC forward with decoder levels 1-5 through K1 (its plain version
-    for CPU tensors).  Params must come from ``Model.fold``."""
-    dec, y, skips = _fused_preamble(params, x, cfg)
-    for i in range(1, 6):
-        p = dec[f"decode_conv{i}"]
-        if not hasattr(p, "k1_dw"):
-            raise ValueError("the fused path needs params from Model.fold "
-                             "(folded BN and K1's weight layouts)")
-        y = fused_decoder_stage(y, p.k1_dw, p["dw"].b, p.k1_pw, p["pw"].b,
-                                skip=skips.get(i))
-    head = dec["decode_conv6"]["pw"]
-    return B.to_nhwc(B.relu(B.conv2d(y, head.w, bias=head.b)))
+    """NHWC forward with decoder levels 1-5 through K1 and the head
+    through K4 (their plain versions for CPU tensors).  Params must come
+    from ``Model.fold``."""
+    return _fused_forward(params, x, cfg, lambda i, y, p, skip: fused_decoder_stage(
+        y, p.k1_dw, p["dw"].b, p.k1_pw, p["pw"].b, skip=skip))
+
+
+def apply_fastdepth_fused_v2(params: nn.ModuleDict, x: torch.Tensor,
+                             cfg: ModelConfig) -> torch.Tensor:
+    """:func:`apply_fastdepth_fused` with the levels through K2, at
+    :data:`V2_BLOCK_BATCHES` images per block."""
+    return _fused_forward(params, x, cfg, lambda i, y, p, skip: fused_decoder_stage_hwbc(
+        y, p.k1_dw, p["dw"].b, p.k1_pw, p["pw"].b, skip=skip,
+        block_batch=V2_BLOCK_BATCHES[i]))
+
+
+def apply_fastdepth_fused_v3(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig, *,
+                             block_batches: Optional[Dict[int, int]] = None) -> torch.Tensor:
+    """:func:`apply_fastdepth_fused` with the levels through K3, at
+    ``block_batches`` (level -> images per work item; by default
+    :data:`V3_BLOCK_BATCHES`)."""
+    bbs = block_batches or V3_BLOCK_BATCHES
+    return _fused_forward(params, x, cfg, lambda i, y, p, skip: fused_decoder_stage_v3(
+        y, p.k1_dw, p["dw"].b, p.k1_pw, p["pw"].b, skip=skip, block_batch=bbs[i]))
 
 
 def apply_fastdepth_opt(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

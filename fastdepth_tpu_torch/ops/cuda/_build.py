@@ -1,13 +1,15 @@
 """Build the port's CUDA sources at first use and load them with ctypes.
 
 ``nvcc`` compiles every ``fastdepth_tpu_torch/csrc/*.cu`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface under
+(``sm_90a``), one process per source, all started together, and links
+the objects into one shared library with a plain C interface under
 ``fastdepth_tpu_torch/_build/``.  No PyTorch header is included, so a
 build takes seconds.  The library's file name carries a hash of the
-sources and the flags: an edited source builds anew, an unchanged one
-loads the library already there.  The build writes a temporary file and
-renames it into place, so a concurrent or interrupted build never leaves
-a half-written library under the final name.
+sources, the headers they share (``csrc/*.cuh``) and the flags: an
+edited source or header builds anew, an unchanged tree loads the library
+already there.  The build writes a temporary file and renames it into
+place, so a concurrent or interrupted build never leaves a half-written
+library under the final name.
 
 Nothing here runs at import time: the package imports on hosts without
 ``nvcc`` or a GPU, and only a kernel launch on a CUDA tensor builds.
@@ -19,6 +21,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 from typing import Optional, Tuple
@@ -26,13 +29,11 @@ from typing import Optional, Tuple
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xptxas=-v",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _LIB: Optional[ctypes.CDLL] = None
+_FUNCS: dict = {}
 
 
 def find_nvcc() -> str:
@@ -52,9 +53,13 @@ def sources() -> list:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
 
 
-def library_path(srcs, flags=NVCC_FLAGS) -> str:
+def headers() -> list:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def library_path(files, flags=NVCC_FLAGS) -> str:
     h = hashlib.sha256()
-    for path in srcs:
+    for path in files:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -70,24 +75,50 @@ def build(nvcc: Optional[str] = None) -> Tuple[str, str]:
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    out = library_path(srcs)
+    out = library_path(srcs + headers())
     if os.path.exists(out):
         return out, ""
     nvcc = nvcc or find_nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
+    objdir = tempfile.mkdtemp(dir=BUILD_DIR)
     fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *srcs],
+        objs = [os.path.join(objdir, os.path.basename(src) + ".o") for src in srcs]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", src, "-o", obj],
+                                  stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(srcs, objs)]
+        logs = [p.communicate()[1] for p in procs]
+        failed = [(src, p.returncode, log) for src, p, log in zip(srcs, procs, logs)
+                  if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{os.path.basename(src)} (exit {rc}):\n{log}" for src, rc, log in failed))
+        proc = subprocess.run([nvcc, *GENCODE, "-shared", "-o", tmp, *objs],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
+                f"nvcc failed to link (exit {proc.returncode}):\n{proc.stderr}")
         os.replace(tmp, out)
     finally:
+        shutil.rmtree(objdir, ignore_errors=True)
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return out, proc.stderr
+    return out, "".join(logs)
+
+
+def function(name: str, argtypes) -> ctypes._CFuncPtr:
+    """The library's C entry ``name``, which returns a CUDA error code,
+    with its argument types set (pointers and the stream as ``c_void_p``:
+    a ``c_int`` would cut them).  Built, loaded and looked up once per
+    process."""
+    fn = _FUNCS.get(name)
+    if fn is None:
+        fn = getattr(load(), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCS[name] = fn
+    return fn
 
 
 def load() -> ctypes.CDLL:

@@ -31,12 +31,13 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from fastdepth_tpu_torch.ops.cuda import _build
+
 LAUNCHES = 0
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
 _COUT_TILE = 64  # the widest Cout tile of the kernel's launch
-_fn = None
 
 
 def kernel_weights(dw_w: torch.Tensor, pw_w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -66,7 +67,9 @@ def fused_decoder_stage_reference(x, dw_w, dw_b, pw_w, pw_b, skip=None):
     return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 
-def _check(x, dw_w, dw_b, pw_w, pw_b, skip):
+def check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, label="K1"):
+    """Validate a stage's operands for kernel ``label`` (K1-K3 take the
+    same ones); returns (N, C, H, W, Cout)."""
     if x.dim() != 4:
         raise ValueError(f"x must be (N, C, H, W), got {tuple(x.shape)}")
     N, C, H, W = x.shape
@@ -79,34 +82,65 @@ def _check(x, dw_w, dw_b, pw_w, pw_b, skip):
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    tensors = [x, dw_w, dw_b, pw_w, pw_b] + ([skip] if skip is not None else [])
-    if x.dtype not in _DTYPES or any(t.dtype != x.dtype for t in tensors):
-        raise ValueError(
-            "K1 takes float32 or bfloat16, one dtype for every operand; got "
-            + ", ".join(str(t.dtype) for t in tensors))
-    if any(t.device != x.device for t in tensors):
-        raise ValueError("K1's operands must lie on one device")
-    for name, t in (("x", x), ("skip", skip)):
-        if t is not None and not t.is_contiguous(memory_format=torch.channels_last):
-            raise ValueError(f"{name} must be channels_last contiguous (NHWC memory)")
-    for name, t in (("dw_w", dw_w), ("dw_b", dw_b), ("pw_w", pw_w), ("pw_b", pw_b)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise ValueError("K1 is inference-only: it has no backward yet")
+    check_operands(label, {"x": x, "skip": skip},
+                   {"dw_w": dw_w, "dw_b": dw_b, "pw_w": pw_w, "pw_b": pw_b})
     return N, C, H, W, Cout
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        from fastdepth_tpu_torch.ops.cuda import _build
+def check_operands(label, activations, weights):
+    """The checks every kernel wrapper makes: one dtype (f32 or bf16) and
+    one device for all operands, channels_last activations, contiguous
+    weights, no gradient.  ``None`` operands are skipped."""
+    tensors = [t for t in (*activations.values(), *weights.values()) if t is not None]
+    dtype = tensors[0].dtype
+    if dtype not in DTYPES or any(t.dtype != dtype for t in tensors):
+        raise ValueError(
+            f"{label} takes float32 or bfloat16, one dtype for every operand; got "
+            + ", ".join(str(t.dtype) for t in tensors))
+    if any(t.device != tensors[0].device for t in tensors):
+        raise ValueError(f"{label}'s operands must lie on one device")
+    for name, t in activations.items():
+        if t is not None and not t.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError(f"{name} must be channels_last contiguous (NHWC memory)")
+    for name, t in weights.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError(f"{label} is inference-only: it has no backward yet")
 
-        fn = _build.load().fd_fused_decoder_stage
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+
+def use_plain_version(label, x):
+    """A wrapper's dispatch: True for a CPU tensor (take the plain
+    version), False for a CUDA tensor (launch the kernel), raise for any
+    other device."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"{label} runs on CUDA devices (or the plain version on "
+                         f"the CPU), got a {x.device.type} tensor")
+    return False
+
+
+def launch_stage(entry, label, x, dw_w, dw_b, pw_w, pw_b, skip, extra=()):
+    """Allocate a stage's output and launch the C entry ``entry`` of K1-K3
+    (seven pointers, N, H, W, C, Cout, the ``extra`` ints, dtype, stream)
+    on the current stream; raise on a non-zero CUDA error."""
+    N, C, H, W = x.shape
+    Cout = pw_w.shape[1]
+    fn = _build.function(entry, [ctypes.c_void_p] * 7 + [ctypes.c_int] * (6 + len(extra))
+                         + [ctypes.c_void_p])
+    out = torch.empty((N, Cout, 2 * H, 2 * W), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    with torch.cuda.device(x.device):
+        err = fn(
+            x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(),
+            pw_b.data_ptr(), skip.data_ptr() if skip is not None else None,
+            out.data_ptr(), N, H, W, C, Cout, *extra, DTYPES[x.dtype],
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"{label} launch failed: CUDA error {err}")
+    return out
 
 
 def fused_decoder_stage(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
@@ -120,26 +154,12 @@ def fused_decoder_stage(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
     channels_last in ``x``'s dtype.  On the CPU this is the plain
     version; on a CUDA tensor it launches K1 or raises."""
     global LAUNCHES
-    N, C, H, W, Cout = _check(x, dw_w, dw_b, pw_w, pw_b, skip)
-    if x.device.type == "cpu":
+    N, C, H, W, Cout = check_stage(x, dw_w, dw_b, pw_w, pw_b, skip)
+    if use_plain_version("K1", x):
         return fused_decoder_stage_reference(x, dw_w, dw_b, pw_w, pw_b, skip)
-    if x.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA devices (or the plain version on "
-                         f"the CPU), got a {x.device.type} tensor")
     if N > _MAX_GRID_YZ or -(-Cout // _COUT_TILE) > _MAX_GRID_YZ:
         raise ValueError(f"K1's grid takes at most {_MAX_GRID_YZ} images and "
                          f"Cout tiles, got N={N}, Cout={Cout}")
-    kernel = _kernel()
-    out = torch.empty((N, Cout, 2 * H, 2 * W), dtype=x.dtype, device=x.device,
-                      memory_format=torch.channels_last)
-    with torch.cuda.device(x.device):
-        err = kernel(
-            x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(),
-            pw_b.data_ptr(), skip.data_ptr() if skip is not None else None,
-            out.data_ptr(), N, H, W, C, Cout, _DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"K1 launch failed: CUDA error {err}")
+    out = launch_stage("fd_fused_decoder_stage", "K1", x, dw_w, dw_b, pw_w, pw_b, skip)
     LAUNCHES += 1
     return out

@@ -139,10 +139,14 @@ def _fake_nvcc(path, log):
     os.chmod(path, 0o755)
 
 
-def test_build_caches_by_source_hash_and_reports_failures(tmp_path, monkeypatch):
+def _fake_tree(tmp_path, monkeypatch):
+    """A csrc/ of two sources and a shared header, a build dir, and a fake
+    nvcc; returns (csrc, build dir, nvcc, number of nvcc calls so far)."""
     csrc, build_dir = tmp_path / "csrc", tmp_path / "_build"
     csrc.mkdir()
     (csrc / "a.cu").write_text("// v1\n")
+    (csrc / "b.cu").write_text("// b\n")
+    (csrc / "common.cuh").write_text("// h1\n")
     monkeypatch.setattr(_build, "CSRC_DIR", str(csrc))
     monkeypatch.setattr(_build, "BUILD_DIR", str(build_dir))
     nvcc, log = str(tmp_path / "nvcc"), str(tmp_path / "calls")
@@ -151,18 +155,34 @@ def test_build_caches_by_source_hash_and_reports_failures(tmp_path, monkeypatch)
     def calls():
         return open(log).read().count("call") if os.path.exists(log) else 0
 
+    return csrc, build_dir, nvcc, calls
+
+
+def test_build_caches_by_source_hash_and_reports_failures(tmp_path, monkeypatch):
+    """One nvcc per source (started together), then one link."""
+    csrc, build_dir, nvcc, calls = _fake_tree(tmp_path, monkeypatch)
     first, _ = _build.build(nvcc)
-    assert os.path.exists(first) and calls() == 1
-    assert _build.build(nvcc)[0] == first and calls() == 1  # unchanged: no rebuild
+    assert os.path.exists(first) and calls() == 3
+    assert _build.build(nvcc)[0] == first and calls() == 3  # unchanged: no rebuild
     (csrc / "a.cu").write_text("// v2\n")
     second, _ = _build.build(nvcc)
-    assert second != first and calls() == 2
+    assert second != first and calls() == 6
     (csrc / "a.cu").write_text("// broken\n")
     with pytest.raises(RuntimeError, match="broken source"):
         _build.build(nvcc)
-    # a failed build leaves no library and no temporary file behind
+    # a failed build leaves no library, object or temporary file behind
     assert sorted(os.listdir(build_dir)) == sorted(
         os.path.basename(p) for p in (first, second))
+
+
+def test_build_rebuilds_when_a_shared_header_changes(tmp_path, monkeypatch):
+    """A header under csrc/ joins the hash: editing it must not load a
+    library built from the old header."""
+    csrc, _, nvcc, calls = _fake_tree(tmp_path, monkeypatch)
+    first, _ = _build.build(nvcc)
+    (csrc / "common.cuh").write_text("// h2\n")
+    second, _ = _build.build(nvcc)
+    assert second != first and calls() == 6
 
 
 def test_build_without_nvcc_raises(monkeypatch):
