@@ -10,7 +10,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. build: compiles every kernel of the port from fastdepth_tpu_torch/csrc;
 3. kernels: each kernel (K1-K4) against its plain PyTorch version, on
    the card, at the shapes the flagship's paths give it (f32 and bf16),
-   with both times (CUDA events);
+   with both device times (CUDA events around a CUDA graph of the calls)
+   and, beside them, CUDA-event times of pipelined calls (which count the
+   host's launch time when a call is shorter than it);
 4. eval path: the committed trained weights (docs/rehearsal_model_r5.npz)
    -> build -> fold -> Evaluator(impl='auto') -> validate() over seeded
    raw 480x640 frames put through the shared val pipeline, at f32 and
@@ -21,7 +23,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
 6. deploy path: cli.deploy.main on a seeded 224x224 rgb npy, f32 and
    --bf16, with randomized-input timing; its saved prediction against the
    straight forward, and K1's and K4's launches on every call;
-7. prints the kernels' JSON line, then the result line.
+7. probes: every tag of the probe catalogue (engine/probes.py, the
+   scripts' Pallas probes) runs its kernel (K5, K6, or K3) once, with
+   K5's and K6's launches counted on that run; then each kernel against
+   its plain version with both times, and K5's copy sweep (dma_copy);
+8. tools: engine/calibrate (reduced call count) measures the card's
+   ceilings, and cli.profile --mode prefix --batch 128 profiles the
+   pruned flagship on them; the summed roofline bounds must not exceed
+   the measured full forward;
+9. prints the kernels' JSON line, then the result line.
 
 The port reuses the JAX package's jax-free modules (config, the data
 pipeline, the npz checkpoint reader); nothing here imports JAX.
@@ -34,7 +44,6 @@ import io
 import json
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
@@ -49,6 +58,9 @@ E2E_BATCHES = 4
 STAGES_PER_FORWARD = 5
 
 DEPLOY_WARMUP, DEPLOY_RUN = 10, 50
+PROBE_CALLS = 10
+CALIBRATE_CALLS = 3
+PROFILE_CALLS = 5
 OUTPUT_HW = (224, 224)
 
 # (H=W, C, Cout, skip) of the decoder levels K1-K3 run: the pruned
@@ -69,17 +81,15 @@ def device_phase() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run measures the port on the GPU "
              "and has no CPU fallback")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(smi.stdout.strip().splitlines()[0])
+    from fastdepth_tpu_torch.engine.benchmark import card_info
+
+    card = card_info()  # runs nvidia-smi; raises if it fails
+    print(card["nvidia_smi"])
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, "
-          f"torch {torch.__version__}, CUDA {torch.version.cuda}; "
-          "TF32 off for cuDNN convolutions and matmuls (f32 phases are true f32)")
+    print(f"device: {card['name']} x{card['count']}, torch {card['torch']}, CUDA "
+          f"{card['cuda']}; TF32 off for cuDNN convolutions and matmuls (f32 phases are "
+          "true f32)")
 
 
 def build_phase() -> None:
@@ -123,17 +133,29 @@ def _stage_inputs(rng, n, h, c, cout, skip, dtype):
 
 
 def _median_ms(fn, args, repeats: int = 5, calls: int = 20) -> float:
-    """Per-call device time: the median over ``repeats`` runs of ``calls``
-    pipelined calls, each run timed with CUDA events."""
+    """Per-call time of a step or forward: the median over ``repeats``
+    runs of ``calls`` pipelined calls, each run timed with CUDA events
+    (host launch time included where the device waits for it)."""
     from fastdepth_tpu_torch.engine.benchmark import time_pipelined
 
     return float(np.median([time_pipelined(fn, args, calls=calls)["mean_s"]
                             for _ in range(repeats)])) * 1e3
 
 
+def _kernel_ms(fn, args, calls: int = 20):
+    """(device ms, events ms) per call: CUDA events around a CUDA graph of
+    ``calls`` calls (the kernels back to back, no host launch time), and
+    the median CUDA-event time of pipelined calls."""
+    from fastdepth_tpu_torch.engine.benchmark import time_graph
+
+    return time_graph(fn, args, calls=calls) * 1e3, _median_ms(fn, args, repeats=3,
+                                                                  calls=calls)
+
+
 def _check_kernel(label, mod, fn, plain, args, kwargs, dtype):
     """One kernel launch against its plain version: (max|diff|, bound,
-    max|plain|, kernel ms, plain ms).  f32 bound: max|diff| <=
+    max|plain|, (kernel device ms, events ms), (plain device ms, events
+    ms)).  f32 bound: max|diff| <=
     1e-4 * max(1, max|plain|) (different summation order only); bf16:
     the plain version runs in f32 on the same bf16 inputs and is rounded,
     bound 2^-7 * max|plain| (one bf16 rounding of the output, plus the
@@ -150,8 +172,8 @@ def _check_kernel(label, mod, fn, plain, args, kwargs, dtype):
         bound = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 2.0 ** -7 * scale
         if not (err <= bound) or not torch.isfinite(got.float()).all():
             fail(f"{label} disagrees with its plain version: max|diff| {err} > {bound}")
-        t_k = _median_ms(lambda *a: fn(*a, **kwargs), args)
-        t_p = _median_ms(plain, args)
+        t_k = _kernel_ms(lambda *a: fn(*a, **kwargs), args)
+        t_p = _kernel_ms(plain, args)
     return err, bound, scale, t_k, t_p
 
 
@@ -159,8 +181,8 @@ def kernel_phase() -> dict:
     """K1-K3 at every decoder level of the flagship (and the unpruned
     model's first), each at the images per block its forward gives that
     level; K4 at the heads.  Returns per kernel: the worst f32 error, and
-    the f32 times summed over the pruned flagship's five levels (K4: its
-    head), kernel and plain."""
+    the f32 device and event times summed over the pruned flagship's five
+    levels (K4: its head), kernel and plain."""
     from fastdepth_tpu_torch.models import fused as F
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import fused_decoder_hwbc as K2
@@ -174,8 +196,19 @@ def kernel_phase() -> dict:
     ]
     levels = [("pruned", i, s) for i, s in enumerate(PRUNED_STAGES, start=1)]
     levels.append(("unpruned", 1, UNPRUNED_STAGE1))
-    out = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "rows": []}
-           for k in ("K1", "K2", "K3", "K4")}
+    out = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "events_ms": 0.0,
+               "plain_events_ms": 0.0, "rows": []} for k in ("K1", "K2", "K3", "K4")}
+
+    def record(row, err, t_k, t_p, dtype, pruned, **shape):
+        row["rows"].append({"dtype": "f32" if dtype == torch.float32 else "bf16", **shape,
+                            "ms": t_k[0], "plain_ms": t_p[0], "events_ms": t_k[1],
+                            "plain_events_ms": t_p[1], "max_abs_err": err})
+        if dtype == torch.float32:
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+            if pruned:
+                for key, t in (("ms", t_k[0]), ("plain_ms", t_p[0]), ("events_ms", t_k[1]),
+                               ("plain_events_ms", t_p[1])):
+                    row[key] += t
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
         for label, mod, fn, bbs in stage_kernels:
@@ -187,16 +220,11 @@ def kernel_phase() -> dict:
                     label, mod, fn, K1.fused_decoder_stage_reference, args, kwargs, dtype)
                 bb = f" block_batch {bbs[level]}" if bbs else ""
                 print(f"{label} {name} {which} {h}x{h} {c}->{cout}{' +skip' if skip else ''} "
-                      f"b{BATCH}{bb}: max|diff| {err:.3e} (bound {bound:.3e}), "
-                      f"{label} {t_k:.4f} ms, plain {t_p:.4f} ms")
-                row = out[label]
-                row["rows"].append({"dtype": name, "model": which, "H": h, "C": c, "Cout": cout,
-                                    "skip": skip, "ms": t_k, "plain_ms": t_p, "max_abs_err": err})
-                if dtype == torch.float32:
-                    row["max_abs_err"] = max(row["max_abs_err"], err)
-                    if which == "pruned":
-                        row["ms"] += t_k
-                        row["plain_ms"] += t_p
+                      f"b{BATCH}{bb}: max|diff| {err:.3e} (bound {bound:.3e}), device "
+                      f"{label} {t_k[0]:.4f} ms, plain {t_p[0]:.4f} ms; events {label} "
+                      f"{t_k[1]:.4f} ms, plain {t_p[1]:.4f} ms")
+                record(out[label], err, t_k, t_p, dtype, which == "pruned", model=which, H=h,
+                       C=c, Cout=cout, skip=skip)
         rng = np.random.RandomState(1)
         for which, h, c in HEADS:
             x = torch.from_numpy(rng.randn(BATCH, c, h, h).astype(np.float32)).to("cuda", dtype)
@@ -206,18 +234,14 @@ def kernel_phase() -> dict:
             err, bound, scale, t_k, t_p = _check_kernel(
                 "K4", K4, K4.pointwise_head, K4.pointwise_head_reference, (x, w, b), {}, dtype)
             print(f"K4 {name} {which} head {h}x{h} {c}->1 b{BATCH}: max|diff| {err:.3e} "
-                  f"(bound {bound:.3e}), K4 {t_k:.4f} ms, plain {t_p:.4f} ms")
-            row = out["K4"]
-            row["rows"].append({"dtype": name, "model": which, "H": h, "C": c, "ms": t_k,
-                                "plain_ms": t_p, "max_abs_err": err})
-            if dtype == torch.float32:
-                row["max_abs_err"] = max(row["max_abs_err"], err)
-                if which == "pruned":
-                    row["ms"], row["plain_ms"] = t_k, t_p
+                  f"(bound {bound:.3e}), device K4 {t_k[0]:.4f} ms, plain {t_p[0]:.4f} ms; "
+                  f"events K4 {t_k[1]:.4f} ms, plain {t_p[1]:.4f} ms")
+            record(out["K4"], err, t_k, t_p, dtype, which == "pruned", model=which, H=h, C=c)
     for label, row in out.items():
         print(f"{label} f32 sum over the pruned flagship's "
-              f"{'head' if label == 'K4' else 'five levels'}: {row['ms']:.4f} ms, "
-              f"plain {row['plain_ms']:.4f} ms")
+              f"{'head' if label == 'K4' else 'five levels'}: device {row['ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.4f} ms; events {row['events_ms']:.4f} ms, plain "
+              f"{row['plain_events_ms']:.4f} ms")
     return out
 
 
@@ -424,8 +448,95 @@ def deploy_phase(model, params) -> dict:
     return out
 
 
+def probe_phase() -> dict:
+    """The probe catalogue on the card.  The slice's path: every tag's
+    kernel once, with K5's and K6's counts set to 0 just before and read
+    just after.  Then each kernel against its plain version on the same
+    inputs (copies bit for bit; f32 compute 1e-4 * max(1, max|plain|);
+    bf16 2^-7 * max|plain|), with device and event times, and K5's copy
+    sweep.  Returns per kernel (K5, K6) its launches, worst error and
+    device/event times summed over its tags."""
+    from fastdepth_tpu_torch.cli import probe as probe_cli
+    from fastdepth_tpu_torch.engine import probes as P
+    from fastdepth_tpu_torch.ops.cuda import probes as KP
+
+    device = torch.device("cuda")
+    KP.COPY_LAUNCHES = KP.STAGE_LAUNCHES = 0
+    for tag in P.PROBES:
+        out = P.run(tag, device)
+        torch.cuda.synchronize()
+        if not torch.isfinite(out.float()).all():
+            fail(f"probe {tag}: non-finite output")
+    launches = {"K5": KP.COPY_LAUNCHES, "K6": KP.STAGE_LAUNCHES}
+    want = {k: sum(p.kernel_name == k for p in P.PROBES.values()) for k in launches}
+    if launches != want:
+        fail(f"probe path: launches {launches}, want one per tag {want}")
+    print(f"probes: one run of every tag launched K5 {launches['K5']} and K6 "
+          f"{launches['K6']} times")
+    rows = probe_cli.run_probes(list(P.PROBES), device, calls=PROBE_CALLS,
+                                log=lambda s: print(f"probe {s}"))
+    bad = [r["tag"] for r in rows if not r["ok"]]
+    if bad:
+        fail(f"probes disagree with their plain versions or failed: {bad}")
+    out = {}
+    for k in launches:
+        mine = [r for r in rows if r["kernel"] == k]
+        out[k] = {"launches": launches[k], "max_abs_err": max(r["max_abs_err"] for r in mine),
+                  "ms": sum(r["device_us"] for r in mine) / 1e3,
+                  "plain_ms": sum(r["plain_device_us"] for r in mine) / 1e3,
+                  "events_ms": sum(r["events_us"] for r in mine) / 1e3,
+                  "plain_events_ms": sum(r["plain_events_us"] for r in mine) / 1e3,
+                  "replaces": P.replaces(k)}
+    sweep = P.copy_sweep(device, calls=PROBE_CALLS)
+    print(f"copy sweep (K5, pure copy; {P.L2_NOTE}):")
+    for r in sweep:
+        print(f"  {r['bytes'] >> 20} MB, {r['chunk_bytes'] >> 10} KB per slot (script "
+              f"chunk_rows {r['script_chunk_rows']}), prefetch {int(r['prefetch'])}: "
+              f"{r['GBs']:.1f} GB/s device, {r['GBs_events']:.1f} GB/s events")
+    out["sweep"] = sweep
+    print(f"probe kernels: {json.dumps({k: v for k, v in out.items() if k != 'sweep'})}")
+    return out
+
+
+def tools_phase() -> dict:
+    """engine/calibrate at a reduced call count, then cli.profile --mode
+    prefix at batch 128 on the pruned flagship (f32, random weights) on
+    those ceilings: 20 finite rows, and the summed bounds at most the
+    measured full forward."""
+    from fastdepth_tpu_torch.cli import profile
+    from fastdepth_tpu_torch.engine import calibrate
+
+    res = calibrate.calibrate("cuda", calls=CALIBRATE_CALLS,
+                              log=lambda s: print(f"calibrate {s}"))
+    c = res["ceilings"]
+    print(f"calibrate: device memory {c['hbm_bps'] / 1e9:.1f} GB/s ({c['hbm_source']}), "
+          f"matmul bf16 {res['matmul_tflops']['bf16']:.1f} / f32 "
+          f"{res['matmul_tflops']['f32']:.1f} TFLOP/s")
+    with tempfile.TemporaryDirectory() as tmp:
+        ceil = os.path.join(tmp, "ceilings.json")
+        with open(ceil, "w") as f:
+            json.dump(res, f)
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            prof = profile.main(["--mode", "prefix", "--batch", "128", "--device", "cuda",
+                                 "--calls", str(PROFILE_CALLS), "--ceilings", ceil])
+    for line in log.getvalue().splitlines():
+        print(f"profile: {line}")
+    layers = prof["layers"]
+    if len(layers) != 20 or not all(np.isfinite(r["measured_us"]) for r in layers):
+        fail(f"profile: {len(layers)} rows, want 20 finite ones")
+    if not prof["sum_bounds_us"] <= prof["full_us"]:
+        fail(f"profile: summed bounds {prof['sum_bounds_us']:.1f} us exceed the measured "
+             f"full forward {prof['full_us']:.1f} us")
+    print(f"tools: sum of bounds {prof['sum_bounds_us']:.1f} us <= measured full forward "
+          f"{prof['full_us']:.1f} us (b128 f32, {prof['fps']:.0f} fps)")
+    return {"ceilings": c, "profile_full_us": prof["full_us"],
+            "profile_sum_bounds_us": prof["sum_bounds_us"]}
+
+
 KERNELS = [
-    # (key, name, source, replaces)
+    # (key, name, source, replaces); K5's and K6's replaces come from the
+    # probe catalogue
     ("K1", "fused_decoder_stage", "fastdepth_tpu_torch/csrc/fused_decoder.cu",
      "fastdepth_tpu/ops/pallas/fused_decoder.py:50"),
     ("K2", "fused_decoder_stage_hwbc", "fastdepth_tpu_torch/csrc/fused_decoder_hwbc.cu",
@@ -434,10 +545,13 @@ KERNELS = [
      "fastdepth_tpu/ops/pallas/fused_decoder.py:249"),
     ("K4", "fused_pointwise_head", "fastdepth_tpu_torch/csrc/pointwise_head.cu",
      "fastdepth_tpu/ops/pallas/fused_decoder.py:379"),
+    ("K5", "staged_copy", "fastdepth_tpu_torch/csrc/probe_copy.cu", None),
+    ("K6", "staged_compute", "fastdepth_tpu_torch/csrc/probe_stage.cu", None),
 ]
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     device_phase()
     build_phase()
     kernels = kernel_phase()
@@ -445,16 +559,24 @@ def main() -> None:
     e2e = e2e_phase(model, params)
     fwd = forwards_phase(model, params)
     dep = deploy_phase(model, params)
+    kernels.update(probe_phase())
+    tools_phase()
     # launches: each kernel's count on the f32 run of its path (K1: the
-    # eval path, K2/K3: the v2/v3 forwards, K4: the deploy path); ms:
-    # f32, batch 8, summed over the pruned flagship's five levels (K4:
-    # its head), with the worst f32 error over the checked shapes
+    # eval path, K2/K3: the v2/v3 forwards, K4: the deploy path, K5/K6:
+    # the probe catalogue's run); ms / plain_ms: device time (events_ms
+    # beside it), f32, batch 8, summed over the pruned flagship's five
+    # levels (K4: its head; K5/K6: over their probe tags), with the worst
+    # f32 error over the checked shapes
     launches = {"K1": e2e["f32"]["launches"], "K2": fwd["f32"]["v2"]["launches"],
-                "K3": fwd["f32"]["v3"]["launches"], "K4": dep["f32"]["k4_launches"]}
+                "K3": fwd["f32"]["v3"]["launches"], "K4": dep["f32"]["k4_launches"],
+                "K5": kernels["K5"]["launches"], "K6": kernels["K6"]["launches"]}
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches[key], "max_abs_err": kernels[key]["max_abs_err"],
-        "ms": kernels[key]["ms"], "plain_ms": kernels[key]["plain_ms"],
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces or kernels[key]["replaces"], "launches": launches[key],
+        "max_abs_err": kernels[key]["max_abs_err"], "ms": kernels[key]["ms"],
+        "plain_ms": kernels[key]["plain_ms"], "events_ms": kernels[key]["events_ms"],
+        "plain_events_ms": kernels[key]["plain_events_ms"],
     } for key, name, source, replaces in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,6 +51,23 @@ def _stopwatch(device: Device) -> Callable[[Callable[[], object]], float]:
     return measure
 
 
+def card_info() -> Dict[str, str]:
+    """The card a measurement ran on: its name and power limit as
+    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints them, the device count, and the torch and CUDA versions.
+    Raises without a card."""
+    import subprocess
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: a measurement of the card needs one")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return {"nvidia_smi": smi.stdout.strip().splitlines()[0],
+            "name": torch.cuda.get_device_name(0), "count": str(torch.cuda.device_count()),
+            "torch": torch.__version__, "cuda": str(torch.version.cuda)}
+
+
 def _stats(times) -> Dict[str, float]:
     arr = np.asarray(times)
     return {"mean_s": float(arr.mean()), "median_s": float(np.median(arr)),
@@ -83,6 +100,35 @@ def time_randomized(fn: Callable, make_input: Callable[[int], object], *, warmup
         sync(device)
         times.append(measure(lambda: fn(x)))
     return _stats(times)
+
+
+def time_graph(fn: Callable, args=(), *, calls: int = 20) -> float:
+    """Device seconds per call: ``calls`` calls of ``fn(*args)`` captured
+    in one CUDA graph (after 3 warm-up calls), the graph replayed between
+    CUDA events (median of 3 replays).  The card runs the calls' kernels back to back with no
+    host launch in between, so unlike :func:`time_pipelined` a call
+    shorter than its host launch time reads as its own device time.
+    ``fn`` must not synchronise with the host.  Capturing runs ``fn``'s
+    Python ``calls`` times (a wrapper's launch count rises by that much);
+    the replays run the kernels without it.  Needs a CUDA device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("time_graph needs a CUDA device")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture stream, as CUDA graphs want
+        for _ in range(3):
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    measure = _stopwatch("cuda")
+    times = [measure(graph.replay) for _ in range(3)]
+    return float(np.median(times)) / calls
 
 
 def time_pipelined(fn: Callable, args=(), *, warmup: int = 3, calls: int = 30,

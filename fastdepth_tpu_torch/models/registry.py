@@ -24,6 +24,14 @@ from fastdepth_tpu.config import (
 from fastdepth_tpu_torch.models import fastdepth as FD
 from fastdepth_tpu_torch.models import fused as F
 from fastdepth_tpu_torch.models import layers as L
+from fastdepth_tpu_torch.ops import init as I
+
+
+def _channels_last(params: nn.ModuleDict) -> nn.ModuleDict:
+    for m in params.modules():
+        if isinstance(m, L.ConvBN):
+            m.w.data = m.w.data.contiguous(memory_format=torch.channels_last)
+    return params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,10 +50,16 @@ class Model:
         folded = not any(".bn." in k for k in state_dict)
         params = FD.make_fastdepth(self.config, folded=folded)
         params.load_state_dict(state_dict, strict=True)
-        for m in params.modules():
-            if isinstance(m, L.ConvBN):
-                m.w.data = m.w.data.contiguous(memory_format=torch.channels_last)
-        return params.to(device)
+        return _channels_last(params).to(device)
+
+    def init(self, generator: torch.Generator, *,
+             device: Union[str, torch.device] = "cpu") -> nn.ModuleDict:
+        """A random, unfolded parameter tree (the JAX ``Model.init``):
+        He-normal conv weights drawn from ``generator``, BatchNorm at its
+        defaults (``ops/init.py``), conv weights channels_last, on
+        ``device``."""
+        params = I.init_tree(FD.make_fastdepth(self.config, folded=False), generator)
+        return _channels_last(params).to(device)
 
     def apply(self, params: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
         """The straight NHWC forward (``apply_fastdepth``)."""
