@@ -9,10 +9,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    power limit (nvidia-smi) and turns TF32 off for the f32 phases;
 2. build: compiles every kernel of the port from fastdepth_tpu_torch/csrc;
 3. kernels: each kernel (K1-K4) against its plain PyTorch version, on
-   the card, at the shapes the flagship's paths give it (f32 and bf16),
-   with both device times (CUDA events around a CUDA graph of the calls)
-   and, beside them, CUDA-event times of pipelined calls (which count the
-   host's launch time when a call is shorter than it);
+   the card, at the shapes the flagship's paths give it (f32 and bf16;
+   K1 at the eval path's batch 8 and the deploy path's batch 1, whose
+   launch geometries differ),
+   with both device times (CUDA events around a CUDA graph of the calls,
+   cycling through enough copies of the operands that the 50 MB L2 holds
+   none of them) and, beside them, CUDA-event times of pipelined calls
+   (which count the host's launch time when a call is shorter than it),
+   and each call's bound (engine/benchmark.bound_us: bytes or operations
+   at the H100's published rates);
 4. eval path: the committed trained weights (docs/rehearsal_model_r5.npz)
    -> build -> fold -> Evaluator(impl='auto') -> validate() over seeded
    raw 480x640 frames put through the shared val pipeline, at f32 and
@@ -26,15 +31,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
 7. probes: every tag of the probe catalogue (engine/probes.py, the
    scripts' Pallas probes) runs its kernel (K5, K6, or K3) once, with
    K5's and K6's launches counted on that run; then each kernel against
-   its plain version with both times, and K5's copy sweep (dma_copy);
+   its plain version with both times, its bound and, where one PyTorch
+   call computes the same function, that call's time; and K5's copy
+   sweep (dma_copy);
 8. tools: engine/calibrate (reduced call count) measures the card's
    ceilings, and cli.profile --mode prefix --batch 128 profiles the
    pruned flagship on them; the summed roofline bounds must not exceed
    the measured full forward;
 9. prints the kernels' JSON line, then the result line.
 
-The port reuses the JAX package's jax-free modules (config, the data
-pipeline, the npz checkpoint reader); nothing here imports JAX.
+Nothing here, and nothing of the port it drives, imports JAX or the JAX
+package.
 """
 
 from __future__ import annotations
@@ -54,6 +61,7 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(REPO, "docs", "rehearsal_model_r5.npz")
 BATCH = 8
+DEPLOY_BATCH = 1  # the deploy runner's forward
 E2E_BATCHES = 4
 STAGES_PER_FORWARD = 5
 
@@ -63,11 +71,6 @@ CALIBRATE_CALLS = 3
 PROFILE_CALLS = 5
 OUTPUT_HW = (224, 224)
 
-# (H=W, C, Cout, skip) of the decoder levels K1-K3 run: the pruned
-# flagship's five, then the unpruned model's first
-PRUNED_STAGES = [(7, 512, 200, False), (14, 200, 256, True), (28, 256, 120, True),
-                 (56, 120, 56, True), (112, 56, 16, False)]
-UNPRUNED_STAGE1 = (7, 1024, 512, False)
 # (H=W, C) of the 1x1 head K4 runs: the pruned flagship's, then the unpruned
 HEADS = [("pruned", 224, 16), ("unpruned", 224, 32)]
 
@@ -117,21 +120,6 @@ def build_phase() -> None:
               f"registers, largest spill {k['spill']} bytes")
 
 
-def _stage_inputs(rng, n, h, c, cout, skip, dtype):
-    """Seeded stage operands on the card: x and skip channels_last, the
-    weights in K1's layout, scaled so activations stay O(1)."""
-    def t(a, cl=False):
-        a = torch.from_numpy(a.astype(np.float32)).to("cuda", dtype)
-        return a.contiguous(memory_format=torch.channels_last) if cl else a
-    x = t(rng.randn(n, c, h, h), cl=True)
-    dw_w = t(rng.randn(25, c) * 0.2)
-    dw_b = t(rng.randn(c) * 0.1)
-    pw_w = t(rng.randn(c, cout) / np.sqrt(c))
-    pw_b = t(rng.randn(cout) * 0.1)
-    sk = t(rng.randn(n, cout, 2 * h, 2 * h), cl=True) if skip else None
-    return x, dw_w, dw_b, pw_w, pw_b, sk
-
-
 def _median_ms(fn, args, repeats: int = 5, calls: int = 20) -> float:
     """Per-call time of a step or forward: the median over ``repeats``
     runs of ``calls`` pipelined calls, each run timed with CUDA events
@@ -142,47 +130,28 @@ def _median_ms(fn, args, repeats: int = 5, calls: int = 20) -> float:
                             for _ in range(repeats)])) * 1e3
 
 
-def _kernel_ms(fn, args, calls: int = 20):
-    """(device ms, events ms) per call: CUDA events around a CUDA graph of
-    ``calls`` calls (the kernels back to back, no host launch time), and
-    the median CUDA-event time of pipelined calls."""
-    from fastdepth_tpu_torch.engine.benchmark import time_graph
-
-    return time_graph(fn, args, calls=calls) * 1e3, _median_ms(fn, args, repeats=3,
-                                                                  calls=calls)
-
-
-def _check_kernel(label, mod, fn, plain, args, kwargs, dtype):
-    """One kernel launch against its plain version: (max|diff|, bound,
-    max|plain|, (kernel device ms, events ms), (plain device ms, events
-    ms)).  f32 bound: max|diff| <=
-    1e-4 * max(1, max|plain|) (different summation order only); bf16:
-    the plain version runs in f32 on the same bf16 inputs and is rounded,
-    bound 2^-7 * max|plain| (one bf16 rounding of the output, plus the
-    order).  These launches are not counted for the paths below."""
-    with torch.inference_mode():
-        before = mod.LAUNCHES
-        got = fn(*args, **kwargs)
-        if mod.LAUNCHES != before + 1:
-            fail(f"the wrapper did not launch {label} on a CUDA tensor")
-        want = plain(*args)
-        torch.cuda.synchronize()
-        err = float((got.float() - want.float()).abs().max())
-        scale = float(want.float().abs().max())
-        bound = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 2.0 ** -7 * scale
-        if not (err <= bound) or not torch.isfinite(got.float()).all():
-            fail(f"{label} disagrees with its plain version: max|diff| {err} > {bound}")
-        t_k = _kernel_ms(lambda *a: fn(*a, **kwargs), args)
-        t_p = _kernel_ms(plain, args)
-    return err, bound, scale, t_k, t_p
+def _head_sets(n, h, c, dtype, copies, seed=1):
+    """``copies`` seeded operand sets of the 1x1 head on the card: distinct
+    channels_last inputs, the weight and bias shared."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    w = (torch.randn(c, generator=gen, device="cuda") * c ** -0.5).to(dtype)
+    b = torch.full((1,), 0.1, device="cuda").to(dtype)
+    return [(torch.randn(n, c, h, h, generator=gen, device="cuda").to(dtype)
+             .contiguous(memory_format=torch.channels_last), w, b) for _ in range(copies)]
 
 
 def kernel_phase() -> dict:
     """K1-K3 at every decoder level of the flagship (and the unpruned
     model's first), each at the images per block its forward gives that
-    level; K4 at the heads.  Returns per kernel: the worst f32 error, and
-    the f32 device and event times summed over the pruned flagship's five
-    levels (K4: its head), kernel and plain."""
+    level, at the eval path's batch; K1 also at the deploy path's batch
+    1, whose launch geometry differs; K4 at the heads.  Each is held
+    against its plain version (``engine.benchmark.tolerance``) and timed
+    with the L2 cold; K1-K3 through ``cli.bench_decoder.level_row``.
+    Returns per kernel: the worst f32 error, and the f32 times and bound
+    summed over the pruned flagship's five levels at batch 8 (K4: its
+    head), kernel and plain."""
+    from fastdepth_tpu_torch.cli.bench_decoder import LEVELS, level_row
+    from fastdepth_tpu_torch.engine.benchmark import bound_us, cold_copies, compare_and_time
     from fastdepth_tpu_torch.models import fused as F
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import fused_decoder_hwbc as K2
@@ -190,57 +159,63 @@ def kernel_phase() -> dict:
     from fastdepth_tpu_torch.ops.cuda import head as K4
 
     stage_kernels = [
-        ("K1", K1, K1.fused_decoder_stage, {}),
-        ("K2", K2, K2.fused_decoder_stage_hwbc, F.V2_BLOCK_BATCHES),
-        ("K3", K3, K3.fused_decoder_stage_v3, F.V3_BLOCK_BATCHES),
+        ("K1", K1, K1.fused_decoder_stage, {}, (BATCH, DEPLOY_BATCH)),
+        ("K2", K2, K2.fused_decoder_stage_hwbc, F.V2_BLOCK_BATCHES, (BATCH,)),
+        ("K3", K3, K3.fused_decoder_stage_v3, F.V3_BLOCK_BATCHES, (BATCH,)),
     ]
-    levels = [("pruned", i, s) for i, s in enumerate(PRUNED_STAGES, start=1)]
-    levels.append(("unpruned", 1, UNPRUNED_STAGE1))
-    out = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "events_ms": 0.0,
-               "plain_events_ms": 0.0, "rows": []} for k in ("K1", "K2", "K3", "K4")}
+    keys = ("ms", "plain_ms", "events_ms", "plain_events_ms", "bound_ms")
+    out = {k: {"max_abs_err": 0.0, **{key: 0.0 for key in keys}, "bound_terms": {},
+               "library_ms": None, "rows": []} for k in ("K1", "K2", "K3", "K4")}
 
-    def record(row, err, t_k, t_p, dtype, pruned, **shape):
-        row["rows"].append({"dtype": "f32" if dtype == torch.float32 else "bf16", **shape,
-                            "ms": t_k[0], "plain_ms": t_p[0], "events_ms": t_k[1],
-                            "plain_events_ms": t_p[1], "max_abs_err": err})
-        if dtype == torch.float32:
-            row["max_abs_err"] = max(row["max_abs_err"], err)
-            if pruned:
-                for key, t in (("ms", t_k[0]), ("plain_ms", t_p[0]), ("events_ms", t_k[1]),
-                               ("plain_events_ms", t_p[1])):
-                    row[key] += t
-    for dtype in (torch.float32, torch.bfloat16):
-        name = "f32" if dtype == torch.float32 else "bf16"
-        for label, mod, fn, bbs in stage_kernels:
-            rng = np.random.RandomState(0)
-            for which, level, (h, c, cout, skip) in levels:
-                args = _stage_inputs(rng, BATCH, h, c, cout, skip, dtype)
-                kwargs = {"block_batch": bbs[level]} if bbs else {}
-                err, bound, scale, t_k, t_p = _check_kernel(
-                    label, mod, fn, K1.fused_decoder_stage_reference, args, kwargs, dtype)
-                bb = f" block_batch {bbs[level]}" if bbs else ""
-                print(f"{label} {name} {which} {h}x{h} {c}->{cout}{' +skip' if skip else ''} "
-                      f"b{BATCH}{bb}: max|diff| {err:.3e} (bound {bound:.3e}), device "
-                      f"{label} {t_k[0]:.4f} ms, plain {t_p[0]:.4f} ms; events {label} "
-                      f"{t_k[1]:.4f} ms, plain {t_p[1]:.4f} ms")
-                record(out[label], err, t_k, t_p, dtype, which == "pruned", model=which, H=h,
-                       C=c, Cout=cout, skip=skip)
-        rng = np.random.RandomState(1)
+    def record(label, r, summed, **shape):
+        row = out[label]
+        if not r["ok"]:
+            fail(f"{label} disagrees with its plain version at {shape}: max|diff| "
+                 f"{r['max_abs_err']} > {r['tol']}")
+        ms = {"ms": r["us"] / 1e3, "plain_ms": r["plain_us"] / 1e3,
+              "events_ms": r["events_us"] / 1e3, "plain_events_ms": r["plain_events_us"] / 1e3,
+              "bound_ms": r["bound_us"] / 1e3}
+        row["rows"].append({**shape, **ms, "bound_by": r["bound_by"],
+                            "max_abs_err": r["max_abs_err"], "tol": r["tol"]})
+        where = (f"{shape['dtype']} b{shape['batch']} {shape['model']} {shape['H']}x{shape['H']} "
+                 + (f"{shape['C']}->{shape['Cout']}{' +skip' if shape['skip'] else ''}"
+                    if "Cout" in shape else f"head {shape['C']}->1")
+                 + (f" block_batch {shape['block_batch']}" if "block_batch" in shape else ""))
+        print(f"{label} {where}: max|diff| {r['max_abs_err']:.3e} (bound {r['tol']:.3e}), "
+              f"device {label} {ms['ms']:.4f} ms, plain {ms['plain_ms']:.4f} ms, bound "
+              f"{ms['bound_ms']:.4f} ms ({r['bound_by']}); events {label} "
+              f"{ms['events_ms']:.4f} ms, plain {ms['plain_events_ms']:.4f} ms")
+        if shape["dtype"] == "f32":
+            row["max_abs_err"] = max(row["max_abs_err"], r["max_abs_err"])
+            if summed:
+                for key in keys:
+                    row[key] += ms[key]
+                row["bound_terms"][r["bound_by"]] = (row["bound_terms"].get(r["bound_by"], 0.0)
+                                                     + r["bound_us"])
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        for label, mod, fn, bbs, batches in stage_kernels:
+            for level, h, c, cout, skip in LEVELS:
+                which, index = level[:-1], int(level[-1])
+                kwargs = {"block_batch": bbs[index]} if bbs else {}
+                for n in batches:
+                    r = level_row(level, n, h, c, cout, skip, name, kernel=(mod, fn), **kwargs)
+                    record(label, r, which == "pruned" and n == BATCH, dtype=name, batch=n,
+                           model=which, H=h, C=c, Cout=cout, skip=skip, **kwargs)
         for which, h, c in HEADS:
-            x = torch.from_numpy(rng.randn(BATCH, c, h, h).astype(np.float32)).to("cuda", dtype)
-            x = x.contiguous(memory_format=torch.channels_last)
-            w = torch.from_numpy((rng.randn(c) / np.sqrt(c)).astype(np.float32)).to("cuda", dtype)
-            b = torch.from_numpy(np.array([0.1], np.float32)).to("cuda", dtype)
-            err, bound, scale, t_k, t_p = _check_kernel(
-                "K4", K4, K4.pointwise_head, K4.pointwise_head_reference, (x, w, b), {}, dtype)
-            print(f"K4 {name} {which} head {h}x{h} {c}->1 b{BATCH}: max|diff| {err:.3e} "
-                  f"(bound {bound:.3e}), device K4 {t_k[0]:.4f} ms, plain {t_p[0]:.4f} ms; "
-                  f"events K4 {t_k[1]:.4f} ms, plain {t_p[1]:.4f} ms")
-            record(out["K4"], err, t_k, t_p, dtype, which == "pruned", model=which, H=h, C=c)
+            elem = torch.finfo(dtype).bits // 8
+            px = BATCH * h * h
+            sets = _head_sets(BATCH, h, c, dtype, cold_copies(elem * px * (c + 1)))
+            r = compare_and_time(K4.pointwise_head, K4.pointwise_head_reference, sets,
+                                 counter=K4)
+            r["bound_us"], r["bound_by"] = bound_us(elem * (px * (c + 1) + c + 1),
+                                                    2 * px * c + 2 * px)
+            record("K4", r, which == "pruned", dtype=name, batch=BATCH, model=which, H=h, C=c)
     for label, row in out.items():
-        print(f"{label} f32 sum over the pruned flagship's "
+        row["bound_by"] = max(row.pop("bound_terms").items(), key=lambda kv: kv[1])[0]
+        print(f"{label} f32 b{BATCH} sum over the pruned flagship's "
               f"{'head' if label == 'K4' else 'five levels'}: device {row['ms']:.4f} ms, "
-              f"plain {row['plain_ms']:.4f} ms; events {row['events_ms']:.4f} ms, plain "
+              f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}); events {row['events_ms']:.4f} ms, plain "
               f"{row['plain_events_ms']:.4f} ms")
     return out
 
@@ -481,12 +456,25 @@ def probe_phase() -> dict:
     out = {}
     for k in launches:
         mine = [r for r in rows if r["kernel"] == k]
+        terms = {}
+        for r in mine:
+            terms[r["bound_by"]] = terms.get(r["bound_by"], 0.0) + r["bound_us"]
+        # one PyTorch call per tag where one computes the tag's function
+        # (K5: torch.mul / torch.add on every tag; K6: torch.matmul on its
+        # matmul-mode tags only), summed over those tags, beside the
+        # kernel's own device time over the same tags
+        lib_rows = [r for r in mine if "library_device_us" in r]
+        lib = sum(r["library_device_us"] for r in lib_rows) / 1e3 if lib_rows else None
         out[k] = {"launches": launches[k], "max_abs_err": max(r["max_abs_err"] for r in mine),
                   "ms": sum(r["device_us"] for r in mine) / 1e3,
                   "plain_ms": sum(r["plain_device_us"] for r in mine) / 1e3,
                   "events_ms": sum(r["events_us"] for r in mine) / 1e3,
                   "plain_events_ms": sum(r["plain_events_us"] for r in mine) / 1e3,
-                  "replaces": P.replaces(k)}
+                  "bound_ms": sum(terms.values()) / 1e3,
+                  "bound_by": max(terms.items(), key=lambda kv: kv[1])[0],
+                  "library_ms": lib, "library_tags": f"{len(lib_rows)} of {len(mine)}",
+                  "ms_over_library_tags": sum(r["device_us"] for r in lib_rows) / 1e3,
+                  "replaces": P.replaces(k), "rows": mine}
     sweep = P.copy_sweep(device, calls=PROBE_CALLS)
     print(f"copy sweep (K5, pure copy; {P.L2_NOTE}):")
     for r in sweep:
@@ -494,7 +482,9 @@ def probe_phase() -> dict:
               f"chunk_rows {r['script_chunk_rows']}), prefetch {int(r['prefetch'])}: "
               f"{r['GBs']:.1f} GB/s device, {r['GBs_events']:.1f} GB/s events")
     out["sweep"] = sweep
-    print(f"probe kernels: {json.dumps({k: v for k, v in out.items() if k != 'sweep'})}")
+    print("probe kernels: " + json.dumps(
+        {k: {f: x for f, x in v.items() if f != "rows"} for k, v in out.items()
+         if k != "sweep"}))
     return out
 
 
@@ -566,7 +556,12 @@ def main() -> None:
     # the probe catalogue's run); ms / plain_ms: device time (events_ms
     # beside it), f32, batch 8, summed over the pruned flagship's five
     # levels (K4: its head; K5/K6: over their probe tags), with the worst
-    # f32 error over the checked shapes
+    # f32 error over the checked shapes; bound_ms the least time for the
+    # same calls' work at the H100's published rates (summed likewise),
+    # bound_by the term that binds most of it; library_ms one PyTorch call
+    # per call where one computes the same function, else null (K5 and K6:
+    # summed over library_tags, beside ms_over_library_tags, the kernel's
+    # own time over the same tags)
     launches = {"K1": e2e["f32"]["launches"], "K2": fwd["f32"]["v2"]["launches"],
                 "K3": fwd["f32"]["v3"]["launches"], "K4": dep["f32"]["k4_launches"],
                 "K5": kernels["K5"]["launches"], "K6": kernels["K6"]["launches"]}
@@ -575,8 +570,12 @@ def main() -> None:
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces or kernels[key]["replaces"], "launches": launches[key],
         "max_abs_err": kernels[key]["max_abs_err"], "ms": kernels[key]["ms"],
-        "plain_ms": kernels[key]["plain_ms"], "events_ms": kernels[key]["events_ms"],
+        "plain_ms": kernels[key]["plain_ms"], "bound_ms": kernels[key]["bound_ms"],
+        "bound_by": kernels[key]["bound_by"], "library_ms": kernels[key]["library_ms"],
+        "events_ms": kernels[key]["events_ms"],
         "plain_events_ms": kernels[key]["plain_events_ms"],
+        **{f: kernels[key][f] for f in ("library_tags", "ms_over_library_tags")
+           if f in kernels[key]},
     } for key, name, source, replaces in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

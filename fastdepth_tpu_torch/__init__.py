@@ -7,15 +7,18 @@ written by hand in CUDA C++ for every kernel the JAX package wrote in
 Pallas for the TPU (``ops/cuda/``).  Module paths mirror
 ``fastdepth_tpu``'s, so each counterpart sits under the same name.
 
-The JAX package's modules that hold no JAX are reused, not copied:
-``fastdepth_tpu.config``, ``fastdepth_tpu.data``, the npz checkpoint
-format of ``fastdepth_tpu.checkpoint.io`` and ``fastdepth_tpu.viz``.
-This package never imports ``jax``.
+The port stands alone: it imports neither ``jax`` nor anything of
+``fastdepth_tpu``.  What it shares with the JAX package holds no JAX and
+is kept here as its own copy — ``config``, the host data pipeline
+``data`` (with the native preprocessing library, ``csrc/preprocess.cpp``),
+the npz checkpoint format and ``.pth`` converter ``checkpoint.io`` /
+``checkpoint.convert``, ``viz`` and the roofline formulas.  The tests
+(tests/test_torch_*.py) hold each copy equal to its original.
 """
 
 __version__ = "0.1.0"
 
-from fastdepth_tpu.config import (  # noqa: F401
+from fastdepth_tpu_torch.config import (  # noqa: F401
     ModelConfig,
     MOBILENET_V1_CHANNELS,
     PRUNED_ENCODER_CHANNELS,
@@ -32,12 +35,12 @@ _EXPORTS = {
     "fastdepth_unpruned": "fastdepth_tpu_torch.models.registry",
     "params_from_jax": "fastdepth_tpu_torch.checkpoint.from_jax",
     "params_to_jax": "fastdepth_tpu_torch.checkpoint.from_jax",
-    "load_checkpoint": "fastdepth_tpu.checkpoint.io",
-    "NYUDataset": "fastdepth_tpu.data.nyu",
-    "BatchLoader": "fastdepth_tpu.data.loader",
-    "ValPipeline": "fastdepth_tpu.data.pipeline",
-    "RAW_SIZE": "fastdepth_tpu.data.nyu",
-    "OUTPUT_SIZE": "fastdepth_tpu.data.nyu",
+    "load_checkpoint": "fastdepth_tpu_torch.checkpoint.io",
+    "NYUDataset": "fastdepth_tpu_torch.data.nyu",
+    "BatchLoader": "fastdepth_tpu_torch.data.loader",
+    "ValPipeline": "fastdepth_tpu_torch.data.pipeline",
+    "RAW_SIZE": "fastdepth_tpu_torch.data.nyu",
+    "OUTPUT_SIZE": "fastdepth_tpu_torch.data.nyu",
     "Evaluator": "fastdepth_tpu_torch.engine.evaluator",
     "compile_forward": "fastdepth_tpu_torch.engine.aot",
     "validate": "fastdepth_tpu_torch.engine.evaluator",

@@ -1,6 +1,6 @@
 """The JAX package's npz parameter tree <-> the port's state dict.
 
-The tree (``fastdepth_tpu.checkpoint.io``; nested dicts of numpy arrays,
+The tree (``checkpoint.io``, the JAX package's npz format; nested dicts of numpy arrays,
 NHWC/HWIO layout) is the interchange format.  A state-dict key is the
 npz key with ``/`` replaced by ``.``; conv weights turn HWIO
 ``(kh, kw, cin, cout)`` -> OIHW ``(cout, cin, kh, kw)``, which maps a
@@ -18,7 +18,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from fastdepth_tpu.checkpoint.io import flatten_tree, unflatten_tree
+from fastdepth_tpu_torch.checkpoint.io import flatten_tree, unflatten_tree
 
 
 def _is_conv_weight(key: str, arr) -> bool:

@@ -50,6 +50,20 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def load_input(path: str) -> np.ndarray:
+    """Accepts (H, W, 3), (3, H, W), or (1, 3, H, W) float arrays; returns
+    (1, H, W, 3) float32 (the reference feeds 1x3x224x224 NCHW,
+    tx2_run_tvm.py:28-33)."""
+    arr = np.asarray(np.load(path), np.float32)
+    if arr.ndim == 4:
+        arr = arr[0]
+    if arr.ndim != 3:
+        raise ValueError(f"bad input shape {arr.shape}")
+    if arr.shape[0] == 3 and arr.shape[-1] != 3:
+        arr = np.transpose(arr, (1, 2, 0))
+    return arr[None]
+
+
 def main(argv=None):
     args = parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -58,7 +72,6 @@ def main(argv=None):
     if not os.path.isfile(args.model):
         raise SystemExit(f"=> no model found at '{args.model}'")
 
-    from fastdepth_tpu.cli.deploy import load_input
     from fastdepth_tpu_torch.cli.evaluate import load_params_and_model
     from fastdepth_tpu_torch.engine.aot import compile_forward, flops_estimate
     from fastdepth_tpu_torch.engine.benchmark import time_fn, time_randomized

@@ -6,7 +6,7 @@ Usage:
     python -m fastdepth_tpu_torch.cli.evaluate --evaluate CKPT --data-root DIR [...]
 
 CKPT is a native .npz checkpoint or a reference PyTorch .pth[.tar]
-pickle, converted on load by the JAX package's jax-free converter
+pickle, converted on load by the port's copy of the converter
 (unpickling a full-module checkpoint executes code: pass TRUSTED .pth
 files only).  Extras over the reference CLI: --batch-size, --bf16,
 --no-fold-bn, --impl, --device-normalize, --no-images, --split, --csv,
@@ -60,11 +60,11 @@ def load_params_and_model(path: str):
     from fastdepth_tpu_torch.models import build
 
     if path.endswith(".npz"):
-        from fastdepth_tpu.checkpoint.io import load_checkpoint
+        from fastdepth_tpu_torch.checkpoint.io import load_checkpoint
 
         tree, cfg, meta = load_checkpoint(path)
     else:
-        from fastdepth_tpu.checkpoint.convert import convert_checkpoint
+        from fastdepth_tpu_torch.checkpoint.convert import convert_checkpoint
 
         tree, cfg, meta = convert_checkpoint(path)
     model = build(cfg)
@@ -82,7 +82,7 @@ def main(argv=None):
     params, model, meta = load_params_and_model(args.evaluate)
     print(f"=> loaded model (epoch {meta.get('epoch', 0)})")
 
-    from fastdepth_tpu.data import BatchLoader, NYUDataset
+    from fastdepth_tpu_torch.data import BatchLoader, NYUDataset
     from fastdepth_tpu_torch.engine import Evaluator, validate
 
     print("=> creating data loaders...")

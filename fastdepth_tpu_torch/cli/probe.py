@@ -5,8 +5,12 @@ version, held against each other.
 For each tag it prints the scripts' line, ``tag: OK (s) sum=...``, then
 the kernel's max|kernel - plain| against its bound and both times: on a
 card, device time (CUDA events around a CUDA graph of the calls, which
-leaves out the host's launch time) and CUDA-event time of pipelined
-calls; on the CPU, where the wrappers run their plain versions, CPU times.
+leaves out the host's launch time, cycling through enough copies of the
+operands to read them from device memory) and CUDA-event time of
+pipelined calls; on the CPU, where the wrappers run their plain versions,
+CPU times.  Beside them: the least time for the call's work at the
+H100's published rates (``bound``, bytes or operations) and, where one
+PyTorch call computes the same function, that call's device time.
 ``--sweep`` adds the ``dma_copy`` bandwidth sweep (card only).
 
 The scripts printed FAIL and carried on, because they bisected a
@@ -29,7 +33,8 @@ from typing import List, Optional
 import torch
 
 from fastdepth_tpu_torch.engine import probes as P
-from fastdepth_tpu_torch.engine.benchmark import sync, time_graph, time_pipelined
+from fastdepth_tpu_torch.engine.benchmark import (bound_us, cold_copies, sync, time_graph,
+                                                  time_pipelined)
 
 
 def parse_args(argv=None):
@@ -62,11 +67,19 @@ def probe_row(tag: str, device: torch.device, calls: int = 20) -> dict:
            "sum": float(got.double().sum()), "max_abs_err": err, "bound": P.bound(tag, want),
            "finite": bool(torch.isfinite(got.float()).all())}
     row["ok"] = row["finite"] and err <= row["bound"]
+    nbytes, core, tensor = P.work(tag, args, want)
+    row["bound_us"], row["bound_by"] = bound_us(nbytes, core, tensor)
     if calls > 0:
         with torch.inference_mode():
             if device.type == "cuda":
-                row["device_us"] = time_graph(probe.kernel, args, calls=calls) * 1e6
-                row["plain_device_us"] = time_graph(probe.plain, args, calls=calls) * 1e6
+                # distinct copies of the operands, > 2x the L2 per cycle
+                sets = [args] + [tuple(a.clone() if a is not None else None for a in args)
+                                 for _ in range(cold_copies(nbytes) - 1)]
+                row["device_us"] = time_graph(probe.kernel, sets, calls=calls) * 1e6
+                row["plain_device_us"] = time_graph(probe.plain, sets, calls=calls) * 1e6
+                if probe.library is not None:
+                    row["library_device_us"] = time_graph(probe.library, sets,
+                                                          calls=calls) * 1e6
             for key, fn in (("", probe.kernel), ("plain_", probe.plain)):
                 t = time_pipelined(fn, args, calls=calls, device=device)["mean_s"] * 1e6
                 row[f"{key}{'events' if device.type == 'cuda' else 'cpu'}_us"] = t
@@ -79,7 +92,10 @@ def format_row(row: dict) -> str:
             f"sum={row['sum']:.1f}")
     tail = f"  {row['kernel']} max|diff| {row['max_abs_err']:.3e} (bound {row['bound']:.3e})"
     if "device_us" in row:
-        tail += (f", device {row['device_us']:.2f} us (plain {row['plain_device_us']:.2f}), "
+        lib = (f", library {row['library_device_us']:.2f}" if "library_device_us" in row
+               else "")
+        tail += (f", device {row['device_us']:.2f} us (plain {row['plain_device_us']:.2f}"
+                 f"{lib}; bound {row['bound_us']:.2f}, {row['bound_by']}), "
                  f"events {row['events_us']:.2f} us (plain {row['plain_events_us']:.2f})")
     elif "cpu_us" in row:
         tail += f", cpu {row['cpu_us']:.1f} us (plain {row['plain_cpu_us']:.1f})"

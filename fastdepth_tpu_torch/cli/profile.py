@@ -38,7 +38,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from fastdepth_tpu.config import MOBILENET_STRIDES
+from fastdepth_tpu_torch.config import MOBILENET_STRIDES
 from fastdepth_tpu_torch.engine import roofline as RL
 from fastdepth_tpu_torch.models import layers as L
 from fastdepth_tpu_torch.models.fastdepth import SKIP_AFTER, SKIP_TAPS

@@ -12,13 +12,19 @@ helpers fail rather than time the CPU.
 
 from __future__ import annotations
 
+import math
 import time
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, Sequence, Union
 
 import numpy as np
 import torch
 
 Device = Union[str, torch.device]
+
+# Twice the H100's 50 MB L2: a replay of :func:`time_graph` that cycles
+# through this many bytes of distinct operands reads them from device
+# memory, as a caller on the main path does.
+COLD_BYTES = 100 * 2 ** 20
 
 
 def sync(device: Device = "cuda") -> None:
@@ -102,33 +108,88 @@ def time_randomized(fn: Callable, make_input: Callable[[int], object], *, warmup
     return _stats(times)
 
 
-def time_graph(fn: Callable, args=(), *, calls: int = 20) -> float:
-    """Device seconds per call: ``calls`` calls of ``fn(*args)`` captured
-    in one CUDA graph (after 3 warm-up calls), the graph replayed between
-    CUDA events (median of 3 replays).  The card runs the calls' kernels back to back with no
-    host launch in between, so unlike :func:`time_pipelined` a call
-    shorter than its host launch time reads as its own device time.
-    ``fn`` must not synchronise with the host.  Capturing runs ``fn``'s
-    Python ``calls`` times (a wrapper's launch count rises by that much);
-    the replays run the kernels without it.  Needs a CUDA device."""
+def cold_copies(nbytes: int, cold_bytes: int = COLD_BYTES) -> int:
+    """How many distinct copies of a call's operands (``nbytes`` read and
+    written per call) one cycle of :func:`time_graph` needs to touch
+    ``cold_bytes``, so that no call finds its operands in L2."""
+    return max(1, math.ceil(cold_bytes / max(1, nbytes)))
+
+
+def time_graph(fn: Callable, arg_sets: Sequence[tuple], *, calls: int = 20) -> float:
+    """Device seconds per call: ``max(calls, len(arg_sets))`` calls of
+    ``fn``, call ``i`` on ``arg_sets[i % len(arg_sets)]``, captured in one
+    CUDA graph (after a warm-up call on each set), the graph replayed
+    between CUDA events (median of 3 replays).  Distinct argument sets
+    whose bytes together exceed the L2 (:func:`cold_copies`) make every
+    call read its operands from device memory; one set replays warm.
+    The card runs the calls' kernels back to back with no host launch in
+    between, so unlike :func:`time_pipelined` a call shorter than its host
+    launch time reads as its own device time.  ``fn`` must not
+    synchronise with the host.  Capturing runs ``fn``'s Python once per
+    call (a wrapper's launch count rises by that much); the replays run
+    the kernels without it.  Needs a CUDA device."""
     if not torch.cuda.is_available():
         raise RuntimeError("time_graph needs a CUDA device")
+    if not arg_sets or not all(isinstance(a, tuple) for a in arg_sets):
+        raise ValueError("time_graph takes a non-empty list of argument tuples")
+    calls = max(calls, len(arg_sets))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up off the capture stream, as CUDA graphs want
-        for _ in range(3):
+        for args in arg_sets:
             fn(*args)
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn(*args)
+        for i in range(calls):
+            fn(*arg_sets[i % len(arg_sets)])
     graph.replay()
     torch.cuda.synchronize()
     measure = _stopwatch("cuda")
     times = [measure(graph.replay) for _ in range(3)]
     return float(np.median(times)) / calls
+
+
+def tolerance(want: torch.Tensor) -> float:
+    """How far a kernel may stray from its plain version ``want`` (the
+    plain result in the kernel's dtype): f32 1e-4 * max(1, max|plain|),
+    the order of the sums only (TF32 off); bf16 2^-7 * max|plain|, one
+    bf16 rounding of the output plus the order."""
+    scale = float(want.float().abs().max())
+    return 1e-4 * max(1.0, scale) if want.dtype == torch.float32 else 2.0 ** -7 * scale
+
+
+def compare_and_time(fn: Callable, plain: Callable, arg_sets: Sequence[tuple], *,
+                     counter=None, calls: int = 20) -> Dict[str, float]:
+    """A kernel's wrapper ``fn`` against its ``plain`` version on the card:
+    max|diff| on ``arg_sets[0]`` against :func:`tolerance` (``ok``), then
+    both device times per call (:func:`time_graph` cycling through
+    ``arg_sets``, which should hold :func:`cold_copies` distinct sets) and
+    both CUDA-event times of pipelined calls on the first set (host launch
+    time included where a call is shorter than it).  ``counter``, a
+    module with a ``LAUNCHES`` count, must rise by one on the checked
+    call: a wrapper that did not launch its kernel raises.  Needs a CUDA
+    device."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("compare_and_time needs a CUDA device")
+    with torch.inference_mode():
+        before = counter.LAUNCHES if counter is not None else 0
+        got = fn(*arg_sets[0])
+        if counter is not None and counter.LAUNCHES != before + 1:
+            raise RuntimeError(f"{getattr(fn, '__name__', fn)} did not launch its kernel")
+        want = plain(*arg_sets[0])
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        tol = tolerance(want)
+        row = {"max_abs_err": err, "tol": tol,
+               "ok": bool(err <= tol and torch.isfinite(got.float()).all()),
+               "copies": len(arg_sets)}
+        for key, f in (("", fn), ("plain_", plain)):
+            row[f"{key}us"] = time_graph(f, arg_sets, calls=calls) * 1e6
+            row[f"{key}events_us"] = float(np.median(
+                [time_pipelined(f, arg_sets[0], calls=calls)["mean_s"] for _ in range(3)])) * 1e6
+    return row
 
 
 def time_pipelined(fn: Callable, args=(), *, warmup: int = 3, calls: int = 30,
@@ -145,3 +206,44 @@ def time_pipelined(fn: Callable, args=(), *, warmup: int = 3, calls: int = 30,
     total = _stopwatch(device)(run)
     return {"mean_s": total / calls, "median_s": total / calls,
             "total_s": total, "calls": float(calls)}
+
+
+# --- the least time for a kernel's work ---------------------------------
+
+# One H100 SXM's data sheet at 700 W (dense rates): device memory
+# (bytes/s), f32 operations on the CUDA cores and bf16 operations on the
+# tensor cores (FLOP/s).  A bound is stated against these published peaks;
+# the ceilings engine/calibrate.py measures (docs/probe_h100_hbm.json) are
+# lower, and a share of them is derived from this bound where needed.
+RATES = {"hbm_bps": 3.35e12, "f32_flops": 67e12, "bf16_tensor_flops": 989e12}
+
+
+def bound_us(nbytes: float, core_flops: float = 0.0, tensor_flops: float = 0.0):
+    """(microseconds, "bytes" or "operations"): the least time for work
+    that moves ``nbytes`` (each input read once, each output written
+    once), does ``core_flops`` f32 operations on the CUDA cores and
+    ``tensor_flops`` bf16 operations on the tensor cores; the larger of
+    the memory time and the busier unit's time, and which one binds, on
+    the published :data:`RATES`."""
+    r = RATES
+    mem = nbytes / r["hbm_bps"] * 1e6
+    ops = max(core_flops / r["f32_flops"], tensor_flops / r["bf16_tensor_flops"]) * 1e6
+    return (mem, "bytes") if mem >= ops else (ops, "operations")
+
+
+def stage_work(n: int, h: int, w: int, c: int, cout: int, skip: bool, elem_bytes: int,
+               tensor_cores: bool = False):
+    """(bytes, CUDA-core FLOPs, tensor-core FLOPs) of one fused decoder
+    level (K1-K3's function): x, the weights and the skip read once, the
+    output written once; 25 FMAs per input element for the depthwise,
+    C x Cout FMAs per pixel for the pointwise (on the tensor cores where
+    ``tensor_cores``), and the bias/ReLU/skip adds."""
+    px = n * h * w
+    nbytes = elem_bytes * (px * c + 27 * c + c * cout + cout
+                           + (2 if skip else 1) * 4 * px * cout)
+    dw = 2 * 25 * px * c + 2 * px * c
+    pw = 2 * px * c * cout
+    epilogue = 2 * px * cout + (4 * px * cout if skip else 0)
+    if tensor_cores:
+        return nbytes, dw + epilogue, pw
+    return nbytes, dw + pw + epilogue, 0

@@ -19,7 +19,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from fastdepth_tpu import viz
+from fastdepth_tpu_torch import viz
 from fastdepth_tpu_torch import metrics as M
 from fastdepth_tpu_torch.engine.aot import _prepare
 from fastdepth_tpu_torch.models.registry import Model

@@ -141,6 +141,10 @@ class Probe:
     plain: Callable[..., torch.Tensor]
     exact: bool
     dtype: torch.dtype = torch.float32
+    # one PyTorch call computing the same function on the same inputs,
+    # where there is one (the yardstick chip_smoke.py times as library_ms)
+    library: Optional[Callable[..., torch.Tensor]] = None
+    mode: str = "copy"  # copy (K5), a K6 mode, or stage (K3): what work() counts
 
 
 def _t(a: np.ndarray, device: torch.device, dtype=torch.float32) -> torch.Tensor:
@@ -154,12 +158,19 @@ def _copy_probe(tag, script, line, group, view, *, scale=2.0, depth=1, prefetch=
     image, or the whole array as one row); the result takes ``x``'s shape."""
     kw = dict(scale=scale, depth=depth, prefetch=prefetch, bcast_c0=bcast_c0,
               chunk_bytes=chunk_bytes, blocks=blocks)
+    if bcast_c0:
+        def library(x):
+            v = view(x)  # a view: no work
+            return torch.add(v[..., :1], v, alpha=scale)
+    else:
+        def library(x):
+            return torch.mul(x, scale)
     return Probe(
         tag, script, f"{script}:{line}", "K5", group,
         lambda a, dev: (_t(a["x"], dev),),
         lambda x: KP.staged_copy(view(x), **kw).reshape(x.shape),
         lambda x: KP.staged_copy_reference(view(x), scale, bcast_c0).reshape(x.shape),
-        exact=True)
+        exact=True, library=library, mode="copy_bcast" if bcast_c0 else "copy")
 
 
 def _compute_probe(tag, script, line, group, mode):
@@ -169,7 +180,8 @@ def _compute_probe(tag, script, line, group, mode):
         lambda a, dev: (_t(a["x"], dev), _t(a["w"], dev) if matmul else None),
         lambda x, w: KP.staged_compute(x, w, mode),
         lambda x, w: KP.staged_compute_reference(x, w, mode),
-        exact=mode == "up_only")
+        exact=mode == "up_only",
+        library=(lambda x, w: torch.matmul(x, w)) if mode == "matmul" else None, mode=mode)
 
 
 def _stage_args(a, dev, dtype, skip: bool, weights=None):
@@ -189,7 +201,7 @@ def _stage_probe(tag, script, line, group, make_args, dtype):
         tag, script, f"{script}:{line}", "K3", group, make_args,
         lambda *ops: TB.to_nhwc(fused_decoder_stage_v3(*ops, block_batch=1)).contiguous(),
         lambda *ops: TB.to_nhwc(fused_decoder_stage_reference(*ops)).contiguous(),
-        exact=False, dtype=dtype)
+        exact=False, dtype=dtype, mode="stage")
 
 
 def _e_args(a, dev):
@@ -285,6 +297,28 @@ def run_plain(tag: str, device: Device = "cuda", args: Optional[Args] = None) ->
     return PROBES[tag].plain(*(args if args is not None else inputs(tag, device)))
 
 
+def work(tag: str, args: Args, out: torch.Tensor) -> Tuple[int, int, int]:
+    """(bytes, CUDA-core FLOPs, tensor-core FLOPs) of one call: every
+    operand read once and the output written once; the arithmetic of the
+    probe's function (f32 on the CUDA cores; K3's bf16 stage puts its
+    pointwise on the tensor cores' count)."""
+    p = PROBES[tag]
+    nbytes = sum(a.numel() * a.element_size() for a in args if a is not None)
+    nbytes += out.numel() * out.element_size()
+    x = args[0]
+    if p.mode.startswith("copy"):
+        return nbytes, x.numel() * (2 if p.mode == "copy_bcast" else 1), 0
+    if p.mode in ("matmul", "matmul_up"):
+        return nbytes, 2 * x.numel() * args[1].shape[-1], 0
+    if p.mode == "taps":
+        return nbytes, 50 * x.numel(), 0
+    if p.mode == "up_only":
+        return nbytes, 0, 0
+    px = x.shape[0] * x.shape[2] * x.shape[3]  # K3's stage: x (N, C, H, W)
+    dw, pw = 52 * px * x.shape[1], 2 * px * x.shape[1] * args[3].shape[1]
+    return (nbytes, dw + pw, 0) if p.dtype == torch.float32 else (nbytes, dw, pw)
+
+
 def bound(tag: str, plain: torch.Tensor) -> float:
     """The largest max|kernel - plain| the probe allows: 0 for the copies;
     1e-4 * max(1, max|plain|) in f32 (summation order only); 2^-7 *
@@ -322,7 +356,7 @@ def copy_sweep(device: Device = "cuda", sizes: Sequence[int] = SWEEP_SIZES, *,
                 with torch.inference_mode():
                     if not torch.equal(fn(x), x):
                         raise RuntimeError(f"K5's copy of {nbytes} bytes is not the input")
-                    dev_s = time_graph(fn, (x,), calls=calls)
+                    dev_s = time_graph(fn, [(x,)], calls=calls)
                     ev_s = time_pipelined(fn, (x,), calls=calls, device=device)["mean_s"]
                 rows.append({
                     "bytes": nbytes, "chunk_bytes": chunk, "script_chunk_rows": script_rows,

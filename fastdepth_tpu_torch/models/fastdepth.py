@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from fastdepth_tpu.config import ModelConfig
+from fastdepth_tpu_torch.config import ModelConfig
 from fastdepth_tpu_torch.models import layers as L
 from fastdepth_tpu_torch.models import mobilenet as MN
 from fastdepth_tpu_torch.ops import blocks as B

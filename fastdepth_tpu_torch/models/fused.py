@@ -25,7 +25,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from fastdepth_tpu.config import ModelConfig
+from fastdepth_tpu_torch.config import ModelConfig
 from fastdepth_tpu_torch.models import mobilenet as MN
 from fastdepth_tpu_torch.models.fastdepth import SKIP_AFTER, SKIP_TAPS
 from fastdepth_tpu_torch.ops import blocks as B

@@ -10,7 +10,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 from torch import nn
 
-from fastdepth_tpu.config import MOBILENET_STRIDES, MOBILENET_V1_CHANNELS
+from fastdepth_tpu_torch.config import MOBILENET_STRIDES, MOBILENET_V1_CHANNELS
 from fastdepth_tpu_torch.models import layers as L
 from fastdepth_tpu_torch.ops import blocks as B
 

@@ -14,7 +14,7 @@ from typing import Dict, Optional, Union
 import torch
 from torch import nn
 
-from fastdepth_tpu.config import (
+from fastdepth_tpu_torch.config import (
     FASTDEPTH_PRUNED,
     FASTDEPTH_UNPRUNED,
     ModelConfig,

@@ -11,6 +11,10 @@ already there.  The build writes a temporary file and renames it into
 place, so a concurrent or interrupted build never leaves a half-written
 library under the final name.
 
+:func:`build_native` builds the host preprocessing library
+(``csrc/preprocess.cpp``, loaded by ``data/native.py``) the same way with
+``g++`` and the flags of the JAX package's ``csrc/Makefile``.
+
 Nothing here runs at import time: the package imports on hosts without
 ``nvcc`` or a GPU, and only a kernel launch on a CUDA tensor builds.
 """
@@ -31,6 +35,12 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*GENCODE, "-std=c++17", "-O3", "-Xptxas=-v", "-Xcompiler", "-fPIC")
+
+# -ffp-contract=off: the PIL-exact blend (fd_blend_gray_u8) depends on
+# separately rounded mul + add; a fused FMA lands 1 off at exact-integer
+# blend results (Image.blend truncates the float32 intermediate).
+CXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-fPIC", "-shared", "-Wall")
+NATIVE_SOURCE = os.path.join(CSRC_DIR, "preprocess.cpp")
 
 _LIB: Optional[ctypes.CDLL] = None
 _FUNCS: dict = {}
@@ -57,14 +67,39 @@ def headers() -> list:
     return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
 
 
-def library_path(files, flags=NVCC_FLAGS) -> str:
+def library_path(files, flags=NVCC_FLAGS, stem="libfd_kernels") -> str:
     h = hashlib.sha256()
     for path in files:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(flags).encode())
-    return os.path.join(BUILD_DIR, f"libfd_kernels-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
+
+
+def build_native() -> str:
+    """Compile ``csrc/preprocess.cpp`` with ``g++`` (or ``$CXX``) unless a
+    library of the same hash exists; returns its path.  Raises when no
+    compiler is found or the compile fails."""
+    out = library_path([NATIVE_SOURCE], CXX_FLAGS, stem="libfdpreproc")
+    if os.path.exists(out):
+        return out
+    cxx = shutil.which(os.environ.get("CXX", "g++"))
+    if cxx is None:
+        raise RuntimeError("cannot build the native preprocessing library: no g++ found")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so.tmp", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([cxx, *CXX_FLAGS, "-o", tmp, NATIVE_SOURCE],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed (exit {proc.returncode}):\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
 
 
 def build(nvcc: Optional[str] = None) -> Tuple[str, str]:

@@ -10,7 +10,9 @@ launch runs a whole NNConv5(dw) decoder level,
 with the intermediates kept out of device memory.  The CUDA source is
 ``fastdepth_tpu_torch/csrc/fused_decoder.cu`` (its header says what
 bounds the kernel on the card and how the design answers it); it is built
-by ``_build`` at the first launch.
+by ``_build`` at the first launch.  :func:`launch_geometry` picks the
+launch (threads, pixel tile, Cout tile, C chunk, grid, shared memory) in
+closed form from the shapes and the dtype.
 
 Layouts: activations are logical NCHW tensors stored channels_last
 (NHWC memory), so the kernel reads the encoder's cuDNN output with no
@@ -26,6 +28,8 @@ raises.  ``LAUNCHES`` counts the launches of K1 and nothing else.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -37,7 +41,116 @@ LAUNCHES = 0
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
-_COUT_TILE = 64  # the widest Cout tile of the kernel's launch
+
+SMS = 132  # an H100 SXM's streaming multiprocessors
+MAX_SMEM = 232448  # the most shared memory a Hopper block may have (227 KB)
+SMEM_PER_SM = 233472  # 228 KB an SM
+# K1 takes at most 128 registers a thread (__launch_bounds__(256, 2)),
+# so an SM's 64 K registers hold 512 / threads blocks of its launch
+REG_THREADS_PER_SM = 512
+# pixels -> (rows, columns) of a block's pixel tile
+TILES = {8: (2, 4), 16: (4, 4), 32: (4, 8), 64: (8, 8), 128: (8, 16), 256: (16, 16),
+         512: (16, 32)}
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """One launch of K1: each block a ``tile_h`` x ``tile_w`` pixel tile
+    of one image and ``cout_tile`` output channels, its ``groups`` x
+    ``threads`` threads in ``groups`` groups that walk every
+    ``groups``-th chunk of ``chunk`` channels of C; ``grid`` is (images x
+    tiles, Cout tiles) and ``smem`` the dynamic shared memory in bytes."""
+
+    threads: int
+    tile_h: int
+    tile_w: int
+    cout_tile: int
+    chunk: int
+    groups: int
+    grid: Tuple[int, int]
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def smem_bytes(tile_h: int, tile_w: int, cout_tile: int, chunk: int, bf16: bool,
+               groups: int = 1) -> int:
+    """K1's shared memory (``Layout`` in fused_decoder.cu), per group: two
+    slots, each the halo, the pointwise weight and the depthwise taps (25
+    rows and the bias) of a chunk, and two depthwise tiles in the main
+    loop; the f32 output tile in the epilogue over the same bytes."""
+    elem = 2 if bf16 else 4
+    p = tile_h * tile_w
+    pix_words = chunk * elem // 4
+    pad_words = (pix_words * (1 - (tile_w + 4))) % 32  # rows kPixWords banks apart
+    halo = (tile_h + 4) * ((tile_w + 4) * chunk * elem + 4 * pad_words)
+    pw = chunk * (cout_tile + 8 if bf16 else cout_tile) * elem
+    taps = 26 * chunk * elem
+    dw = p * (chunk + 8) * 2 if bf16 else chunk * (p + 4) * 4
+    return groups * max(2 * (halo + pw + taps + dw), p * (cout_tile + 4) * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_geometry(N: int, H: int, W: int, C: int, Cout: int, dtype: torch.dtype) -> Geometry:
+    """K1's launch for one level, in closed form.
+
+    A block of ``T`` threads computes ``32 T`` outputs per pixel tile
+    (f32: each thread 4 pixels x 8 channels; bf16: each warp 32 x 32), so
+    pixel tile x Cout tile = ``32 T``.  The Cout tile is all of Cout
+    (rounded up to a power of two: a multiple of 8 in f32, of 32 in bf16)
+    up to 256, and the pixel tile holds at least 8 (f32) or 32 (bf16)
+    pixels.  ``T`` is the largest of 256 (128 for an f32 Cout tile of at
+    most 64), 128, 64, 32 whose grid covers the card's SMs once; a smaller
+    ``T`` shrinks the pixel tile and, once it is at its least, splits Cout
+    into more tiles (each recomputing the depthwise pass).  Where even 32
+    threads leave SMs idle, the grid is the largest there is.
+
+    Where the grid holds fewer than 1024 threads an SM, each block runs
+    up to 256 / ``T`` groups of ``T`` threads that split C between them,
+    at most one group a chunk; the groups' partial products are summed in
+    a fixed order.  The C chunk (32, 16 or 8 channels; bf16 32 or 16) is
+    the largest whose shared memory leaves room for as many blocks an SM
+    as the registers hold (K1 takes at most 128 a thread) or the grid
+    puts there; where even the least does not fit, the groups halve."""
+    if dtype not in DTYPES:
+        raise ValueError(f"K1 takes float32 or bfloat16, got {dtype}")
+    bf16 = dtype == torch.bfloat16
+    lanes, p_min = (32, 32) if bf16 else (8, 8)
+    nc_all = min(256, max(lanes, 1 << (Cout - 1).bit_length()))
+    # f32 levels whose Cout tile is at most 64 wide (the pruned levels 4-5)
+    # take at most 128 threads a block: their weight chunks are small, and
+    # four blocks an SM hide each other's barriers better than two
+    sizes = (128, 64, 32) if not bf16 and nc_all <= 64 else (256, 128, 64, 32)
+    options = []
+    for threads in sizes:
+        nc = min(nc_all, threads * 32 // p_min)
+        p = threads * 32 // nc
+        if p > max(TILES):
+            continue
+        th, tw = TILES[p]
+        grid = (N * _cdiv(H, th) * _cdiv(W, tw), _cdiv(Cout, nc))
+        options.append((grid[0] * grid[1], threads, th, tw, nc, grid))
+    blocks, threads, th, tw, nc, grid = next((o for o in options if o[0] >= SMS),
+                                             max(options))
+    chunks = (32, 16) if bf16 else (32, 16, 8)
+    groups = 1
+    while (2 * groups * threads <= 256 and blocks * threads * groups < SMS * 1024
+           and 2 * groups <= _cdiv(C, chunks[-1])):
+        groups *= 2
+    per_sm = min(REG_THREADS_PER_SM // (threads * groups), _cdiv(blocks, SMS))
+    budget = SMEM_PER_SM // per_sm - 1024  # each block with the 1 KB the runtime keeps
+    chunk = next((k for k in chunks if groups <= _cdiv(C, k)
+                  and smem_bytes(th, tw, nc, k, bf16, groups) <= budget), chunks[-1])
+    while smem_bytes(th, tw, nc, chunk, bf16, groups) > MAX_SMEM:
+        groups //= 2
+    return Geometry(threads, th, tw, nc, chunk, groups, grid,
+                    smem_bytes(th, tw, nc, chunk, bf16, groups))
 
 
 def kernel_weights(dw_w: torch.Tensor, pw_w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -157,9 +270,10 @@ def fused_decoder_stage(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
     N, C, H, W, Cout = check_stage(x, dw_w, dw_b, pw_w, pw_b, skip)
     if use_plain_version("K1", x):
         return fused_decoder_stage_reference(x, dw_w, dw_b, pw_w, pw_b, skip)
-    if N > _MAX_GRID_YZ or -(-Cout // _COUT_TILE) > _MAX_GRID_YZ:
-        raise ValueError(f"K1's grid takes at most {_MAX_GRID_YZ} images and "
-                         f"Cout tiles, got N={N}, Cout={Cout}")
-    out = launch_stage("fd_fused_decoder_stage", "K1", x, dw_w, dw_b, pw_w, pw_b, skip)
+    g = launch_geometry(N, H, W, C, Cout, x.dtype)
+    if g.grid[0] >= 2 ** 31 or g.grid[1] > _MAX_GRID_YZ:
+        raise ValueError(f"K1's grid {g.grid} is too large for one launch")
+    out = launch_stage("fd_fused_decoder_stage", "K1", x, dw_w, dw_b, pw_w, pw_b, skip,
+                       extra=(g.threads, g.tile_h, g.tile_w, g.cout_tile, g.chunk, g.groups))
     LAUNCHES += 1
     return out

@@ -13,7 +13,13 @@ from fastdepth_tpu.checkpoint.io import flatten_tree, load_checkpoint
 from fastdepth_tpu.config import ModelConfig
 from fastdepth_tpu.models import build as jax_build
 from fastdepth_tpu_torch.checkpoint import params_from_jax, params_to_jax
-from fastdepth_tpu_torch.models import build
+from fastdepth_tpu_torch.models import build as port_build
+from torch_port_config import to_port
+
+
+def build(cfg):
+    """The port's model for a configuration built with the JAX class."""
+    return port_build(to_port(cfg))
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(REPO, "docs", "rehearsal_model_r5.npz")

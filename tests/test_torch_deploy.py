@@ -94,7 +94,7 @@ def test_deploy_cli_profile_writes_a_trace(tiny_ckpt, rgb_npy, tmp_path):  # noq
 
 @pytest.fixture(scope="module")
 def tiny_model():
-    from fastdepth_tpu.config import ModelConfig
+    from fastdepth_tpu_torch.config import ModelConfig
     from fastdepth_tpu_torch.models import build
     from fastdepth_tpu_torch.models.fastdepth import make_fastdepth
 
@@ -162,6 +162,61 @@ def test_timing_helpers_on_the_cpu():
     assert piped["calls"] == 4.0 and piped["total_s"] >= 0
     with pytest.raises(ValueError, match="cannot time"):
         BM.time_fn(lambda: None, device="meta")
+
+
+def test_cold_copies_and_the_graph_timers_arguments():
+    from fastdepth_tpu_torch.engine import benchmark as BM
+
+    assert BM.COLD_BYTES == 100 * 2 ** 20  # twice the H100's 50 MB L2
+    assert BM.cold_copies(BM.COLD_BYTES) == 1 and BM.cold_copies(2 * BM.COLD_BYTES) == 1
+    assert BM.cold_copies(BM.COLD_BYTES // 3) == 4 and BM.cold_copies(0) > 1
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            BM.time_graph(lambda: None, [()])
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_stage_work_and_its_bound(skip, bf16):
+    """One decoder level's bytes (x, weights and skip read once, the
+    output written once) and FLOPs, and the bound on the published rates:
+    the pruned 7^2 level is bound by its arithmetic in f32 at b128, every
+    level by its bytes in bf16."""
+    from fastdepth_tpu_torch.engine import benchmark as BM
+
+    elem = 2 if bf16 else 4
+    n, h, c, cout = 128, 7, 512, 200
+    nbytes, core, tensor = BM.stage_work(n, h, h, c, cout, skip, elem, tensor_cores=bf16)
+    px = n * h * h
+    assert nbytes == elem * (px * c + 27 * c + c * cout + cout
+                             + (2 if skip else 1) * 4 * px * cout)
+    assert core + tensor == 52 * px * c + 2 * px * c * cout + 2 * px * cout + (
+        4 * px * cout if skip else 0)
+    assert (tensor > 0) == bf16
+    us, by = BM.bound_us(nbytes, core, tensor)
+    assert by == ("bytes" if bf16 else "operations")
+    rates = BM.RATES
+    assert rates == {"hbm_bps": 3.35e12, "f32_flops": 67e12, "bf16_tensor_flops": 989e12}
+    want = max(nbytes / rates["hbm_bps"], core / rates["f32_flops"],
+               tensor / rates["bf16_tensor_flops"]) * 1e6
+    assert us == pytest.approx(want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tolerance_of_a_kernel_against_its_plain_version(dtype):
+    """f32: 1e-4 * max(1, max|plain|); bf16: 2^-7 * max|plain|, from the
+    plain result's own dtype."""
+    from fastdepth_tpu_torch.engine import benchmark as BM
+
+    small = torch.tensor([0.25, -0.5]).to(dtype)
+    large = torch.tensor([3.0, -8.0]).to(dtype)
+    if dtype == torch.float32:
+        assert BM.tolerance(small) == 1e-4 and BM.tolerance(large) == pytest.approx(8e-4)
+    else:
+        assert BM.tolerance(small) == 2.0 ** -8 and BM.tolerance(large) == 2.0 ** -4
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            BM.compare_and_time(torch.neg, torch.neg, [(small,)])
 
 
 def test_profiler_trace_is_a_no_op_without_a_directory(tmp_path):

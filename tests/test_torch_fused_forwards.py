@@ -9,9 +9,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from fastdepth_tpu.config import ModelConfig
 from fastdepth_tpu.models import fused as JF
 from fastdepth_tpu_torch.checkpoint import params_to_jax
+from fastdepth_tpu_torch.config import ModelConfig
 from fastdepth_tpu_torch.models import build
 from fastdepth_tpu_torch.models.fastdepth import make_fastdepth
 from fastdepth_tpu_torch.models import fused as F
@@ -19,6 +19,7 @@ from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
 from fastdepth_tpu_torch.ops.cuda import fused_decoder_hwbc as K2
 from fastdepth_tpu_torch.ops.cuda import fused_decoder_v3 as K3
 from fastdepth_tpu_torch.ops.cuda import head as K4
+from torch_port_config import to_jax
 
 TINY_ENC = (4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24)
 TINY_DEC = (18, 14, 10, 6, 4)
@@ -52,7 +53,7 @@ def test_fused_forwards_match_jax(rng, folded, name):
     jax_fwd, port_fwd, mod = FORWARDS[name]
     jfolded, tree = folded
     x = rng.rand(3, 64, 64, 3).astype(np.float32)
-    want = np.asarray(jax_fwd(jfolded, jnp.asarray(x), CFG, interpret=True))
+    want = np.asarray(jax_fwd(jfolded, jnp.asarray(x), to_jax(CFG), interpret=True))
     counts = (mod.LAUNCHES, K4.LAUNCHES)
     with torch.no_grad():
         got = port_fwd(tree, torch.from_numpy(x), CFG)

@@ -16,8 +16,9 @@ import jax
 from fastdepth_tpu.config import FASTDEPTH_PRUNED, FASTDEPTH_UNPRUNED, ModelConfig
 from fastdepth_tpu.models import build as jax_build
 from fastdepth_tpu_torch.checkpoint import params_from_jax
-from fastdepth_tpu_torch.models import build
+from fastdepth_tpu_torch.models import build as port_build
 from fastdepth_tpu_torch.ops import init as I
+from torch_port_config import to_port
 
 TINY_ENC = (4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24)
 TINY_DEC = (18, 14, 10, 6, 4)
@@ -27,6 +28,11 @@ CONFIGS = {
     "tiny_concat": ModelConfig(skip="concat", encoder_channels=TINY_ENC,
                                decoder_channels=TINY_DEC),
 }
+
+
+def build(cfg):
+    """The port's model for a configuration built with the JAX class."""
+    return port_build(to_port(cfg))
 
 
 def _formula_std(shape):

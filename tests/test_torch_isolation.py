@@ -1,0 +1,176 @@
+"""The port stands alone: no module of ``fastdepth_tpu_torch`` and not
+``chip_smoke.py`` imports, opens or executes anything of the JAX package
+``fastdepth_tpu`` or of ``jax``.  Checked twice: statically (``ast``) over
+every source, and by importing and running the port with both packages
+blocked from import."""
+
+import ast
+import glob
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SOURCES = sorted(os.path.relpath(p, REPO) for p in glob.glob(
+    os.path.join(REPO, "fastdepth_tpu_torch", "**", "*.py"), recursive=True))
+SOURCES.append("chip_smoke.py")
+FORBIDDEN = ("fastdepth_tpu", "jax", "jaxlib")
+# calls that open, run or import what a string names
+LOADERS = {"open", "exec", "execfile", "run_path", "run_module", "spec_from_file_location",
+           "import_module", "__import__", "load_source", "Popen", "run", "call", "check_call",
+           "check_output", "system", "CDLL", "LoadLibrary"}
+# the blocked run: the JAX package and JAX import as None, so any import raises
+BLOCK = ('import sys\nfor _m in ("fastdepth_tpu", "jax", "jaxlib"):\n'
+         '    sys.modules[_m] = None\n')
+
+
+def _forbidden_module(name):
+    return name is not None and any(name == m or name.startswith(m + ".") for m in FORBIDDEN)
+
+
+def _strings(node):
+    return [n.value for n in ast.walk(node) if isinstance(n, ast.Constant)
+            and isinstance(n.value, str)]
+
+
+def _names_jax_package(s):
+    """A string that names the JAX package as a module or a path into it."""
+    s = s.replace("\\", "/")
+    return (_forbidden_module(s) or s.startswith("fastdepth_tpu/")
+            or "/fastdepth_tpu/" in s or s == "fastdepth_tpu")
+
+
+def violations(path):
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [f"{node.lineno}: import {a.name}" for a in node.names
+                    if _forbidden_module(a.name)]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and _forbidden_module(node.module):
+                bad.append(f"{node.lineno}: from {node.module} import ...")
+        elif isinstance(node, ast.Call):
+            fn = node.func
+            name = fn.attr if isinstance(fn, ast.Attribute) else getattr(fn, "id", None)
+            if name in LOADERS:
+                args = [*node.args, *(k.value for k in node.keywords)]
+                bad += [f"{node.lineno}: {name}({s!r})" for a in args for s in _strings(a)
+                        if _names_jax_package(s)]
+    return bad
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_no_source_imports_or_loads_the_jax_package(path):
+    assert violations(path) == []
+
+
+def test_the_guard_catches_what_it_forbids(tmp_path, monkeypatch):
+    src = ("import jax.numpy as jnp\nfrom fastdepth_tpu.config import ModelConfig\n"
+           "import fastdepth_tpu_torch\nfrom . import sibling\n"
+           "open('fastdepth_tpu/engine/roofline.py')\n"
+           "importlib.import_module('fastdepth_tpu.data')\n"
+           "spec_from_file_location('m', os.path.join(root, 'fastdepth_tpu/viz.py'))\n"
+           "print('fastdepth_tpu/ops/pallas/fused_decoder.py:50')\n")
+    (tmp_path / "m.py").write_text(src)
+    monkeypatch.setattr(sys.modules[__name__], "REPO", str(tmp_path))
+    assert [v.split(":")[0] for v in violations("m.py")] == ["1", "2", "5", "6", "7"]
+
+
+def _run(code, cwd=REPO, timeout=300):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", BLOCK + code], capture_output=True,
+                          text=True, cwd=cwd, env=env, timeout=timeout)
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    return proc.stdout
+
+
+def test_every_module_imports_with_the_jax_package_blocked():
+    code = """
+import importlib, pkgutil
+import fastdepth_tpu_torch as fd
+names = ["fastdepth_tpu_torch"]
+for sub in ("cli", "engine", "models", "checkpoint", "data", "ops", "ops.cuda"):
+    pkg = importlib.import_module("fastdepth_tpu_torch." + sub)
+    names.append(pkg.__name__)
+    names += [pkg.__name__ + "." + m.name for m in pkgutil.iter_modules(pkg.__path__)]
+for n in ("config", "metrics", "viz"):
+    names.append("fastdepth_tpu_torch." + n)
+for n in names:
+    importlib.import_module(n)
+for n in fd._EXPORTS:
+    getattr(fd, n)
+print(len(names))
+"""
+    assert int(_run(code).strip()) >= 40
+
+
+TINY = ("from fastdepth_tpu_torch import ModelConfig\n"
+        "CFG = ModelConfig(encoder_channels=(4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, "
+        "24), decoder_channels=(18, 14, 10, 6, 4))\n")
+
+
+@pytest.fixture(scope="module")
+def tiny_npz(tmp_path_factory):
+    """A tiny random-weight npz checkpoint written by the port alone."""
+    path = str(tmp_path_factory.mktemp("iso") / "tiny.npz")
+    _run(TINY + f"""
+import torch
+from fastdepth_tpu_torch.checkpoint import params_to_jax, save_checkpoint
+from fastdepth_tpu_torch.models import build
+model = build(CFG)
+save_checkpoint({path!r}, params_to_jax(model.init(torch.Generator().manual_seed(0)).state_dict()),
+                CFG, epoch=3)
+""")
+    return path
+
+
+def test_evaluate_cli_runs_on_the_cpu_with_the_jax_package_blocked(tiny_npz, tmp_path):
+    root = tmp_path / "nyudepthv2" / "val" / "scene"
+    root.mkdir(parents=True)
+    code = f"""
+import h5py, numpy as np
+rng = np.random.RandomState(0)
+for i in range(3):
+    with h5py.File({str(root)!r} + f"/{{i:05d}}.h5", "w") as f:
+        f["rgb"] = (rng.rand(3, 480, 640) * 255).astype(np.uint8)
+        f["depth"] = (rng.rand(480, 640) * 9 + 0.5).astype(np.float32)
+from fastdepth_tpu_torch.cli import evaluate
+avg = evaluate.main(["--evaluate", {tiny_npz!r}, "--data-root", {str(tmp_path)!r},
+                     "--batch-size", "2", "--device", "cpu", "--no-images", "--workers", "1"])
+print("rmse", avg.rmse)
+"""
+    out = _run(code)
+    assert "rmse" in out and "RMSE=" in out
+
+
+def test_deploy_cli_runs_on_the_cpu_with_the_jax_package_blocked(tiny_npz, tmp_path):
+    rgb = str(tmp_path / "rgb.npy")
+    np.save(rgb, np.random.RandomState(0).rand(64, 64, 3).astype(np.float32))
+    pred = str(tmp_path / "pred.npy")
+    _run(f"""
+from fastdepth_tpu_torch.cli import deploy
+deploy.main(["--model", {tiny_npz!r}, "--input-fp", {rgb!r}, "--output-fp", {pred!r},
+             "--warmup", "1", "--run", "2", "--device", "cpu"])
+""")
+    out = np.load(pred)
+    assert out.shape == (1, 1, 64, 64) and np.isfinite(out).all()
+
+
+def test_profile_and_probe_clis_run_on_the_cpu_with_the_jax_package_blocked(tmp_path):
+    out = _run(TINY + f"""
+from fastdepth_tpu_torch.cli import probe, profile
+from fastdepth_tpu_torch.models import build
+profile._model = lambda name: build(CFG)
+prof = profile.main(["--device", "cpu", "--batch", "1", "--image-size", "64", "--calls", "1",
+                     "--mode", "prefix", "--json", {str(tmp_path / "p.json")!r}])
+assert len(prof["layers"]) == 20
+assert probe.main(["--device", "cpu", "--calls", "1",
+                   "--tags", "A_static_dma", "matmul_128to64", "E_full_compute"]) == 0
+print("ok")
+""")
+    assert out.strip().endswith("ok")

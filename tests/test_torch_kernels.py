@@ -193,25 +193,108 @@ def test_build_without_nvcc_raises(monkeypatch):
         _build.find_nvcc()
 
 
+# (N, H, W, C, Cout, skip) on the card: the pruned flagship's five levels
+# and the unpruned model's first at batch 2 and batch 1, the other skip
+# choice at 14^2, batch 1 / 8 / 128 at the two largest levels, and ragged
+# shapes
+CARD_CASES = [
+    (2, 7, 7, 512, 200, False), (2, 14, 14, 200, 256, True), (2, 14, 14, 200, 256, False),
+    (2, 28, 28, 256, 120, True), (2, 56, 56, 120, 56, True), (2, 112, 112, 56, 16, False),
+    (2, 7, 7, 1024, 512, False), (2, 7, 7, 1024, 512, True),
+    *[(1, h, h, c, cout, skip) for h, c, cout, skip in (
+        (7, 512, 200, False), (14, 200, 256, True), (28, 256, 120, True),
+        (7, 1024, 512, False))],  # the deploy path's batch at the other levels
+    *[(n, 56, 56, 120, 56, True) for n in (1, 8, 128)],
+    *[(n, 112, 112, 56, 16, False) for n in (1, 8, 128)],
+    (2, 9, 9, 33, 13, True), (2, 9, 9, 33, 8, True), (2, 9, 9, 33, 200, False),
+    (3, 9, 9, 33, 200, True),
+    *[(*shape, True) for shape in SHAPES], *[(*shape, False) for shape in SHAPES],
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", CARD_CASES)
 def test_k1_matches_plain_version_on_the_card(shape, dtype, monkeypatch):
-    """On a CUDA device: K1 against its plain version (f32 bound 1e-4
-    relative; bf16 one output rounding, 2^-7 relative)."""
+    """On a CUDA device: K1 against its plain version (f32 bound
+    1e-4 * max(1, max|plain|), TF32 off; bf16 2^-7 * max|plain|: one
+    rounding of the depthwise result entering the tensor cores and one of
+    the output)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (on a GPU host: python -m pytest "
                     "--noconftest tests/test_torch_kernels.py -m cuda)")
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)  # true f32 convs
+    *dims, has_skip = shape
     rng = np.random.RandomState(0)
     ops = [t.to("cuda", dtype) if t is not None else None
-           for t in _port_operands(*_jax_operands(rng, *shape, True))]
+           for t in _port_operands(*_jax_operands(rng, *dims, has_skip))]
     ops[0] = ops[0].contiguous(memory_format=torch.channels_last)
-    ops[5] = ops[5].contiguous(memory_format=torch.channels_last)
+    if has_skip:
+        ops[5] = ops[5].contiguous(memory_format=torch.channels_last)
     before = K.LAUNCHES
     got = K.fused_decoder_stage(*ops)
     assert K.LAUNCHES == before + 1
     want = K.fused_decoder_stage_reference(*ops).float()
     scale = float(want.abs().max())
     bound = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 2.0 ** -7 * scale
+    assert got.is_contiguous(memory_format=torch.channels_last)
     assert float((got.float() - want).abs().max()) <= bound
+
+
+LEVELS = [(7, 512, 200), (14, 200, 256), (28, 256, 120), (56, 120, 56), (112, 56, 16),
+          (7, 1024, 512), (9, 33, 13), (9, 33, 200)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 8, 128])
+@pytest.mark.parametrize("level", LEVELS)
+def test_launch_geometry_covers_every_output_once(level, n, dtype):
+    """The launch K1 gets: every (image, pixel, output channel) in exactly
+    one block; at most 227 KB of shared memory; a block shape the kernel
+    takes; and at least one block per SM (132) wherever the level's
+    outputs fill two of the smallest blocks per SM (32 threads x 32
+    outputs each)."""
+    H, C, Cout = level
+    g = K.launch_geometry(n, H, H, C, Cout, dtype)
+    bf16 = dtype == torch.bfloat16
+    p = g.tile_h * g.tile_w
+    # the kernel's block shapes (fd_fused_decoder_stage's check)
+    assert g.threads in (32, 64, 128, 256) and g.tile_w in (4, 8, 16, 32)
+    assert g.groups in (1, 2, 4, 8) and g.groups * g.threads <= 256
+    assert g.groups <= -(-C // g.chunk)  # every group has a chunk of C
+    assert p * g.cout_tile == 32 * g.threads
+    assert g.cout_tile <= 256 and g.cout_tile & (g.cout_tile - 1) == 0
+    assert g.cout_tile >= (32 if bf16 else 8) and p >= (32 if bf16 else 8)
+    assert g.chunk in ((16, 32) if bf16 else (8, 16, 32))
+    if Cout <= 256:
+        # Cout splits only where a smaller split leaves SMs idle
+        assert g.cout_tile >= Cout or g.blocks >= K.SMS or g.threads == 32
+    assert g.smem == K.smem_bytes(g.tile_h, g.tile_w, g.cout_tile, g.chunk, bf16, g.groups)
+    assert g.smem <= K.MAX_SMEM
+    tiles_w = -(-H // g.tile_w)
+    tiles = -(-H // g.tile_h) * tiles_w
+    assert g.grid == (n * tiles, -(-Cout // g.cout_tile))
+    # every output exactly once: count each block's (image, pixel, Cout)
+    hits = np.zeros((n, H, H, Cout), np.int32)
+    for bx in range(g.grid[0]):
+        img, tile = divmod(bx, tiles)
+        h0, w0 = (tile // tiles_w) * g.tile_h, (tile % tiles_w) * g.tile_w
+        for by in range(g.grid[1]):
+            c0 = by * g.cout_tile
+            hits[img, h0:h0 + g.tile_h, w0:w0 + g.tile_w, c0:c0 + g.cout_tile] += 1
+    assert (hits == 1).all()
+    if n * H * H * Cout >= K.SMS * 2 * 32 * 32:
+        assert g.blocks >= K.SMS
+
+
+def test_launch_geometry_is_fixed_by_the_shapes():
+    """A closed-form function of (N, H, W, C, Cout, dtype): no state, no
+    knob; the largest blocks at b128, smaller ones where the batch is
+    small; the unpruned 512-wide level takes two Cout tiles."""
+    a = K.launch_geometry(128, 28, 28, 256, 120, torch.float32)
+    assert a == K.launch_geometry(128, 28, 28, 256, 120, torch.float32)
+    assert a.threads == 256 and a.cout_tile == 128  # all of Cout in one tile
+    assert K.launch_geometry(8, 7, 7, 512, 200, torch.float32).threads == 32
+    assert K.launch_geometry(128, 7, 7, 1024, 512, torch.float32).grid[1] == 2
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        K.launch_geometry(1, 7, 7, 8, 8, torch.float16)

@@ -15,6 +15,7 @@ from fastdepth_tpu.config import FASTDEPTH_PRUNED, FASTDEPTH_UNPRUNED, ModelConf
 from fastdepth_tpu.models import build as jax_build
 from fastdepth_tpu.ops import blocks as JB
 from fastdepth_tpu_torch.checkpoint import params_from_jax
+from torch_port_config import to_port
 from fastdepth_tpu_torch.engine.aot import _pick_apply
 from fastdepth_tpu_torch.models import build, from_name
 from fastdepth_tpu_torch.models import fused as F
@@ -49,7 +50,7 @@ def tiny():
 
 
 def _port(cfg, tree):
-    model = build(cfg)
+    model = build(to_port(cfg))
     return model, model.load(params_from_jax(_np(tree)))
 
 
@@ -139,7 +140,7 @@ def test_opt_forward_matches_jax_opt(rng, tiny, name):
     want = np.asarray(jax_opt(folded, jnp.asarray(x), cfg))
     model, p = _port(cfg, folded)
     with torch.no_grad():
-        got = F.apply_fastdepth_opt(p, torch.from_numpy(x), cfg)
+        got = F.apply_fastdepth_opt(p, torch.from_numpy(x), model.config)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
 
 
@@ -166,9 +167,9 @@ def test_fold_attaches_k1_layouts_outside_the_state_dict(tiny):
     assert tuple(stage.k1_pw.shape) == (TINY_ENC[-1], TINY_DEC[0])
     assert not any("k1_" in k for k in folded.state_dict())
     # the fused forward needs them: a tree folded some other way is refused
-    bare = build(cfg).load(folded.state_dict())
+    bare = build(model.config).load(folded.state_dict())
     with pytest.raises(ValueError, match="Model.fold"):
-        F.apply_fastdepth_fused(bare, torch.zeros(1, 32, 32, 3), cfg)
+        F.apply_fastdepth_fused(bare, torch.zeros(1, 32, 32, 3), model.config)
 
 
 def test_fullwidth_pruned_rehearsal_weights_match_jax(rng):
@@ -182,7 +183,7 @@ def test_fullwidth_pruned_rehearsal_weights_match_jax(rng):
     jfolded = jmodel.fold(jax.tree.map(jnp.asarray, tree))
     x = rng.rand(2, 224, 224, 3).astype(np.float32)
     want = np.asarray(jax.jit(jmodel.apply)(jfolded, jnp.asarray(x)))
-    model = build(cfg)
+    model = build(to_port(cfg))
     p = model.fold(model.load(params_from_jax(tree)))
     with torch.no_grad():
         got = _pick_apply(model, p, "auto", 2)(p, torch.from_numpy(x))
@@ -193,9 +194,9 @@ def test_fullwidth_pruned_rehearsal_weights_match_jax(rng):
 # --- registry and dispatch ----------------------------------------------
 
 def test_registry_names_and_unported_families():
-    assert from_name("mobilenet-nnconv5dw-skipadd-pruned").config == FASTDEPTH_PRUNED
-    assert fastdepth_pruned().config == FASTDEPTH_PRUNED
-    assert fastdepth_unpruned().config == FASTDEPTH_UNPRUNED
+    assert from_name("mobilenet-nnconv5dw-skipadd-pruned").config == to_port(FASTDEPTH_PRUNED)
+    assert fastdepth_pruned().config == to_port(FASTDEPTH_PRUNED)
+    assert fastdepth_unpruned().config == to_port(FASTDEPTH_UNPRUNED)
     assert from_name("mobilenet-nnconv5dw-skipconcat").config.skip == "concat"
     with pytest.raises(NotImplementedError, match="A11"):
         from_name("resnet18-nnconv5-skipadd")

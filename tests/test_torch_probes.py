@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from fastdepth_tpu_torch.cli import probe as probe_cli
+from fastdepth_tpu_torch.engine import benchmark as BM
 from fastdepth_tpu_torch.engine import probes as P
 from fastdepth_tpu_torch.ops import blocks as TB
 from fastdepth_tpu_torch.ops.cuda import probes as KP
@@ -207,6 +208,33 @@ def test_plain_version_matches_the_jax_probe(tag):
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     # on the CPU the kernel call is the plain version
     assert torch.equal(P.run(tag, "cpu"), P.run_plain(tag, "cpu"))
+
+
+@pytest.mark.parametrize("tag", [t for t, p in P.PROBES.items() if p.library is not None])
+def test_library_call_computes_the_probes_function(tag):
+    """The one-call yardstick (K5: torch.mul / torch.add, K6 matmul mode:
+    torch.matmul) gives the plain version's values on the same inputs."""
+    args = P.inputs(tag, "cpu")
+    want = P.run_plain(tag, "cpu", args)
+    got = P.PROBES[tag].library(*args)
+    np.testing.assert_allclose(got.float().reshape(want.shape).numpy(), want.float().numpy(),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("tag", list(P.PROBES))
+def test_work_counts_the_operands_and_the_arithmetic(tag):
+    args = P.inputs(tag, "cpu")
+    out = P.run_plain(tag, "cpu", args)
+    nbytes, core, tensor = P.work(tag, args, out)
+    operands = sum(a.numel() * a.element_size() for a in args if a is not None)
+    assert nbytes == operands + out.numel() * out.element_size()
+    p = P.PROBES[tag]
+    if p.mode in ("matmul", "matmul_up"):
+        assert core == 2 * args[0].numel() * args[1].shape[1] and tensor == 0
+    elif p.mode == "stage" and p.dtype == torch.bfloat16:
+        assert tensor > 0 and core > 0
+    us, by = BM.bound_us(nbytes, core, tensor)
+    assert us > 0 and by in ("bytes", "operations")
 
 
 # --- the catalogue's inputs and cut -----------------------------------------

@@ -13,15 +13,17 @@ import jax
 import jax.numpy as jnp
 
 from fastdepth_tpu.cli import profile as JP
-from fastdepth_tpu.config import ModelConfig
 from fastdepth_tpu.models import build as jax_build
 from fastdepth_tpu_torch.checkpoint import params_to_jax
 from fastdepth_tpu_torch.cli import profile as TP
+from fastdepth_tpu_torch.config import ModelConfig
 from fastdepth_tpu_torch.models import build
+from torch_port_config import to_jax
 
 TINY_ENC = (4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24)
 TINY_DEC = (18, 14, 10, 6, 4)
 CFG = ModelConfig(encoder_channels=TINY_ENC, decoder_channels=TINY_DEC)
+JCFG = to_jax(CFG)
 
 
 @pytest.fixture
@@ -38,18 +40,18 @@ def same_params():
     params = model.fold(model.init(torch.Generator().manual_seed(0)))
     jparams = jax.tree.map(jnp.asarray, params_to_jax(params.state_dict()))
     x = np.random.RandomState(0).rand(2, 64, 64, 3).astype(np.float32)
-    return jax_build(CFG), jparams, model, params, x
+    return jax_build(JCFG), jparams, model, params, x
 
 
 def test_points_are_the_jax_tools():
-    assert TP.prefix_points(CFG) == JP.prefix_points(CFG)
+    assert TP.prefix_points(CFG) == JP.prefix_points(JCFG)
     assert len(TP.prefix_points(CFG)) == 20
 
 
 @pytest.mark.parametrize("upto", [1, 6, 14, 16, 19, 20])
 def test_prefix_forward_matches_the_jax_one(same_params, upto):
     jm, jparams, model, params, x = same_params
-    want = float(jax.jit(JP.make_prefix_fn(jm, CFG, upto))(jparams, jnp.asarray(x)))
+    want = float(jax.jit(JP.make_prefix_fn(jm, JCFG, upto))(jparams, jnp.asarray(x)))
     with torch.inference_mode():
         got = float(TP.make_prefix_fn(model, CFG, upto)(params, torch.from_numpy(x)))
     assert got == pytest.approx(want, rel=1e-4)
@@ -62,7 +64,7 @@ def test_marginal_forward_at_eps_zero_is_the_full_forward(same_params, dup):
     with torch.inference_mode():
         full = float(TP.make_prefix_fn(model, CFG, 20)(params, torch.from_numpy(x)))
         got = float(TP.make_marginal_fn(model, CFG, dup)(params, torch.from_numpy(x), eps))
-    want = float(jax.jit(JP.make_marginal_fn(jm, CFG, dup))(jparams, jnp.asarray(x),
+    want = float(jax.jit(JP.make_marginal_fn(jm, JCFG, dup))(jparams, jnp.asarray(x),
                                                             jnp.float32(0.0)))
     assert got == full
     assert got == pytest.approx(want, rel=1e-4)
@@ -81,7 +83,7 @@ def test_profile_cli_on_cpu_prints_the_20_rows_and_writes_the_schema(tmp_path, c
     assert set(saved) == {"batch", "dtype", "model", "mode", "device", "full_us", "fps",
                           "sum_bounds_us", "layer_sum_us", "layers", "peaks"}
     assert saved["device"] == {"type": "cpu"} and saved["mode"] == mode
-    assert [r["layer"] for r in saved["layers"]] == [p for p, _ in JP.prefix_points(CFG)]
+    assert [r["layer"] for r in saved["layers"]] == [p for p, _ in JP.prefix_points(JCFG)]
     for r in saved["layers"]:
         assert set(r) == {"layer", "measured_us", "bound_us", "x_bound", "macs", "hbm_bytes"}
         assert r["bound_us"] > 0 and r["macs"] > 0 and r["hbm_bytes"] > 0

@@ -14,6 +14,7 @@ from fastdepth_tpu.config import FASTDEPTH_PRUNED, FASTDEPTH_UNPRUNED, ModelConf
 from fastdepth_tpu.engine import roofline as JRL
 from fastdepth_tpu_torch.engine import calibrate
 from fastdepth_tpu_torch.engine import roofline as RL
+from torch_port_config import to_port
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_ENC = (4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24)
@@ -36,7 +37,7 @@ def _probe():
 def test_layer_bounds_are_the_jax_rows_without_lane_padding(name, image_size):
     cfg = CONFIGS[name]
     want = JRL.layer_bounds(cfg, image_size)
-    got = RL.layer_bounds(cfg, image_size)
+    got = RL.layer_bounds(to_port(cfg), image_size)
     assert len(got) == len(want) == 20
     for (k, macs, hbm, mxu, dw), (jk, jmacs, jhbm, jmxu, jvpu) in zip(got, want):
         assert (k, macs, hbm, mxu) == (jk, jmacs, jhbm, jmxu)
@@ -52,7 +53,7 @@ def test_bounds_equal_the_jax_formulas_on_the_same_ceilings(dtype_bytes):
     ceil = RL.Ceilings(hbm_bps=JRL.HBM_BPS, pointwise_macs=JRL.MXU_MACS,
                        depthwise_macs=JRL.VPU_MACS)
     for (_, _, hbm, mxu, dw), (_, _, _, _, vpu) in zip(
-            RL.layer_bounds(FASTDEPTH_PRUNED), JRL.layer_bounds(FASTDEPTH_PRUNED)):
+            RL.layer_bounds(to_port(FASTDEPTH_PRUNED)), JRL.layer_bounds(FASTDEPTH_PRUNED)):
         got = RL.bound_components_us(hbm, mxu, dw, dtype_bytes, ceil, batch=128)
         want = JRL.bound_components_us(hbm, mxu, vpu, dtype_bytes, batch=128)
         assert got[:2] == pytest.approx(want[:2], rel=1e-12)
@@ -61,15 +62,19 @@ def test_bounds_equal_the_jax_formulas_on_the_same_ceilings(dtype_bytes):
 
 
 def test_shared_formulas_are_the_jax_functions_and_read_the_h100_json():
-    for name in ("measured_stage_bounds", "measured_composite_us"):
-        got, want = getattr(RL, name).__code__, getattr(JRL, name).__code__
-        assert (got.co_filename, got.co_firstlineno, got.co_code) == \
-            (want.co_filename, want.co_firstlineno, want.co_code)
+    """The port's copies of the two formulas give the JAX functions'
+    results exactly, on the TPU probe payload they were written for; on
+    the H100 JSON they give finite positive bounds."""
+    with open(os.path.join(REPO, "docs", "probe_r3_hbm.json")) as f:
+        tpu_probe = json.load(f)
+    for name, cfg in CONFIGS.items():
+        for fn in ("measured_stage_bounds", "measured_composite_us"):
+            assert getattr(RL, fn)(to_port(cfg), tpu_probe) == getattr(JRL, fn)(cfg, tpu_probe)
     probe = _probe()
-    stages = RL.measured_stage_bounds(FASTDEPTH_PRUNED, probe)
+    stages = RL.measured_stage_bounds(to_port(FASTDEPTH_PRUNED), probe)
     assert sorted(stages) == [3, 4, 5]
     assert all(t > 0 and math.isclose(t, dw + pw + up) for t, dw, pw, up in stages.values())
-    assert RL.measured_composite_us(FASTDEPTH_PRUNED, probe) > 0
+    assert RL.measured_composite_us(to_port(FASTDEPTH_PRUNED), probe) > 0
 
 
 def test_the_port_carries_no_tpu_constant():
