@@ -30,10 +30,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    straight forward, and K1's and K4's launches on every call;
 7. probes: every tag of the probe catalogue (engine/probes.py, the
    scripts' Pallas probes) runs its kernel (K5, K6, or K3) once, with
-   K5's and K6's launches counted on that run; then each kernel against
-   its plain version with both times, its bound and, where one PyTorch
-   call computes the same function, that call's time; and K5's copy
-   sweep (dma_copy);
+   K5's and K6's launches counted on that run; then the launch floor
+   (the least a call costs in the same timer), each kernel against its
+   plain version with both times, its bound and, where one PyTorch call
+   computes the same function, that call's time and the kernel's ratio
+   to it (with the CUDA kernels K6's taps and up_only yardsticks run
+   as); K5's copy sweep (dma_copy) and K6's scale rows (compute_sweep),
+   each checked against its plain version;
 8. tools: engine/calibrate (reduced call count) measures the card's
    ceilings, and cli.profile --mode prefix --batch 128 profiles the
    pruned flagship on them; the summed roofline bounds must not exceed
@@ -427,12 +430,14 @@ def probe_phase() -> dict:
     """The probe catalogue on the card.  The slice's path: every tag's
     kernel once, with K5's and K6's counts set to 0 just before and read
     just after.  Then each kernel against its plain version on the same
-    inputs (copies bit for bit; f32 compute 1e-4 * max(1, max|plain|);
-    bf16 2^-7 * max|plain|), with device and event times, and K5's copy
-    sweep.  Returns per kernel (K5, K6) its launches, worst error and
-    device/event times summed over its tags."""
+    inputs (copies, nearest x2 and taps bit for bit; f32 compute 1e-4 *
+    max(1, max|plain|); bf16 2^-7 * max|plain|), with device and event
+    times and the launch floor beside them, K5's copy sweep and K6's
+    scale rows.  Returns per kernel (K5, K6) its launches, worst error
+    and device/event times summed over its tags."""
     from fastdepth_tpu_torch.cli import probe as probe_cli
     from fastdepth_tpu_torch.engine import probes as P
+    from fastdepth_tpu_torch.engine.benchmark import kernel_names, launch_floor_us
     from fastdepth_tpu_torch.ops.cuda import probes as KP
 
     device = torch.device("cuda")
@@ -448,11 +453,22 @@ def probe_phase() -> dict:
         fail(f"probe path: launches {launches}, want one per tag {want}")
     print(f"probes: one run of every tag launched K5 {launches['K5']} and K6 "
           f"{launches['K6']} times")
+    floor = launch_floor_us()
+    print(f"probe launch floor: {floor:.2f} us a call (one-element zero_ in the same timer)")
     rows = probe_cli.run_probes(list(P.PROBES), device, calls=PROBE_CALLS,
                                 log=lambda s: print(f"probe {s}"))
     bad = [r["tag"] for r in rows if not r["ok"]]
     if bad:
         fail(f"probes disagree with their plain versions or failed: {bad}")
+    print("probe kernel/library, device time: " + ", ".join(
+        f"{r['tag']} {r['device_us'] / r['library_device_us']:.2f}x" for r in rows
+        if "library_device_us" in r))
+    # what the one-call yardsticks of taps and up_only run as on the card
+    for tag in ("taps_120", "up_only_64"):
+        args = P.inputs(tag, device)
+        with torch.inference_mode():
+            names = kernel_names(P.PROBES[tag].library, args)
+        print(f"probe {tag} library call runs: {names or 'no device activity traced'}")
     out = {}
     for k in launches:
         mine = [r for r in rows if r["kernel"] == k]
@@ -460,9 +476,10 @@ def probe_phase() -> dict:
         for r in mine:
             terms[r["bound_by"]] = terms.get(r["bound_by"], 0.0) + r["bound_us"]
         # one PyTorch call per tag where one computes the tag's function
-        # (K5: torch.mul / torch.add on every tag; K6: torch.matmul on its
-        # matmul-mode tags only), summed over those tags, beside the
-        # kernel's own device time over the same tags
+        # (K5: torch.mul / torch.add on every tag; K6: torch.matmul, the
+        # depthwise F.conv2d or F.interpolate on every tag but matmul_up's),
+        # summed over those tags, beside the kernel's own device time over
+        # the same tags
         lib_rows = [r for r in mine if "library_device_us" in r]
         lib = sum(r["library_device_us"] for r in lib_rows) / 1e3 if lib_rows else None
         out[k] = {"launches": launches[k], "max_abs_err": max(r["max_abs_err"] for r in mine),
@@ -482,9 +499,18 @@ def probe_phase() -> dict:
               f"chunk_rows {r['script_chunk_rows']}), prefetch {int(r['prefetch'])}: "
               f"{r['GBs']:.1f} GB/s device, {r['GBs_events']:.1f} GB/s events")
     out["sweep"] = sweep
+    scale = P.compute_sweep(device, calls=PROBE_CALLS)
+    print("K6 scale rows (compute_sweep, L2 cold):")
+    for r in scale:
+        print(f"  {probe_cli.format_scale_row(r)}")
+    bad = [r["mode"] for r in scale if not r["ok"]]
+    if bad:
+        fail(f"K6 scale rows disagree with their plain versions: {bad}")
+    out["scale"] = scale
+    out["launch_floor_us"] = floor
     print("probe kernels: " + json.dumps(
         {k: {f: x for f, x in v.items() if f != "rows"} for k, v in out.items()
-         if k != "sweep"}))
+         if k in launches}))
     return out
 
 

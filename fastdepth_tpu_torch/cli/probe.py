@@ -10,8 +10,11 @@ operands to read them from device memory) and CUDA-event time of
 pipelined calls; on the CPU, where the wrappers run their plain versions,
 CPU times.  Beside them: the least time for the call's work at the
 H100's published rates (``bound``, bytes or operations) and, where one
-PyTorch call computes the same function, that call's device time.
-``--sweep`` adds the ``dma_copy`` bandwidth sweep (card only).
+PyTorch call computes the same function, that call's device time and the
+kernel's time over it.  On a card the run first prints the launch floor
+(``engine/benchmark.launch_floor_us``): no call reads faster, so a probe
+whose bound is below it is read against the floor.  ``--sweep`` adds the
+``dma_copy`` bandwidth sweep and K6's scale rows (card only).
 
 The scripts printed FAIL and carried on, because they bisected a
 compiler; this is a check: a probe whose kernel is refused or disagrees
@@ -33,8 +36,8 @@ from typing import List, Optional
 import torch
 
 from fastdepth_tpu_torch.engine import probes as P
-from fastdepth_tpu_torch.engine.benchmark import (bound_us, cold_copies, sync, time_graph,
-                                                  time_pipelined)
+from fastdepth_tpu_torch.engine.benchmark import (bound_us, cold_copies, launch_floor_us, sync,
+                                                  time_graph, time_pipelined)
 
 
 def parse_args(argv=None):
@@ -42,7 +45,7 @@ def parse_args(argv=None):
     p.add_argument("--tags", nargs="+", default=list(P.PROBES), choices=list(P.PROBES),
                    metavar="TAG", help="probes to run (default: all)")
     p.add_argument("--sweep", action="store_true",
-                   help="also run dma_copy's bandwidth sweep (needs a card)")
+                   help="also run dma_copy's bandwidth sweep and K6's scale rows (needs a card)")
     p.add_argument("--calls", type=int, default=20,
                    help="calls per timing (0: check only, no timing)")
     p.add_argument("--json", default=None, help="write the rows to this JSON file")
@@ -92,14 +95,27 @@ def format_row(row: dict) -> str:
             f"sum={row['sum']:.1f}")
     tail = f"  {row['kernel']} max|diff| {row['max_abs_err']:.3e} (bound {row['bound']:.3e})"
     if "device_us" in row:
-        lib = (f", library {row['library_device_us']:.2f}" if "library_device_us" in row
-               else "")
+        lib = (f", library {row['library_device_us']:.2f}, kernel/library "
+               f"{row['device_us'] / row['library_device_us']:.2f}x"
+               if "library_device_us" in row else "")
         tail += (f", device {row['device_us']:.2f} us (plain {row['plain_device_us']:.2f}"
                  f"{lib}; bound {row['bound_us']:.2f}, {row['bound_by']}), "
                  f"events {row['events_us']:.2f} us (plain {row['plain_events_us']:.2f})")
     elif "cpu_us" in row:
         tail += f", cpu {row['cpu_us']:.1f} us (plain {row['plain_cpu_us']:.1f})"
     return head + tail
+
+
+def format_scale_row(r: dict) -> str:
+    """One row of :func:`~fastdepth_tpu_torch.engine.probes.compute_sweep`."""
+    lib = (f", library {r['library_device_us']:.2f} (kernel/library "
+           f"{r['device_us'] / r['library_device_us']:.2f}x)" if "library_device_us" in r
+           else ", library none (two calls)")
+    return (f"K6 {r['mode']} x {tuple(r['shape'])} -> Cout {r['Cout']}: "
+            f"{'OK' if r['ok'] else 'FAIL'} max|diff| {r['max_abs_err']:.3e} (bound "
+            f"{r['tol']:.3e}), device {r['device_us']:.2f} us (plain "
+            f"{r['plain_device_us']:.2f}{lib}; bound {r['bound_us']:.2f}, {r['bound_by']}, "
+            f"{100 * r['share_of_bound']:.1f}% of it)")
 
 
 def run_probes(tags: List[str], device: torch.device, calls: int = 20,
@@ -130,7 +146,10 @@ def main(argv: Optional[list] = None) -> int:
         print(out["device"]["nvidia_smi"])
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        out["launch_floor_us"] = launch_floor_us()
+        print(f"launch floor: {out['launch_floor_us']:.2f} us a call (one-element zero_)")
     out["probes"] = run_probes(args.tags, device, args.calls)
+    checked = len(out["probes"])
     failed = [r["tag"] for r in out["probes"] if not r["ok"]]
     if args.sweep:
         out["sweep"] = P.copy_sweep(device, calls=max(args.calls, 1))
@@ -139,11 +158,16 @@ def main(argv: Optional[list] = None) -> int:
             print(f"  {r['bytes'] >> 20:4d} MB, {r['chunk_bytes'] >> 10:3d} KB per slot "
                   f"(script chunk_rows {r['script_chunk_rows']}), prefetch {int(r['prefetch'])}: "
                   f"{r['GBs']:.1f} GB/s device, {r['GBs_events']:.1f} GB/s events")
+        out["scale"] = P.compute_sweep(device, calls=max(args.calls, 1))
+        for r in out["scale"]:
+            print(format_scale_row(r))
+        checked += len(out["scale"])
+        failed += [f"scale {r['mode']}" for r in out["scale"] if not r["ok"]]
     if args.json:
         with open(args.json, "w") as f:
             json.dump(out, f, indent=1)
         print(f"json -> {args.json}")
-    print(f"probes: {len(out['probes']) - len(failed)} OK, {len(failed)} FAIL"
+    print(f"probes: {checked - len(failed)} OK, {len(failed)} FAIL"
           + (f" ({', '.join(failed)})" if failed else ""))
     return 1 if failed else 0
 

@@ -19,9 +19,13 @@
 // chunk is a whole number of pixels (`bcast_c` channels each) and a row a
 // whole number of pixels, so no chunk separates a pixel from its channel 0.
 //
-// The grid is persistent: block b walks items b, b + gridDim.x, ... (the
-// scripts' one program walking the images is a grid of 1).  Each block
-// owns `depth` slots of `chunk` elements in shared memory:
+// The grid is persistent: block b walks items b, b + gridDim.x, ...  The
+// scripts' one program walked the images in order, which on a one-core
+// TPU was the whole chip; on the card the wrapper's plan_copy cuts the
+// rows into chunks small enough (down to 4 KB, one 16-byte word a thread)
+// that every block the card holds at once gets about two items, and the
+// grid is as many blocks as fit.  Each block owns `depth` slots of
+// `chunk` elements in shared memory:
 //   depth 1               one slot: copy in, wait, scale out (k_a, k_b);
 //   depth 2, no prefetch  two slots used in turn, each copy waited (k_c,
 //                         and dma_copy as the script wrote it);
@@ -31,7 +35,12 @@
 // channel group fill whole 16-byte words and both pointers are 16-byte
 // aligned; otherwise element loads into the same slots (synchronous), as
 // K3 does.  Results go from the slot straight to device memory (stores do
-// not stall the SM, so there is no out slot).
+// not stall the SM, so there is no out slot).  A thread reads back from a
+// slot only the words it copied in, except a pixel's channel 0 under the
+// broadcast: only then does an item need a barrier after its copy lands
+// and one before its slot is reused; without the broadcast each thread's
+// own cp.async wait is the whole handshake, which keeps the fixed cost of
+// an item small when a block holds only one or two.
 //
 // What bounds it on the card: bytes.  It moves 2 bytes of device memory
 // per byte of input and does one or two FLOPs per element, far below the
@@ -49,6 +58,10 @@ using fdk::from_float;
 using fdk::to_float;
 
 constexpr int kThreads = 256;
+// Blocks an SM holds at once: __launch_bounds__ keeps each kernel within
+// the registers for 5 (ops/cuda/probes.py COPY_BLOCKS_PER_SM sizes the
+// default grid and the cut by the same number).
+constexpr int kBlocksPerSm = 5;
 
 // 16 bytes of a slot (4 f32 or 8 bf16) as f32, and 16 bytes to device memory.
 __device__ __forceinline__ void slot16(const float* p, float (&v)[4]) {
@@ -130,8 +143,15 @@ __device__ __forceinline__ void store_chunk(const T* slot, T* __restrict__ out, 
   }
 }
 
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
+// A barrier across the block, only where threads read each other's words
+// of a slot (kShare: the broadcast's channel 0).
+template <bool kShare>
+__device__ __forceinline__ void slot_barrier() {
+  if (kShare) __syncthreads();
+}
+
+template <typename T, bool kVec, bool kShare>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     staged_copy_kernel(const T* __restrict__ x, T* __restrict__ out, long long row_len, int chunk,
                        int n_chunks, long long n_items, float a, int bcast_c, int depth,
                        int prefetch) {
@@ -149,14 +169,14 @@ __global__ void __launch_bounds__(kThreads)
     load_chunk<T, kVec>(x, slots, item(0));
     fdk::cp_async_commit();
     for (long long j = 0; j < n; ++j) {
-      // slot (j + 1) & 1 was last read by item j - 1, which ended at the
-      // barrier at the bottom of the loop
+      // slot (j + 1) & 1 was last read by item j - 1: by this thread alone
+      // (its own words), or by everyone before the barrier that ended it
       if (j + 1 < n) load_chunk<T, kVec>(x, slots + ((j + 1) & 1) * chunk, item(j + 1));
       fdk::cp_async_commit();
       fdk::cp_async_wait<1>();  // this thread's copies of item j have landed
-      __syncthreads();          // and everyone's
+      slot_barrier<kShare>();   // and everyone's
       store_chunk<T, kVec>(slots + (j & 1) * chunk, out, item(j), a, bcast_c);
-      __syncthreads();
+      slot_barrier<kShare>();
     }
   } else {
     for (long long j = 0; j < n; ++j) {
@@ -164,30 +184,23 @@ __global__ void __launch_bounds__(kThreads)
       load_chunk<T, kVec>(x, slot, item(j));
       fdk::cp_async_commit();
       fdk::cp_async_wait<0>();
-      __syncthreads();
+      slot_barrier<kShare>();
       store_chunk<T, kVec>(slot, out, item(j), a, bcast_c);
-      __syncthreads();
+      slot_barrier<kShare>();
     }
   }
   fdk::cp_async_wait<0>();
 }
 
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kShare>
 cudaError_t launch_kernel(const T* x, T* out, long long row_len, int chunk, int n_chunks,
                           long long n_items, float a, int bcast_c, int depth, int prefetch,
                           int blocks, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(depth) * chunk * sizeof(T);
-  auto kernel = staged_copy_kernel<T, kVec>;
+  auto kernel = staged_copy_kernel<T, kVec, kShare>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  if (blocks <= 0) {
-    int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-    if (err != cudaSuccess) return err;
-    blocks = fd_sm_count() * (per_sm > 0 ? per_sm : 1);
-    if (blocks <= 0) return cudaErrorInvalidValue;
-  }
   const int grid = n_items < blocks ? static_cast<int>(n_items) : blocks;
   kernel<<<grid, kThreads, smem, stream>>>(x, out, row_len, chunk, n_chunks, n_items, a, bcast_c,
                                            depth, prefetch);
@@ -199,7 +212,8 @@ cudaError_t dispatch(const void* x, void* out, long long rows, long long row_len
                      float a, int bcast_c, int depth, int prefetch, int blocks,
                      cudaStream_t stream) {
   if (rows <= 0 || row_len <= 0) return cudaSuccess;
-  if (chunk <= 0 || (depth != 1 && depth != 2) || (prefetch && depth != 2) || bcast_c < 0)
+  if (chunk <= 0 || (depth != 1 && depth != 2) || (prefetch && depth != 2) || bcast_c < 0 ||
+      blocks <= 0)
     return cudaErrorInvalidValue;
   if (bcast_c > 0 && (chunk % bcast_c != 0 || row_len % bcast_c != 0))
     return cudaErrorInvalidValue;
@@ -212,10 +226,11 @@ cudaError_t dispatch(const void* x, void* out, long long rows, long long row_len
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
   const int n_chunks = static_cast<int>(chunks);
-  return vec ? launch_kernel<T, true>(xt, ot, row_len, chunk, n_chunks, n_items, a, bcast_c,
-                                      depth, prefetch, blocks, stream)
-             : launch_kernel<T, false>(xt, ot, row_len, chunk, n_chunks, n_items, a, bcast_c,
-                                       depth, prefetch, blocks, stream);
+  auto launch = bcast_c > 0
+                     ? (vec ? &launch_kernel<T, true, true> : &launch_kernel<T, false, true>)
+                     : (vec ? &launch_kernel<T, true, false> : &launch_kernel<T, false, false>);
+  return launch(xt, ot, row_len, chunk, n_chunks, n_items, a, bcast_c, depth, prefetch, blocks,
+                stream);
 }
 
 }  // namespace
@@ -224,8 +239,9 @@ cudaError_t dispatch(const void* x, void* out, long long rows, long long row_len
 // 1 = bfloat16); chunk: elements per ring slot; a: the scale; bcast_c: 0,
 // or the channels of a pixel whose channel 0 is added to each of them;
 // depth: 1 or 2 slots; prefetch: 1 keeps the next chunk's copy in flight
-// (depth 2 only); blocks: the grid (0: as many blocks as fit on the card at
-// once).  Launches on `stream` and returns the launch's cudaError_t (0 =
+// (depth 2 only); blocks: the persistent grid (at most; never more blocks
+// than items), which the wrapper sizes to what the card holds at once.
+// Launches on `stream` and returns the launch's cudaError_t (0 =
 // success); it neither allocates nor syncs.
 extern "C" int fd_staged_copy(const void* x, void* out, long long rows, long long row_len,
                               int chunk, float a, int bcast_c, int depth, int prefetch,

@@ -151,6 +151,31 @@ def time_graph(fn: Callable, arg_sets: Sequence[tuple], *, calls: int = 20) -> f
     return float(np.median(times)) / calls
 
 
+def launch_floor_us(calls: int = 20) -> float:
+    """The least a kernel launch costs in :func:`time_graph`'s timer: the
+    device microseconds per call of a one-element ``zero_()``.  A call
+    whose bound is below this reads as this at best.  Needs a CUDA
+    device."""
+    t = torch.empty(1, device="cuda")
+    return time_graph(lambda a: a.zero_(), [(t,)], calls=calls) * 1e6
+
+
+def kernel_names(fn: Callable, args=()) -> list:
+    """The CUDA kernels one call of ``fn(*args)`` launches, by name, as
+    ``torch.profiler`` traces them (after one untraced warm-up call);
+    empty where the profiler recorded no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")]
+
+
 def tolerance(want: torch.Tensor) -> float:
     """How far a kernel may stray from its plain version ``want`` (the
     plain result in the kernel's dtype): f32 1e-4 * max(1, max|plain|),

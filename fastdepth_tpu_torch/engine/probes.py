@@ -15,14 +15,19 @@ Inputs are the scripts' own: each script drew from one shared
 replays that stream (draws of other probes are skipped, not kept) and
 casts as the script cast (f32; bf16 through f32).  Outputs come back in
 the script's layout (NHWC, or the flat and folded shapes).  The scripts'
-one program walked the images in order, so the copy probes run on a grid
-of one block; ``dma_copy`` and :func:`copy_sweep` fill the card.
+one program walked the images in order on a one-core TPU, which was the
+whole chip: every probe here runs on the whole card (no tag pins K5's
+grid).  Where one PyTorch call computes a probe's function, the entry
+names it as its yardstick (``library``; never called by the port).
 
 :func:`copy_sweep` is the bandwidth sweep of ``dma_copy``: K5 as a pure
 copy at the script's 32 MB and at 256 MB, over chunk sizes that fit in
 shared memory (:data:`SWEEP_CHUNKS`).  Read and write of 32 MB (64 MB of
 traffic) partly stay in the H100's 50 MB L2; only the 256 MB reading is
-the device memory's ceiling.
+the device memory's ceiling.  :func:`compute_sweep` runs each K6 mode
+once at a scale where its bound is well above a launch's cost
+(:data:`SCALE_ROWS`).  Both stay outside the catalogue, which mirrors
+the scripts.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from fastdepth_tpu_torch.ops import blocks as TB
 from fastdepth_tpu_torch.ops.cuda import probes as KP
@@ -48,6 +54,12 @@ SWEEP_CHUNKS = {64: 8 << 10, 256: 32 << 10, 1024: 64 << 10, 4096: 112 << 10}
 SWEEP_SIZES = (32 << 20, 256 << 20)
 L2_NOTE = ("32 MB read + 32 MB written partly stay in the H100's 50 MB L2; "
            "only the 256 MB rows read the device memory's ceiling")
+# K6 at a scale whose bound is far above a launch's cost: (mode, x shape,
+# Cout).  The matmul modes at the pruned flagship's decoder level 1
+# pointwise at batch 128 (1.28 GFLOP); taps and up_only on a 28x28x256
+# map at batch 128 (bytes-bound)
+SCALE_ROWS = (("matmul", (128, 7, 7, 512), 200), ("matmul_up", (128, 7, 7, 512), 200),
+              ("taps", (128, 28, 28, 256), 256), ("up_only", (128, 28, 28, 256), 256))
 
 
 # --- the scripts' random streams ----------------------------------------
@@ -129,7 +141,9 @@ Args = Tuple[Optional[torch.Tensor], ...]
 @dataclasses.dataclass(frozen=True)
 class Probe:
     """One probe: ``kernel(*args)`` and ``plain(*args)`` compute the same
-    function; ``exact`` probes (the copies) must agree bit for bit."""
+    function; ``exact`` probes (the copies, nearest x2 and taps, whose
+    kernel rounds and adds its 25 products in the plain version's order)
+    must agree bit for bit."""
 
     tag: str
     script: str
@@ -153,11 +167,11 @@ def _t(a: np.ndarray, device: torch.device, dtype=torch.float32) -> torch.Tensor
 
 
 def _copy_probe(tag, script, line, group, view, *, scale=2.0, depth=1, prefetch=False,
-                bcast_c0=False, chunk_bytes=None, blocks=1):
+                bcast_c0=False, chunk_bytes=None):
     """A K5 probe: ``view(x)`` is the array as K5 sees it (a row per
     image, or the whole array as one row); the result takes ``x``'s shape."""
     kw = dict(scale=scale, depth=depth, prefetch=prefetch, bcast_c0=bcast_c0,
-              chunk_bytes=chunk_bytes, blocks=blocks)
+              chunk_bytes=chunk_bytes)
     if bcast_c0:
         def library(x):
             v = view(x)  # a view: no work
@@ -173,6 +187,34 @@ def _copy_probe(tag, script, line, group, view, *, scale=2.0, depth=1, prefetch=
         exact=True, library=library, mode="copy_bcast" if bcast_c0 else "copy")
 
 
+@functools.lru_cache(maxsize=None)
+def _tap_filter(C: int, device: torch.device) -> torch.Tensor:
+    """taps' depthwise 5x5 filter, every tap 0.04, built once per width and
+    device (outside any timed call)."""
+    return torch.full((C, 1, 5, 5), KP.TAP_SCALE, device=device)
+
+
+def _taps_library(x, w=None):
+    """taps as one depthwise conv on the NHWC tensor's channels_last view
+    (the same function up to the order of its 25-term sums)."""
+    C = x.shape[-1]
+    y = F.conv2d(x.permute(0, 3, 1, 2), _tap_filter(C, x.device), padding=2, groups=C)
+    return y.permute(0, 2, 3, 1)
+
+
+def _up_library(x, w=None):
+    """up_only as one nearest x2 on the channels_last view, returned as
+    NHWC through a view (no copy); bit-exact."""
+    return F.interpolate(x.permute(0, 3, 1, 2), scale_factor=2,
+                         mode="nearest").permute(0, 2, 3, 1)
+
+
+# K6's one-call yardstick per mode.  matmul_up has none: a product and an
+# upsample are two calls
+LIBRARY = {"matmul": lambda x, w: torch.matmul(x, w), "matmul_up": None,
+           "taps": _taps_library, "up_only": _up_library}
+
+
 def _compute_probe(tag, script, line, group, mode):
     matmul = mode in ("matmul", "matmul_up")
     return Probe(
@@ -180,8 +222,7 @@ def _compute_probe(tag, script, line, group, mode):
         lambda a, dev: (_t(a["x"], dev), _t(a["w"], dev) if matmul else None),
         lambda x, w: KP.staged_compute(x, w, mode),
         lambda x, w: KP.staged_compute_reference(x, w, mode),
-        exact=mode == "up_only",
-        library=(lambda x, w: torch.matmul(x, w)) if mode == "matmul" else None, mode=mode)
+        exact=mode in ("taps", "up_only"), library=LIBRARY[mode], mode=mode)
 
 
 def _stage_args(a, dev, dtype, skip: bool, weights=None):
@@ -261,7 +302,7 @@ _LIST: List[Probe] = [
                 bcast_c0=True),
     # probe_xla_opts.py dma_copy: two slots, each copy waited, one pure copy
     *[_copy_probe(f"dma_copy_chunk{rows}", _XLA, 156, f"dma_copy_chunk{rows}", _whole,
-                  scale=1.0, depth=2, chunk_bytes=nbytes, blocks=None)
+                  scale=1.0, depth=2, chunk_bytes=nbytes)
       for rows, nbytes in SWEEP_CHUNKS.items()],
 ]
 PROBES: Dict[str, Probe] = {p.tag: p for p in _LIST}
@@ -303,20 +344,27 @@ def work(tag: str, args: Args, out: torch.Tensor) -> Tuple[int, int, int]:
     probe's function (f32 on the CUDA cores; K3's bf16 stage puts its
     pointwise on the tensor cores' count)."""
     p = PROBES[tag]
+    return mode_work(p.mode, args, out, p.dtype)
+
+
+def mode_work(mode: str, args: Args, out: torch.Tensor,
+              dtype: torch.dtype = torch.float32) -> Tuple[int, int, int]:
+    """:func:`work` by the probe's ``mode`` (copy, copy_bcast, a K6 mode or
+    stage) rather than its tag."""
     nbytes = sum(a.numel() * a.element_size() for a in args if a is not None)
     nbytes += out.numel() * out.element_size()
     x = args[0]
-    if p.mode.startswith("copy"):
-        return nbytes, x.numel() * (2 if p.mode == "copy_bcast" else 1), 0
-    if p.mode in ("matmul", "matmul_up"):
+    if mode.startswith("copy"):
+        return nbytes, x.numel() * (2 if mode == "copy_bcast" else 1), 0
+    if mode in ("matmul", "matmul_up"):
         return nbytes, 2 * x.numel() * args[1].shape[-1], 0
-    if p.mode == "taps":
+    if mode == "taps":
         return nbytes, 50 * x.numel(), 0
-    if p.mode == "up_only":
+    if mode == "up_only":
         return nbytes, 0, 0
     px = x.shape[0] * x.shape[2] * x.shape[3]  # K3's stage: x (N, C, H, W)
     dw, pw = 52 * px * x.shape[1], 2 * px * x.shape[1] * args[3].shape[1]
-    return (nbytes, dw + pw, 0) if p.dtype == torch.float32 else (nbytes, dw, pw)
+    return (nbytes, dw + pw, 0) if dtype == torch.float32 else (nbytes, dw, pw)
 
 
 def bound(tag: str, plain: torch.Tensor) -> float:
@@ -365,3 +413,45 @@ def copy_sweep(device: Device = "cuda", sizes: Sequence[int] = SWEEP_SIZES, *,
                     "hbm_ceiling": nbytes >= 256 << 20})
         del x
     return rows
+
+
+def compute_sweep(device: Device = "cuda", *, calls: int = 20) -> List[dict]:
+    """K6 at :data:`SCALE_ROWS`, each mode once: seeded inputs (x uniform in
+    [0, 1), w in [0, 0.1) as the scripts drew them), the kernel held
+    against its plain version (1e-4 * max(1, max|plain|); taps and up_only
+    bit for bit) and timed L2-cold (``engine/benchmark.time_graph`` over
+    ``cold_copies`` sets) beside the plain version, the mode's one-call
+    yardstick (:data:`LIBRARY`, where there is one) and its bound.  Needs
+    a CUDA device."""
+    from fastdepth_tpu_torch.engine.benchmark import bound_us, cold_copies, time_graph
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("the compute sweep measures the card: it needs a CUDA device")
+    gen = torch.Generator(device=device).manual_seed(0)
+    out_rows = []
+    for mode, shape, cout in SCALE_ROWS:
+        x = torch.rand(shape, generator=gen, device=device)
+        w = (torch.rand((shape[-1], cout), generator=gen, device=device) * 0.1
+             if mode in ("matmul", "matmul_up") else None)
+        with torch.inference_mode():
+            got = KP.staged_compute(x, w, mode)
+            want = KP.staged_compute_reference(x, w, mode)
+            err = float((got - want).abs().max())
+            tol = (0.0 if mode in ("taps", "up_only")
+                   else 1e-4 * max(1.0, float(want.abs().max())))
+            nbytes, core, tensor = mode_work(mode, (x, w), want)
+            sets = [(x, w)] + [(x.clone(), w) for _ in range(cold_copies(nbytes) - 1)]
+            row = {"mode": mode, "shape": list(shape), "Cout": cout, "max_abs_err": err,
+                   "tol": tol, "ok": bool(err <= tol and torch.isfinite(got).all())}
+            del got, want
+            row["bound_us"], row["bound_by"] = bound_us(nbytes, core, tensor)
+            for key, fn in (("", lambda a, b: KP.staged_compute(a, b, mode)),
+                            ("plain_", lambda a, b: KP.staged_compute_reference(a, b, mode)),
+                            ("library_", LIBRARY[mode])):
+                if fn is not None:
+                    row[f"{key}device_us"] = time_graph(fn, sets, calls=calls) * 1e6
+        row["share_of_bound"] = row["bound_us"] / row["device_us"]
+        out_rows.append(row)
+        del x, w, sets
+    return out_rows

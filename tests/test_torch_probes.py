@@ -200,11 +200,11 @@ def test_plain_version_matches_the_jax_probe(tag):
     got = P.run_plain(tag, "cpu").float().numpy()
     want = _jax_reference(tag, a)
     assert got.shape == want.shape
-    if probe.exact:  # copies, x2 and nearest x2
+    if probe.exact and probe.mode != "taps":  # copies, x2 and nearest x2
         np.testing.assert_array_equal(got, want)
     elif probe.dtype == torch.bfloat16:  # one bf16 rounding of the output
         np.testing.assert_allclose(got, want, rtol=0, atol=2.0 ** -8 * np.abs(want).max())
-    else:  # f32 matmul, taps and stages: summation order only
+    else:  # f32 matmul, taps (XLA rounds its tap sum 1 ulp apart) and stages
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     # on the CPU the kernel call is the plain version
     assert torch.equal(P.run(tag, "cpu"), P.run_plain(tag, "cpu"))
@@ -212,13 +212,30 @@ def test_plain_version_matches_the_jax_probe(tag):
 
 @pytest.mark.parametrize("tag", [t for t, p in P.PROBES.items() if p.library is not None])
 def test_library_call_computes_the_probes_function(tag):
-    """The one-call yardstick (K5: torch.mul / torch.add, K6 matmul mode:
-    torch.matmul) gives the plain version's values on the same inputs."""
+    """The one-call yardstick (K5: torch.mul / torch.add; K6: torch.matmul,
+    the depthwise F.conv2d, F.interpolate) gives the plain version's
+    values on the same inputs: taps up to the order of its sums (the
+    probe's tolerance), up_only bit for bit and as an NHWC view (no copy)."""
     args = P.inputs(tag, "cpu")
     want = P.run_plain(tag, "cpu", args)
     got = P.PROBES[tag].library(*args)
-    np.testing.assert_allclose(got.float().reshape(want.shape).numpy(), want.float().numpy(),
-                               rtol=1e-6, atol=1e-6)
+    mode = P.PROBES[tag].mode
+    if mode == "up_only":
+        assert got.is_contiguous() and got.shape == want.shape
+        assert torch.equal(got, want)
+    elif mode == "taps":
+        assert got.shape == want.shape
+        tol = 1e-4 * max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= tol
+    else:
+        np.testing.assert_allclose(got.float().reshape(want.shape).numpy(),
+                                   want.float().numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_every_k6_mode_but_matmul_up_has_a_one_call_yardstick():
+    assert {m for m, f in P.LIBRARY.items() if f is None} == {"matmul_up"}
+    k6 = [p for p in P.PROBES.values() if p.kernel_name == "K6"]
+    assert sum(p.library is not None for p in k6) == len(k6) - 1 == 8
 
 
 @pytest.mark.parametrize("tag", list(P.PROBES))
@@ -271,17 +288,73 @@ def test_every_scripts_pallas_probe_is_in_the_catalogue():
 
 @pytest.mark.parametrize("shape,kw,want", [
     # (rows, row_len, chunk, bcast_c)
-    ((4, 8, 8, 128), {"depth": 1, "prefetch": False}, (4, 8192, 8192, 0)),
+    ((4, 8, 8, 128), {"depth": 1, "prefetch": False}, (4, 8192, 1024, 0)),
     ((1, 8192 * 1024), {"chunk_bytes": 112 << 10}, (1, 8388608, 28672, 0)),
     ((4, 39200), {"chunk_bytes": 30000}, (4, 39200, 7500, 0)),
     ((4, 39200), {"chunk_bytes": 30001}, (4, 39200, 7500, 0)),
     ((4, 56, 56, 128), {"depth": 1, "prefetch": False, "bcast_c0": True},
-     (4, 401408, 58112, 128)),
+     (4, 401408, 1024, 128)),
     ((3, 7, 5), {"chunk_bytes": 48, "bcast_c0": True}, (3, 35, 10, 5)),
     ((2, 3), {"chunk_bytes": 4}, (2, 3, 1, 0)),
 ])
 def test_copy_plan_cuts_rows_into_aligned_chunks(shape, kw, want):
     assert tuple(KP.plan_copy(shape, 4, **kw)) == want
+
+
+@pytest.mark.parametrize("depth,prefetch", [(1, False), (2, False), (2, True)])
+@pytest.mark.parametrize("shape,itemsize", [((4, 56, 7168), 4), ((4, 56, 56, 128), 4),
+                                            ((8, 56, 7168), 2), ((1, 8 << 20), 4)])
+def test_copy_plan_gives_every_resident_block_two_items(shape, itemsize, depth, prefetch):
+    """The default cut, on arrays of 6.4-32 MB: at least two chunks for
+    every block the default grid holds, chunks of at least 4 KB."""
+    plan = KP.plan_copy(shape, itemsize, depth=depth, prefetch=prefetch)
+    items = plan.rows * -(-plan.row_len // plan.chunk)
+    assert items >= 2 * KP.resident_copy_blocks(depth, plan.chunk * itemsize)
+    assert plan.chunk * itemsize >= KP.MIN_CHUNK_BYTES
+    assert plan.chunk * itemsize <= KP.SMEM_BYTES // depth and plan.chunk % (16 // itemsize) == 0
+
+
+@pytest.mark.parametrize("shape,itemsize,want_bytes", [
+    ((4, 8, 8, 128), 4, 4096),      # 128 KB: the 4 KB floor, not 1 KB chunks
+    ((4, 8, 8, 128), 2, 4096),      # the same in bf16
+    ((4, 8, 8, 56), 4, 4096),
+    ((4, 500), 4, 2000),            # a row below the floor stays whole
+    ((1, 32 << 20), 4, KP.SMEM_BYTES // 2),  # 128 MB: whole slots give two a block
+])
+def test_copy_plan_default_chunk_lies_between_4kb_and_a_slot(shape, itemsize, want_bytes):
+    plan = KP.plan_copy(shape, itemsize)
+    assert plan.chunk * itemsize == want_bytes
+
+
+@pytest.mark.parametrize("chunk_bytes", [8 << 10, 32 << 10, 64 << 10, 112 << 10])
+def test_copy_plan_keeps_an_explicit_chunk(chunk_bytes):
+    plan = KP.plan_copy((1, 8 << 20), 4, chunk_bytes=chunk_bytes, depth=2, prefetch=False)
+    assert plan.chunk * 4 == chunk_bytes
+
+
+@pytest.mark.parametrize("shape", [(4, 56, 56, 128), (4, 14, 14, 200), (3, 7, 5),
+                                   (2, 4, 1500), (2, 64, 56)])
+def test_copy_plan_never_splits_a_pixel_from_its_channel_0(shape):
+    plan = KP.plan_copy(shape, 4, depth=1, prefetch=False, bcast_c0=True)
+    assert plan.bcast_c == shape[-1]
+    assert plan.chunk % plan.bcast_c == 0 and plan.row_len % plan.bcast_c == 0
+
+
+def test_no_catalogue_tag_pins_k5s_grid(monkeypatch):
+    """Every copy probe runs on the default grid, the whole card."""
+    seen = []
+    real = KP.staged_copy
+
+    def spy(x, **kw):
+        seen.append(kw)
+        return real(x, **kw)
+
+    monkeypatch.setattr(KP, "staged_copy", spy)
+    tags = [t for t, p in P.PROBES.items() if p.kernel_name == "K5"]
+    for tag in tags:
+        P.run(tag, "cpu")
+    assert len(seen) == len(tags) == 15
+    assert all(kw.get("blocks") is None for kw in seen)
 
 
 def test_copy_plan_rejects_what_k5_does_not_take():
@@ -302,6 +375,25 @@ def test_sweep_chunks_fit_two_slots_and_the_sweep_needs_a_card():
     assert sorted(P.SWEEP_CHUNKS.values()) == list(P.SWEEP_CHUNKS.values())
     with pytest.raises(ValueError, match="CUDA"):
         P.copy_sweep("cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        P.compute_sweep("cpu")
+
+
+@pytest.mark.parametrize("mode,shape,cout", P.SCALE_ROWS)
+def test_scale_rows_are_bound_well_above_a_launch(mode, shape, cout):
+    """Each K6 scale row's bound (published rates) is at least 15 us, far
+    above the few microseconds any launch costs; the matmul modes are
+    bound by their 1.28 GFLOP."""
+    x = torch.empty(shape, device="meta")
+    w = torch.empty(shape[-1], cout, device="meta") if mode.startswith("matmul") else None
+    hw = 2 if mode in ("matmul_up", "up_only") else 1
+    out = torch.empty(shape[0], hw * shape[1], hw * shape[2], cout, device="meta")
+    nbytes, core, tensor = P.mode_work(mode, (x, w), out)
+    us, by = BM.bound_us(nbytes, core, tensor)
+    assert us >= 15
+    assert by == ("operations" if mode.startswith("matmul") else "bytes")
+    if mode.startswith("matmul"):
+        assert core == 2 * 128 * 49 * 512 * 200
 
 
 # --- dispatch and checks on the CPU -------------------------------------------
@@ -330,6 +422,63 @@ def test_staged_compute_on_cpu_takes_the_plain_version(mode):
     assert tuple(got.shape) == (2, *hw, 5 if w is not None else 6)
 
 
+def test_staged_compute_on_cpu_takes_images_larger_than_shared_memory():
+    """Nothing stages a whole image any more: a 32x32x64 image (256 KB,
+    above a block's 227 KB) is taken, and its geometry fits."""
+    x = torch.rand(1, 32, 32, 64, generator=torch.Generator().manual_seed(0))
+    assert x[0].numel() * 4 > KP.SMEM_BYTES
+    for mode in KP.MODES:
+        w = torch.rand(64, 24) if mode.startswith("matmul") else None
+        got = KP.staged_compute(x, w, mode)
+        assert torch.equal(got, KP.staged_compute_reference(x, w, mode))
+        assert KP.stage_geometry(mode, 1, 32, 32, 64, 24 if w is not None else 64).smem \
+            <= KP.SMEM_BYTES
+
+
+@pytest.mark.parametrize("mode,N,H,W,C,Cout", [
+    ("matmul", 4, 8, 8, 128, 64), ("matmul", 4, 8, 8, 128, 256), ("matmul", 4, 8, 8, 120, 56),
+    ("matmul_up", 4, 8, 8, 128, 64), ("matmul", 128, 7, 7, 512, 200),
+    ("matmul_up", 128, 7, 7, 512, 200), ("matmul", 3, 7, 5, 6, 5), ("matmul", 1, 1, 1, 4, 4),
+    ("taps", 4, 8, 8, 120, 120), ("taps", 128, 28, 28, 256, 256), ("taps", 3, 7, 5, 6, 6),
+    ("taps", 1, 2, 2000, 4, 4), ("up_only", 4, 8, 8, 64, 64), ("up_only", 3, 7, 5, 5, 5),
+    ("up_only", 128, 28, 28, 256, 256)])
+def test_stage_geometry_covers_every_output_once(mode, N, H, W, C, Cout):
+    """K6's tiles are powers of two, cover every output of the mode, fit
+    in shared memory, and fill the SMs where the shapes allow."""
+    g = KP.stage_geometry(mode, N, H, W, C, Cout)
+    assert 32 <= g.threads <= 256 and g.threads % 32 == 0 and g.smem <= KP.SMEM_BYTES
+    if mode.startswith("matmul"):
+        tm = {(bm, bn): tm for bm, bn, tm in KP.GEMM_TILES}[g.tile_m, g.tile_n]
+        assert g.threads == g.tile_m * g.tile_n // (4 * tm)
+        M = N * H * W
+        assert g.grid == (-(-M // g.tile_m), -(-Cout // g.tile_n))
+        most = max(-(-M // bm) * -(-Cout // bn) for bm, bn, _ in KP.GEMM_TILES)
+        assert g.blocks >= 132 or g.blocks == most
+    elif mode == "taps":
+        ct = g.tile_n
+        assert ct & (ct - 1) == 0 and ct % 4 == 0 and g.tile_m in KP.TAP_BANDS
+        assert g.grid == (N * -(-H // g.tile_m), -(-C // ct))
+        assert g.smem == (g.tile_m + 4) * W * ct * 4
+        assert g.threads >= min(256, g.tile_m // min(4, g.tile_m) * W * ct // 4)
+    else:
+        assert g.grid[0] * g.threads >= N * H * W * -(-C // 4)
+
+
+def test_stage_geometry_at_the_probes_and_the_scale_rows():
+    # the probes' 256 pixels: the smallest tile, the most blocks
+    assert KP.stage_geometry("matmul", 4, 8, 8, 128, 64)[:4] == ((8, 4), 32, 32, 16)
+    # the scale row: a covering tile of >= 128 threads, Cout 200 padded to 224
+    assert KP.stage_geometry("matmul", 128, 7, 7, 512, 200)[:4] == ((49, 7), 128, 128, 32)
+    # a tie in padding goes to the first (largest) tile
+    assert KP.stage_geometry("matmul", 128, 14, 14, 200, 256)[:4] == ((196, 8), 128, 128, 32)
+    assert KP.stage_geometry("taps", 128, 28, 28, 256, 256)[:4] == ((512, 8), 256, 8, 32)
+    assert KP.stage_geometry("taps", 4, 8, 8, 120, 120)[:4] == ((32, 4), 64, 1, 32)
+    with pytest.raises(ValueError, match="shared memory"):
+        KP.stage_geometry("taps", 1, 4, 1 << 20, 4, 4)
+    with pytest.raises(ValueError, match="mode"):
+        KP.stage_geometry("conv", 1, 4, 4, 4, 4)
+
+
 def test_staged_compute_taps_pad_each_image_alone():
     """taps zero-pads the image's own tile: a corner sums its 3x3 in-image
     neighbours, never a neighbouring image's pixels."""
@@ -353,8 +502,6 @@ def test_probe_wrappers_reject_what_the_kernels_do_not_take():
         (lambda: KP.staged_compute(x, w, "taps"), "takes no weight"),
         (lambda: KP.staged_compute(x.bfloat16(), w.bfloat16(), "matmul"), "float32"),
         (lambda: KP.staged_compute(x[0], w, "matmul"), "NHWC"),
-        (lambda: KP.staged_compute(torch.zeros(1, 32, 32, 64), None, "up_only"),
-         "shared memory"),
         (lambda: KP.staged_compute(x.to("meta"), w.to("meta"), "matmul"), "CUDA devices"),
     ]:
         with pytest.raises(ValueError, match=match):
@@ -395,6 +542,19 @@ def test_probe_cli_on_cpu_checks_and_writes_json(tmp_path, capsys):
     rows = json.loads(out.read_text())["probes"]
     assert [r["tag"] for r in rows] == tags
     assert all(r["ok"] and "cpu_us" in r and "device_us" not in r for r in rows)
+
+
+@pytest.mark.parametrize("library_us,want", [(40.0, "kernel/library 1.25x"),
+                                              (None, "library none (two calls)")])
+def test_scale_row_prints_its_check_ratio_and_share_of_bound(library_us, want):
+    row = {"mode": "matmul", "shape": [128, 7, 7, 512], "Cout": 200, "ok": True,
+           "max_abs_err": 0.0, "tol": 1.5e-3, "device_us": 50.0, "plain_device_us": 43.0,
+           "bound_us": 19.17, "bound_by": "operations", "share_of_bound": 19.17 / 50.0}
+    if library_us is not None:
+        row["library_device_us"] = library_us
+    text = probe_cli.format_scale_row(row)
+    assert text.startswith("K6 matmul x (128, 7, 7, 512) -> Cout 200: OK")
+    assert want in text and "38.3% of it" in text
 
 
 def test_probe_cli_exits_non_zero_when_a_kernel_disagrees(monkeypatch, capsys):
@@ -448,21 +608,37 @@ def test_staged_copy_matches_plain_version_on_the_card(case, dtype, blocks, monk
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mode,C,Cout", [
-    ("matmul", 128, 64), ("matmul", 192, 192), ("matmul", 256, 120), ("matmul", 6, 5),
-    ("matmul_up", 128, 64), ("matmul_up", 7, 3), ("taps", 120, 120), ("taps", 6, 6),
-    ("up_only", 64, 64), ("up_only", 5, 5)])
-def test_staged_compute_matches_plain_version_on_the_card(mode, C, Cout, monkeypatch):
+@pytest.mark.parametrize("mode,nhw,C,Cout", [
+    # the probes' shapes, and widths that fill no 16-byte word
+    ("matmul", (4, 8, 8), 128, 64), ("matmul", (4, 8, 8), 192, 192),
+    ("matmul", (4, 8, 8), 256, 120), ("matmul", (4, 8, 8), 6, 5),
+    ("matmul_up", (4, 8, 8), 128, 64), ("matmul_up", (4, 8, 8), 7, 3),
+    ("taps", (4, 8, 8), 120, 120), ("taps", (4, 8, 8), 6, 6),
+    ("up_only", (4, 8, 8), 64, 64), ("up_only", (4, 8, 8), 5, 5),
+    # the scale rows (engine/probes.SCALE_ROWS)
+    ("matmul", (128, 7, 7), 512, 200), ("matmul_up", (128, 7, 7), 512, 200),
+    ("taps", (128, 28, 28), 256, 256), ("up_only", (128, 28, 28), 256, 256),
+    # a Cout that fills no tile
+    ("matmul", (4, 8, 8), 128, 200), ("matmul", (4, 8, 8), 120, 56),
+    ("matmul_up", (4, 8, 8), 64, 5), ("matmul", (16, 8, 8), 96, 200),
+    # a pixel count that fills no tile, images taller than a taps band
+    ("matmul", (3, 7, 5), 128, 64), ("matmul_up", (3, 7, 5), 64, 56),
+    ("taps", (3, 7, 5), 64, 64), ("taps", (2, 19, 13), 36, 36), ("taps", (1, 56, 56), 128, 128),
+    ("up_only", (3, 7, 5), 12, 12)])
+def test_staged_compute_matches_plain_version_on_the_card(mode, nhw, C, Cout, monkeypatch):
     _on_card(monkeypatch)
     g = torch.Generator().manual_seed(C)
-    x = torch.rand(4, 8, 8, C, generator=g).cuda()
+    x = torch.rand(*nhw, C, generator=g).cuda()
     w = (torch.rand(C, Cout, generator=g) * 0.1).cuda() if mode.startswith("matmul") else None
     want = KP.staged_compute_reference(x, w, mode)
     before = KP.STAGE_LAUNCHES
     got = KP.staged_compute(x, w, mode)
     torch.cuda.synchronize()
     assert KP.STAGE_LAUNCHES == before + 1
-    assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
+    if mode in ("taps", "up_only"):  # the plain version's own roundings, in its order
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want).abs().max()) <= 1e-4 * max(1.0, float(want.abs().max()))
 
 
 @pytest.mark.cuda
