@@ -6,12 +6,14 @@
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. device: a CUDA device must be present; prints the card's name and
-   power limit (nvidia-smi) and turns TF32 off for the f32 phases;
+   power limit (nvidia-smi) and makes f32 true f32 (engine.aot.strict_f32:
+   TF32 off);
 2. build: compiles every kernel of the port from fastdepth_tpu_torch/csrc;
 3. kernels: each kernel (K1-K4) against its plain PyTorch version, on
    the card, at the shapes the flagship's paths give it (f32 and bf16;
    K1 at the eval path's batch 8 and the deploy path's batch 1, whose
    launch geometries differ),
+   with the launch geometry each kernel's host function picks per level,
    with both device times (CUDA events around a CUDA graph of the calls,
    cycling through enough copies of the operands that the 50 MB L2 holds
    none of them) and, beside them, CUDA-event times of pipelined calls
@@ -27,7 +29,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    8, held against the straight forward, with their launch counts;
 6. deploy path: cli.deploy.main on a seeded 224x224 rgb npy, f32 and
    --bf16, with randomized-input timing; its saved prediction against the
-   straight forward, and K1's and K4's launches on every call;
+   straight forward, and K1's and K4's launches on every call; then the
+   deploy CLI in f32 in a fresh process, whose TF32 flags start at
+   PyTorch's defaults: it must turn TF32 off and its prediction must
+   agree with the straight forward (TF32 off) within 1e-3;
 7. probes: every tag of the probe catalogue (engine/probes.py, the
    scripts' Pallas probes) runs its kernel (K5, K6, or K3) once, with
    K5's and K6's launches counted on that run; then the launch floor
@@ -54,6 +59,7 @@ import io
 import json
 import os
 import re
+import subprocess
 import sys
 import tempfile
 import time
@@ -91,8 +97,9 @@ def device_phase() -> None:
 
     card = card_info()  # runs nvidia-smi; raises if it fails
     print(card["nvidia_smi"])
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from fastdepth_tpu_torch.engine.aot import strict_f32
+
+    strict_f32()
     print(f"device: {card['name']} x{card['count']}, torch {card['torch']}, CUDA "
           f"{card['cuda']}; TF32 off for cuDNN convolutions and matmuls (f32 phases are "
           "true f32)")
@@ -153,7 +160,7 @@ def kernel_phase() -> dict:
     Returns per kernel: the worst f32 error, and the f32 times and bound
     summed over the pruned flagship's five levels at batch 8 (K4: its
     head), kernel and plain."""
-    from fastdepth_tpu_torch.cli.bench_decoder import LEVELS, level_row
+    from fastdepth_tpu_torch.cli.bench_decoder import LEVELS, format_geometry, geometry, level_row
     from fastdepth_tpu_torch.engine.benchmark import bound_us, cold_copies, compare_and_time
     from fastdepth_tpu_torch.models import fused as F
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
@@ -201,6 +208,9 @@ def kernel_phase() -> dict:
                 which, index = level[:-1], int(level[-1])
                 kwargs = {"block_batch": bbs[index]} if bbs else {}
                 for n in batches:
+                    print(f"{label} {name} b{n} {level} launch: "
+                          + format_geometry(geometry(label, n, h, c, cout, name,
+                                                     kwargs.get("block_batch"))))
                     r = level_row(level, n, h, c, cout, skip, name, kernel=(mod, fn), **kwargs)
                     record(label, r, which == "pruned" and n == BATCH, dtype=name, batch=n,
                            model=which, H=h, C=c, Cout=cout, skip=skip, **kwargs)
@@ -422,8 +432,42 @@ def deploy_phase(model, params) -> dict:
                 if not err <= 1e-3:
                     fail(f"deploy prediction disagrees with the straight forward: {err}")
                 out[name]["max_abs_err_vs_straight"] = err
+                out["fresh_f32"] = fresh_deploy_f32(in_fp, os.path.join(tmp, "pred_fresh.npy"),
+                                                    want.cpu().numpy())
             print(f"deploy {name}: {json.dumps(out[name])}")
     return out
+
+
+def fresh_deploy_f32(in_fp: str, out_fp: str, want: np.ndarray) -> dict:
+    """cli.deploy.main in f32 in a fresh process, whose TF32 flags start
+    at PyTorch's defaults (cuDNN's on): the CLI must turn both off, and
+    its saved prediction must agree with ``want``, the straight forward
+    with TF32 off, within 1e-3."""
+    argv = ["--model", WEIGHTS, "--input-fp", in_fp, "--output-fp", out_fp, "--warmup", "2",
+            "--run", "5", "--device", "cuda"]
+    code = ("import json, torch\n"
+            "def flags():\n"
+            "    return [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]\n"
+            "before = flags()\n"
+            "from fastdepth_tpu_torch.cli import deploy\n"
+            f"deploy.main({argv!r})\n"
+            "print('TF32 ' + json.dumps({'before': before, 'after': flags()}))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode != 0:
+        fail(f"deploy in a fresh process exited {r.returncode}: {r.stderr[-2000:]}")
+    flags = json.loads(r.stdout.rsplit("TF32 ", 1)[1])
+    pred = np.load(out_fp)
+    err = float(np.abs(pred - want).max())
+    print(f"deploy f32, fresh process: TF32 flags (cudnn, matmul) {flags['before']} before, "
+          f"{flags['after']} after; saved prediction vs straight forward max|diff| {err:.3e} "
+          "(bound 1e-3)")
+    if flags["after"] != [False, False]:
+        fail(f"deploy in f32 left TF32 on: {flags['after']}")
+    if not err <= 1e-3:
+        fail(f"fresh-process f32 deploy disagrees with the straight forward: {err}")
+    return {"tf32_before": flags["before"], "tf32_after": flags["after"],
+            "max_abs_err_vs_straight": err}
 
 
 def probe_phase() -> dict:

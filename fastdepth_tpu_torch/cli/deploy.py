@@ -25,7 +25,7 @@ import os
 import numpy as np
 import torch
 
-from fastdepth_tpu_torch.engine.aot import IMPLS
+from fastdepth_tpu_torch.engine.aot import IMPLS, strict_f32
 
 
 def parse_args(argv=None):
@@ -37,7 +37,9 @@ def parse_args(argv=None):
     p.add_argument("--run", type=int, default=100, help="timed trials (tx2_run_tvm.py:48)")
     p.add_argument("--randomized-input-timing", action="store_true",
                    help="also time with fresh random inputs (tx2_run_tvm.py:56-65)")
-    p.add_argument("--bf16", action="store_true", help="run the model in bfloat16")
+    p.add_argument("--bf16", action="store_true",
+                   help="run the model in bfloat16; without it f32 is true f32 (TF32 off "
+                        "for cuDNN's convolutions and for matmuls)")
     p.add_argument("--impl", default="auto", choices=list(IMPLS),
                    help="forward (engine/aot._pick_apply): auto = decoder levels "
                         "through K1 and the head through K4 when the architecture "
@@ -46,7 +48,8 @@ def parse_args(argv=None):
                    help="write a torch.profiler trace of the timed runs to DIR")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the port's kernels; cpu runs their plain "
-                        "PyTorch versions (timings are then CPU times)")
+                        "PyTorch versions (timings are then CPU times); on either, f32 "
+                        "is true f32 (TF32 off)")
     return p.parse_args(argv)
 
 
@@ -66,6 +69,8 @@ def load_input(path: str) -> np.ndarray:
 
 def main(argv=None):
     args = parse_args(argv)
+    if not args.bf16:
+        strict_f32()  # f32 is true f32; bf16 runs leave the flags as they are
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run the plain PyTorch versions)")

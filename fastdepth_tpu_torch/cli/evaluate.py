@@ -20,7 +20,7 @@ import os
 
 import torch
 
-from fastdepth_tpu_torch.engine.aot import IMPLS
+from fastdepth_tpu_torch.engine.aot import IMPLS, strict_f32
 
 
 def parse_args(argv=None):
@@ -36,7 +36,9 @@ def parse_args(argv=None):
     p.add_argument("-e", "--evaluate", required=True, type=str, metavar="PATH")
     # port flags
     p.add_argument("--batch-size", default=8, type=int)
-    p.add_argument("--bf16", action="store_true", help="run the model in bfloat16")
+    p.add_argument("--bf16", action="store_true",
+                   help="run the model in bfloat16; without it f32 is true f32 (TF32 off "
+                        "for cuDNN's convolutions and for matmuls)")
     p.add_argument("--no-fold-bn", action="store_true",
                    help="keep BatchNorm unfolded (exact reference numerics)")
     p.add_argument("--impl", default="auto", choices=list(IMPLS),
@@ -50,7 +52,7 @@ def parse_args(argv=None):
     p.add_argument("--csv", default=None, help="append final metrics to this CSV")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the port's kernels; cpu runs their plain "
-                        "PyTorch versions")
+                        "PyTorch versions; on either, f32 is true f32 (TF32 off)")
     return p.parse_args(argv)
 
 
@@ -73,6 +75,8 @@ def load_params_and_model(path: str):
 
 def main(argv=None):
     args = parse_args(argv)
+    if not args.bf16:
+        strict_f32()  # f32 is true f32; bf16 runs leave the flags as they are
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run the plain PyTorch versions)")

@@ -140,12 +140,12 @@ def main(argv: Optional[list] = None) -> int:
     device = torch.device(args.device)
     out = {"device": {"type": device.type}}
     if device.type == "cuda":
+        from fastdepth_tpu_torch.engine.aot import strict_f32
         from fastdepth_tpu_torch.engine.benchmark import card_info
 
         out["device"].update(card_info())  # raises without a card
         print(out["device"]["nvidia_smi"])
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        strict_f32()
         out["launch_floor_us"] = launch_floor_us()
         print(f"launch floor: {out['launch_floor_us']:.2f} us a call (one-element zero_)")
     out["probes"] = run_probes(args.tags, device, args.calls)

@@ -147,12 +147,12 @@ def main(argv=None) -> Dict:
     device = torch.device(args.device)
     dev_info = {"type": device.type}
     if device.type == "cuda":
+        from fastdepth_tpu_torch.engine.aot import strict_f32
         from fastdepth_tpu_torch.engine.benchmark import card_info
 
         dev_info.update(card_info())  # raises without a card
         print(dev_info["nvidia_smi"])
-        torch.backends.cudnn.allow_tf32 = False  # f32 is true f32, as the f32 ceilings
-        torch.backends.cuda.matmul.allow_tf32 = False
+        strict_f32()  # f32 is true f32, as the f32 ceilings
     model = _model(args.model)
     cfg = model.config
     dtype = torch.bfloat16 if args.bf16 else torch.float32

@@ -69,15 +69,32 @@
 // kept to shifts and multiplies: tiles are powers of two, and the halo's
 // row / column split and the epilogue's item split divide by a
 // multiply-high.
+//
+// What K1 shares with K2 and K3.  K2 (image groups) and K3 (persistent)
+// run this design through stage_tile.cuh, which holds it generalised to
+// image groups and to a walk over work items.  K1 takes from there only
+// the leaf pieces (dw_strip, ldmatrix_x4 / _trans, mma_bf16, store16),
+// and keeps its own copy of the rest (the chunk loaders, the depthwise
+// loop, the tile GEMM, the epilogue and the pipeline): built from
+// stage_tile.cuh's block, K1 gave the same results bit for bit but its
+// bf16 levels with a skip ran 4-11% slower on an H100 (the same call,
+// parent and change alternating), with f32 unchanged, and passing the
+// epilogue's pointers restrict-qualified did not bring it back.  A
+// change to the pieces below is a change to stage_tile.cuh's too.
 
-#include "stage_common.cuh"
+#include "stage_tile.cuh"
 
 namespace {
 
 using fdk::cp_async16;
 using fdk::cp_async_commit;
 using fdk::cp_async_wait;
+using fdk::dw_strip;
 using fdk::from_float;
+using fdk::ldmatrix_x4;
+using fdk::ldmatrix_x4_trans;
+using fdk::mma_bf16;
+using fdk::store16;
 using fdk::to_float;
 
 constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may have on Hopper
@@ -125,66 +142,6 @@ struct Layout {
     total = ks * group;
   }
 };
-
-__device__ __forceinline__ void store16(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store16(__nv_bfloat16* p, const float (&v)[8]) {
-  uint4 u;
-  unsigned* w = reinterpret_cast<unsigned*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    w[i] = *reinterpret_cast<const unsigned*>(&b);
-  }
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-// d += a * b: one m16n8k16 bf16 product with f32 accumulation
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One item of the depthwise pass: channel k of the chunk, output row r of
-// the tile, output columns [col, col + SW).  The 5-wide window slides
-// along the strip: each halo value of the 5 input rows is loaded once.
-// Returns the ReLU'd results in o.
-template <typename T, int KC, int SW>
-__device__ __forceinline__ void dw_strip(const T* halo, int row_len, int r, int col, int k,
-                                         const float (&tap)[25], float bias, float (&o)[SW]) {
-#pragma unroll
-  for (int j = 0; j < SW; ++j) o[j] = 0.f;
-#pragma unroll
-  for (int dy = 0; dy < 5; ++dy) {
-    const T* row = halo + (r + dy) * row_len + col * KC + k;
-    float v[SW + 4];
-#pragma unroll
-    for (int j = 0; j < SW + 4; ++j) v[j] = to_float(row[j * KC]);
-#pragma unroll
-    for (int dx = 0; dx < 5; ++dx)
-#pragma unroll
-      for (int j = 0; j < SW; ++j) o[j] = fmaf(v[j + dx], tap[dy * 5 + dx], o[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < SW; ++j) o[j] = fmaxf(o[j] + bias, 0.f);
-}
 
 template <typename T, int KC, int SW>
 __device__ __forceinline__ void depthwise(const T* halo, int row_len, const T* s_taps,

@@ -12,245 +12,107 @@
 // dtype.  The TPU kernel viewed activations as (N/B, H, W, B, C) only to
 // keep Mosaic from relayouting the tap shifts; that layout means nothing
 // here, so K2 reads and writes NHWC like K1.  What it keeps from the TPU
-// kernel is the image group: a block holds the same 8x8 input tile of B
-// images (block_batch), so each C-chunk of depthwise taps (registers) and
-// pointwise weights (shared memory) loaded once serves B images, and the
-// pointwise product has B x 64 rows instead of 64.
+// kernel is the image group: a block holds the same th x tw pixel tile of
+// B = block_batch images, so each C chunk's pointwise-weight rows and
+// depthwise taps, loaded once into shared memory, serve all B images, and
+// the pointwise product is one tile GEMM with B x th x tw rows.
 //
-// What bounds it on the card: like K1, shared-memory instruction rate in the
-// pointwise loop (one shared load per one to four FMAs) at the large
-// levels; grouping raises the reuse of each pointwise-weight load by B.
-// At the 7x7 levels the grid bounds it: with B = 8 at batch 8 there is
-// one image group and one tile, so the only parallelism left is the Cout
-// tiles.  The launch shrinks the Cout tile (down to 8) until the grid
-// holds at least one block per SM or the tile is at its floor; each Cout
-// tile recomputes the depthwise pass for all C, which is the price.
+// What bounds it on the card: K1's levels (its header), with the same
+// function.  The first K2 reached 3% of that bound: it shrank its Cout
+// tile (down to 8) until the grid covered the SMs, and every Cout tile
+// redid the whole depthwise pass and re-read the halo; its halo loads
+// were synchronous element loads with two barriers per image and chunk,
+// its pointwise loop did one shared-memory load per four FMAs and its
+// epilogue stored 4 bytes at a time.
 //
-// A ragged last group (N not a multiple of B) is masked: missing images
-// read as zero and are not written, so the result does not depend on B.
+// The design is K1's, generalised to image groups in stage_tile.cuh (the
+// block, StageBlock, and its one-item pipeline, run_item).
+// The Cout tile is all of Cout <= 256; the block walks C in chunks
+// through the two-slot cp.async pipeline (each image's halo of chunk
+// s + 2 and the weights of chunk s + 1 land while chunk s computes);
+// register-blocked depthwise strips; the tile GEMM on a 4x8 f32 register
+// tile a thread (no TF32) or bf16 mma.sync; split-C thread groups summed
+// in a fixed order; 16-byte epilogue stores with the skip read the same
+// way.  The launch is chosen on the host, in closed form, by
+// ops/cuda/fused_decoder_hwbc.py::launch_geometry: a block's GEMM rows
+// are B x the per-image pixel tile, so at B = 8 the tile is as small as
+// 1 x 4 pixels; where image groups x tiles leave SMs idle (7^2 and 14^2
+// at batch 8 with B = 8) it shrinks the tile, then splits C over thread
+// groups, and only last splits Cout.
 //
-// Shared memory is dynamic: the pointwise chunk (32 x Cout tile), one
-// image's 12x12 halo of the chunk, and the ReLU'd depthwise rows of all B
-// images (B x 64 x 33 f32, 67.6 KB at B = 8).
+// A ragged last group (N not a multiple of B) is masked: its missing
+// images read as zero and are not written, so the result does not depend
+// on B.
 
-#include "stage_common.cuh"
+#include "stage_tile.cuh"
 
 namespace {
 
-using fdk::from_float;
-using fdk::to_float;
-
-constexpr int kTile = 8;          // input pixels per tile side
-constexpr int kHalo = kTile + 4;  // 5x5 taps: 2 pixels of halo per side
-constexpr int kChunk = 32;        // channels per pass over C
-constexpr int kThreads = 256;
-constexpr int kRows = kThreads / kChunk;
-
-template <int kB, int kCoutTile>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (kChunk * kCoutTile + kHalo * kHalo * kChunk +
-                          kB * kTile * kTile * (kChunk + 1));
+template <typename T, int KC>
+__global__ void __launch_bounds__(256, 2)
+    k2_kernel(const T* __restrict__ x, const T* __restrict__ dw_w, const T* __restrict__ dw_b,
+              const T* __restrict__ pw_w, const T* __restrict__ pw_b,
+              const T* __restrict__ skip, T* __restrict__ out, fdk::Geom g, bool vec_x,
+              bool vec_w, bool vec_o) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  fdk::StageBlock<T, KC, false> sb(x, dw_w, dw_b, pw_w, pw_b, skip, out, g, vec_x, vec_w,
+                                   vec_o, smem);
+  const int tile = blockIdx.x % g.tiles;
+  const fdk::Item it{(static_cast<int>(blockIdx.x) / g.tiles) << g.b_log2,
+                     (tile / g.tiles_w) * g.th, (tile % g.tiles_w) * g.tw,
+                     static_cast<int>(blockIdx.y) * g.nc};
+  fdk::run_item(sb, it);
 }
 
-// kCoutTile output channels per block, 4 per thread; the B x 64 pixel rows
-// are spread over the remaining thread dimension, kPx rows per thread.
-template <typename T, int kB, int kCoutTile>
-__global__ void __launch_bounds__(kThreads)
-    fused_decoder_stage_hwbc_kernel(const T* __restrict__ x, const T* __restrict__ dw_w,
-                                    const T* __restrict__ dw_b, const T* __restrict__ pw_w,
-                                    const T* __restrict__ pw_b, const T* __restrict__ skip,
-                                    T* __restrict__ out, int N, int H, int W, int C, int Cout,
-                                    int tiles_w) {
-  constexpr int kPix = kTile * kTile;
-  constexpr int kGroupRows = kB * kPix;
-  constexpr int kGroups = kCoutTile / 4;
-  constexpr int kPixGroups = kThreads / kGroups;
-  constexpr int kPx = kGroupRows / kPixGroups;
-  static_assert(kPx >= 1 && kPx * kPixGroups == kGroupRows, "the rows must split evenly");
-
-  extern __shared__ __align__(16) float smem[];
-  float* s_pw = smem;                             // [kChunk][kCoutTile], 16-byte aligned
-  float* s_halo = s_pw + kChunk * kCoutTile;      // [kHalo * kHalo][kChunk]
-  float* s_dw = s_halo + kHalo * kHalo * kChunk;  // [kGroupRows][kChunk + 1]
-
-  const int t = threadIdx.x;
-  const int n0 = blockIdx.z * kB;
-  const int co0 = blockIdx.y * kCoutTile;
-  const int h0 = (blockIdx.x / tiles_w) * kTile;
-  const int w0 = (blockIdx.x % tiles_w) * kTile;
-  const int lane_c = t % kChunk;
-  const int row = t / kChunk;
-  const int cg = t % kGroups;
-  const int pg = t / kGroups;
-
-  float acc[kPx][4];
-#pragma unroll
-  for (int j = 0; j < kPx; ++j)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) acc[j][k] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += kChunk) {
-    const int c = c0 + lane_c;
-    const bool c_ok = c < C;
-    __syncthreads();  // the previous chunk's pointwise pass is done with shared memory
-
-    for (int i = t; i < kChunk * kCoutTile; i += kThreads) {
-      const int ci = i / kCoutTile;
-      const int co = i % kCoutTile;
-      float v = 0.f;
-      if (c0 + ci < C && co0 + co < Cout)
-        v = to_float(pw_w[static_cast<size_t>(c0 + ci) * Cout + co0 + co]);
-      s_pw[i] = v;
-    }
-    float tap[25];
-#pragma unroll
-    for (int k = 0; k < 25; ++k) tap[k] = c_ok ? to_float(dw_w[k * C + c]) : 0.f;
-    const float bias = c_ok ? to_float(dw_b[c]) : 0.f;
-
-    // one image at a time through the halo; the depthwise rows of all B
-    // images stay in shared memory for the pointwise pass
-    for (int b = 0; b < kB; ++b) {
-      const int n = n0 + b;
-      if (b > 0) __syncthreads();  // the previous image's stencil is done with the halo
-      const T* xn = x + static_cast<size_t>(n) * H * W * C;
-      for (int q = row; q < kHalo * kHalo; q += kRows) {
-        const int h = h0 - 2 + q / kHalo;
-        const int w = w0 - 2 + q % kHalo;
-        float v = 0.f;
-        if (c_ok && n < N && h >= 0 && h < H && w >= 0 && w < W)
-          v = to_float(xn[(static_cast<size_t>(h) * W + w) * C + c]);
-        s_halo[q * kChunk + lane_c] = v;
-      }
-      __syncthreads();
-      for (int p = row; p < kPix; p += kRows) {
-        const int py = p / kTile;
-        const int px = p % kTile;
-        float s = 0.f;
-#pragma unroll
-        for (int dy = 0; dy < 5; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < 5; ++dx)
-            s = fmaf(s_halo[((py + dy) * kHalo + px + dx) * kChunk + lane_c], tap[dy * 5 + dx], s);
-        s_dw[(b * kPix + p) * (kChunk + 1) + lane_c] = fmaxf(s + bias, 0.f);
-      }
-    }
-    __syncthreads();
-
-    const int depth = min(kChunk, C - c0);
-    for (int ci = 0; ci < depth; ++ci) {
-      const float4 wv = *reinterpret_cast<const float4*>(&s_pw[ci * kCoutTile + cg * 4]);
-#pragma unroll
-      for (int j = 0; j < kPx; ++j) {
-        const float a = s_dw[(pg + j * kPixGroups) * (kChunk + 1) + ci];
-        acc[j][0] = fmaf(a, wv.x, acc[j][0]);
-        acc[j][1] = fmaf(a, wv.y, acc[j][1]);
-        acc[j][2] = fmaf(a, wv.z, acc[j][2]);
-        acc[j][3] = fmaf(a, wv.w, acc[j][3]);
-      }
-    }
-  }
-
-  // epilogue: + bias, ReLU, each pixel as a 2x2 block, + skip
-  const size_t H2 = 2 * static_cast<size_t>(H);
-  const size_t W2 = 2 * static_cast<size_t>(W);
-#pragma unroll
-  for (int j = 0; j < kPx; ++j) {
-    const int r = pg + j * kPixGroups;
-    const int n = n0 + r / kPix;
-    const int p = r % kPix;
-    const int h = h0 + p / kTile;
-    const int w = w0 + p % kTile;
-    if (n >= N || h >= H || w >= W) continue;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int co = co0 + cg * 4 + k;
-      if (co >= Cout) continue;
-      const float v = fmaxf(acc[j][k] + to_float(pw_b[co]), 0.f);
-#pragma unroll
-      for (int dy = 0; dy < 2; ++dy)
-#pragma unroll
-        for (int dx = 0; dx < 2; ++dx) {
-          const size_t o = ((n * H2 + 2 * h + dy) * W2 + 2 * w + dx) * Cout + co;
-          float rv = v;
-          if (skip != nullptr) rv += to_float(skip[o]);
-          out[o] = from_float<T>(rv);
-        }
-    }
-  }
-}
-
-template <typename T, int kB, int kCoutTile>
+template <typename T, int KC>
 cudaError_t launch(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
-                   const void* pw_b, const void* skip, void* out, int N, int H, int W, int C,
-                   int Cout, cudaStream_t stream) {
-  const int tiles_w = fd_ceil_div(W, kTile);
-  const dim3 grid(fd_ceil_div(H, kTile) * tiles_w, fd_ceil_div(Cout, kCoutTile),
-                  fd_ceil_div(N, kB));
-  if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  constexpr size_t smem = smem_bytes<kB, kCoutTile>();
-  auto kernel = fused_decoder_stage_hwbc_kernel<T, kB, kCoutTile>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                   const void* pw_b, const void* skip, void* out, const fdk::Geom& g,
+                   int threads, cudaStream_t stream) {
+  const int smem = fdk::Layout<T, KC>(g.th, g.tw, g.nc, g.ks, g.b_log2, false).total;
+  auto kernel = k2_kernel<T, KC>;
+  static int smem_allowed = 48 * 1024;  // per instantiation: raise the cap once
+  const cudaError_t err = fdk::allow_smem(kernel, smem, smem_allowed);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(
+  bool vec_x, vec_w, vec_o;
+  fdk::vector_paths<T>(g, x, dw_w, dw_b, pw_w, skip, out, vec_x, vec_w, vec_o);
+  const dim3 grid(fd_ceil_div(g.N, 1 << g.b_log2) * g.tiles, g.n_ct);
+  kernel<<<grid, threads * g.ks, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dw_w), static_cast<const T*>(dw_b),
       static_cast<const T*>(pw_w), static_cast<const T*>(pw_b), static_cast<const T*>(skip),
-      static_cast<T*>(out), N, H, W, C, Cout, tiles_w);
+      static_cast<T*>(out), g, vec_x, vec_w, vec_o);
   return cudaGetLastError();
-}
-
-// The Cout tile: the smallest power of two >= Cout, within [8, 64], and at
-// most 128 / B (at most 32 accumulators a thread) and at least 16 / B (one
-// row a thread).  Then halved while the grid holds fewer blocks than the
-// card has SMs.
-int cout_tile(int N, int H, int W, int Cout, int B) {
-  int tile = fd_pow2_ceil(Cout);
-  tile = tile < 8 ? 8 : (tile > 64 ? 64 : tile);
-  if (tile > 128 / B) tile = 128 / B;
-  const int floor_tile = 16 / B > 8 ? 16 / B : 8;
-  if (tile < floor_tile) tile = floor_tile;
-  const long long fixed = static_cast<long long>(fd_ceil_div(H, kTile)) * fd_ceil_div(W, kTile) *
-                          fd_ceil_div(N, B);
-  const int sms = fd_sm_count();
-  while (tile > floor_tile && fixed * fd_ceil_div(Cout, tile) < sms) tile /= 2;
-  return tile;
-}
-
-template <typename T>
-cudaError_t dispatch(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
-                     const void* pw_b, const void* skip, void* out, int N, int H, int W, int C,
-                     int Cout, int B, cudaStream_t stream) {
-  if (B != 1 && B != 2 && B != 4 && B != 8) return cudaErrorInvalidValue;
-  const int tile = cout_tile(N, H, W, Cout, B);
-#define FD_HWBC(b, t)                                                                       \
-  if (B == b && tile == t)                                                                  \
-    return launch<T, b, t>(x, dw_w, dw_b, pw_w, pw_b, skip, out, N, H, W, C, Cout, stream);
-  FD_HWBC(1, 16) FD_HWBC(1, 32) FD_HWBC(1, 64)
-  FD_HWBC(2, 8) FD_HWBC(2, 16) FD_HWBC(2, 32) FD_HWBC(2, 64)
-  FD_HWBC(4, 8) FD_HWBC(4, 16) FD_HWBC(4, 32)
-  FD_HWBC(8, 8) FD_HWBC(8, 16)
-#undef FD_HWBC
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // As fd_fused_decoder_stage (fused_decoder.cu), plus B, the images per
-// block: 1, 2, 4 or 8.  Launches on `stream` and returns the launch's
-// cudaError_t (0 = success); it neither allocates nor syncs.
+// block: 1, 2, 4 or 8; th x tw is each image's pixel tile.  The geometry
+// comes from the wrapper's launch_geometry; one the kernel does not take
+// returns cudaErrorInvalidValue.  Launches on `stream` and returns the
+// launch's cudaError_t (0 = success); it neither allocates nor syncs.
 extern "C" int fd_fused_decoder_stage_hwbc(const void* x, const void* dw_w, const void* dw_b,
                                            const void* pw_w, const void* pw_b, const void* skip,
                                            void* out, int N, int H, int W, int C, int Cout,
+                                           int threads, int th, int tw, int nc, int kc, int ks,
                                            int B, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return static_cast<int>(
-          dispatch<float>(x, dw_w, dw_b, pw_w, pw_b, skip, out, N, H, W, C, Cout, B, s));
-    case 1:
-      return static_cast<int>(dispatch<__nv_bfloat16>(x, dw_w, dw_b, pw_w, pw_b, skip, out, N,
-                                                      H, W, C, Cout, B, s));
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (!fdk::pow2(B) || B > 8) return static_cast<int>(cudaErrorInvalidValue);
+  fdk::Geom g;
+  if (!fdk::make_geom(g, N, H, W, C, Cout, threads, th, tw, nc, ks, __builtin_ctz(B), dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (static_cast<long long>(fd_ceil_div(N, B)) * g.tiles > 0x7fffffffLL || g.n_ct > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) {
+    switch (kc) {
+      case 8: return static_cast<int>(launch<float, 8>(x, dw_w, dw_b, pw_w, pw_b, skip, out, g, threads, s));
+      case 16: return static_cast<int>(launch<float, 16>(x, dw_w, dw_b, pw_w, pw_b, skip, out, g, threads, s));
+      case 32: return static_cast<int>(launch<float, 32>(x, dw_w, dw_b, pw_w, pw_b, skip, out, g, threads, s));
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (kc) {
+    case 16: return static_cast<int>(launch<__nv_bfloat16, 16>(x, dw_w, dw_b, pw_w, pw_b, skip, out, g, threads, s));
+    case 32: return static_cast<int>(launch<__nv_bfloat16, 32>(x, dw_w, dw_b, pw_w, pw_b, skip, out, g, threads, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -23,6 +23,16 @@ from fastdepth_tpu_torch.models.registry import Model
 IMPLS = ("auto", "fused", "opt", "xla")
 
 
+def strict_f32() -> None:
+    """Make f32 true f32 on the card: turn TF32 off for cuDNN's
+    convolutions (PyTorch turns it on by default) and for matmuls.  The
+    port's f32 contract (1e-4 a kernel against its plain version, 1e-3
+    for a fused forward against the straight one) holds only without
+    TF32's 10-bit mantissas."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def _pick_apply(model: Model, params, impl: str, batch_size: int = 2):
     """The forward ``fn(params, x)`` an impl name selects.
 
@@ -61,7 +71,13 @@ def _prepare(model: Model, params, *, batch_size: int, dtype: torch.dtype, fold_
     """The preamble :class:`Evaluator` and :func:`compile_forward` share:
     fold (in f32, before the cast), cast to ``dtype``, move to
     ``device``, pick the forward.  Returns (params, apply).  The caller's
-    tree is never moved or cast: both branches copy."""
+    tree is never moved or cast: both branches copy.
+
+    f32 is true f32 (TF32 off): for ``dtype`` float32 it calls
+    :func:`strict_f32` on any device, which sets the process-wide flags;
+    bf16 leaves them as it finds them."""
+    if dtype == torch.float32:
+        strict_f32()
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but no CUDA device is available")

@@ -45,21 +45,24 @@ _MAX_GRID_YZ = 65535
 SMS = 132  # an H100 SXM's streaming multiprocessors
 MAX_SMEM = 232448  # the most shared memory a Hopper block may have (227 KB)
 SMEM_PER_SM = 233472  # 228 KB an SM
-# K1 takes at most 128 registers a thread (__launch_bounds__(256, 2)),
-# so an SM's 64 K registers hold 512 / threads blocks of its launch
+# K1-K3 take at most 128 registers a thread (__launch_bounds__(256, 2)),
+# so an SM's 64 K registers hold 512 / threads blocks of a launch
 REG_THREADS_PER_SM = 512
-# pixels -> (rows, columns) of a block's pixel tile
-TILES = {8: (2, 4), 16: (4, 4), 32: (4, 8), 64: (8, 8), 128: (8, 16), 256: (16, 16),
-         512: (16, 32)}
+# pixels -> (rows, columns) of a block's pixel tile (of each image); the
+# 4-pixel tile only where an image group of K2 or K3 fills the rest
+TILES = {4: (1, 4), 8: (2, 4), 16: (4, 4), 32: (4, 8), 64: (8, 8), 128: (8, 16),
+         256: (16, 16), 512: (16, 32)}
 
 
 @dataclasses.dataclass(frozen=True)
 class Geometry:
-    """One launch of K1: each block a ``tile_h`` x ``tile_w`` pixel tile
-    of one image and ``cout_tile`` output channels, its ``groups`` x
-    ``threads`` threads in ``groups`` groups that walk every
-    ``groups``-th chunk of ``chunk`` channels of C; ``grid`` is (images x
-    tiles, Cout tiles) and ``smem`` the dynamic shared memory in bytes."""
+    """One launch of K1 (or K2 / K3): each block a ``tile_h`` x ``tile_w``
+    pixel tile of ``images`` images (K1: one) and ``cout_tile`` output
+    channels, its ``groups`` x ``threads`` threads in ``groups`` groups
+    that walk every ``groups``-th chunk of ``chunk`` channels of C;
+    ``grid`` is (image groups x tiles, Cout tiles), the work items of
+    K3's persistent walk, ``smem`` the dynamic shared memory in bytes and
+    ``per_sm`` the blocks an SM holds (registers and shared memory)."""
 
     threads: int
     tile_h: int
@@ -69,6 +72,8 @@ class Geometry:
     groups: int
     grid: Tuple[int, int]
     smem: int
+    images: int = 1
+    per_sm: int = 1
 
     @property
     def blocks(self) -> int:
@@ -80,64 +85,41 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def smem_bytes(tile_h: int, tile_w: int, cout_tile: int, chunk: int, bf16: bool,
-               groups: int = 1) -> int:
-    """K1's shared memory (``Layout`` in fused_decoder.cu), per group: two
-    slots, each the halo, the pointwise weight and the depthwise taps (25
-    rows and the bias) of a chunk, and two depthwise tiles in the main
-    loop; the f32 output tile in the epilogue over the same bytes."""
+               groups: int = 1, images: int = 1, persistent: bool = False) -> int:
+    """The block's shared memory (``Layout`` in fused_decoder.cu, and in
+    stage_tile.cuh for K2 / K3), per
+    group: two slots, each the halos of the ``images`` images, the
+    pointwise weight and the depthwise taps (25 rows and the bias) of a
+    chunk, and two depthwise tiles in the main loop; in the epilogue,
+    each group's f32 output tile over the same bytes (one item a block),
+    or (``persistent``, K3) one f32 output tile for the block after
+    them."""
     elem = 2 if bf16 else 4
-    p = tile_h * tile_w
+    m = tile_h * tile_w * images
     pix_words = chunk * elem // 4
     pad_words = (pix_words * (1 - (tile_w + 4))) % 32  # rows kPixWords banks apart
-    halo = (tile_h + 4) * ((tile_w + 4) * chunk * elem + 4 * pad_words)
+    halo = images * (tile_h + 4) * ((tile_w + 4) * chunk * elem + 4 * pad_words)
     pw = chunk * (cout_tile + 8 if bf16 else cout_tile) * elem
     taps = 26 * chunk * elem
-    dw = p * (chunk + 8) * 2 if bf16 else chunk * (p + 4) * 4
-    return groups * max(2 * (halo + pw + taps + dw), p * (cout_tile + 4) * 4)
+    dw = m * (chunk + 8) * 2 if bf16 else chunk * (m + 4) * 4
+    main, epi = 2 * (halo + pw + taps + dw), m * (cout_tile + 4) * 4
+    return groups * main + epi if persistent else groups * max(main, epi)
 
 
-@functools.lru_cache(maxsize=None)
-def launch_geometry(N: int, H: int, W: int, C: int, Cout: int, dtype: torch.dtype) -> Geometry:
-    """K1's launch for one level, in closed form.
-
-    A block of ``T`` threads computes ``32 T`` outputs per pixel tile
-    (f32: each thread 4 pixels x 8 channels; bf16: each warp 32 x 32), so
-    pixel tile x Cout tile = ``32 T``.  The Cout tile is all of Cout
-    (rounded up to a power of two: a multiple of 8 in f32, of 32 in bf16)
-    up to 256, and the pixel tile holds at least 8 (f32) or 32 (bf16)
-    pixels.  ``T`` is the largest of 256 (128 for an f32 Cout tile of at
-    most 64), 128, 64, 32 whose grid covers the card's SMs once; a smaller
-    ``T`` shrinks the pixel tile and, once it is at its least, splits Cout
-    into more tiles (each recomputing the depthwise pass).  Where even 32
-    threads leave SMs idle, the grid is the largest there is.
-
-    Where the grid holds fewer than 1024 threads an SM, each block runs
-    up to 256 / ``T`` groups of ``T`` threads that split C between them,
-    at most one group a chunk; the groups' partial products are summed in
-    a fixed order.  The C chunk (32, 16 or 8 channels; bf16 32 or 16) is
-    the largest whose shared memory leaves room for as many blocks an SM
-    as the registers hold (K1 takes at most 128 a thread) or the grid
-    puts there; where even the least does not fit, the groups halve."""
-    if dtype not in DTYPES:
-        raise ValueError(f"K1 takes float32 or bfloat16, got {dtype}")
-    bf16 = dtype == torch.bfloat16
+def _launch(N: int, H: int, W: int, C: int, Cout: int, bf16: bool, images: int,
+            persistent: bool, threads: int) -> Optional[Geometry]:
+    """The launch with ``threads`` threads a group (see
+    :func:`launch_geometry`), or None where its pixel tile does not exist."""
     lanes, p_min = (32, 32) if bf16 else (8, 8)
+    p_min = max(p_min, 4 * images)
     nc_all = min(256, max(lanes, 1 << (Cout - 1).bit_length()))
-    # f32 levels whose Cout tile is at most 64 wide (the pruned levels 4-5)
-    # take at most 128 threads a block: their weight chunks are small, and
-    # four blocks an SM hide each other's barriers better than two
-    sizes = (128, 64, 32) if not bf16 and nc_all <= 64 else (256, 128, 64, 32)
-    options = []
-    for threads in sizes:
-        nc = min(nc_all, threads * 32 // p_min)
-        p = threads * 32 // nc
-        if p > max(TILES):
-            continue
-        th, tw = TILES[p]
-        grid = (N * _cdiv(H, th) * _cdiv(W, tw), _cdiv(Cout, nc))
-        options.append((grid[0] * grid[1], threads, th, tw, nc, grid))
-    blocks, threads, th, tw, nc, grid = next((o for o in options if o[0] >= SMS),
-                                             max(options))
+    nc = min(nc_all, threads * 32 // p_min)
+    p = threads * 32 // nc // images
+    if p > max(TILES):
+        return None
+    th, tw = TILES[p]
+    grid = (_cdiv(N, images) * _cdiv(H, th) * _cdiv(W, tw), _cdiv(Cout, nc))
+    blocks = grid[0] * grid[1]
     chunks = (32, 16) if bf16 else (32, 16, 8)
     groups = 1
     while (2 * groups * threads <= 256 and blocks * threads * groups < SMS * 1024
@@ -145,12 +127,85 @@ def launch_geometry(N: int, H: int, W: int, C: int, Cout: int, dtype: torch.dtyp
         groups *= 2
     per_sm = min(REG_THREADS_PER_SM // (threads * groups), _cdiv(blocks, SMS))
     budget = SMEM_PER_SM // per_sm - 1024  # each block with the 1 KB the runtime keeps
-    chunk = next((k for k in chunks if groups <= _cdiv(C, k)
-                  and smem_bytes(th, tw, nc, k, bf16, groups) <= budget), chunks[-1])
-    while smem_bytes(th, tw, nc, chunk, bf16, groups) > MAX_SMEM:
+
+    def smem(k, groups):
+        return smem_bytes(th, tw, nc, k, bf16, groups, images, persistent)
+
+    chunk = next((k for k in chunks if groups <= _cdiv(C, k) and smem(k, groups) <= budget),
+                 chunks[-1])
+    while smem(chunk, groups) > MAX_SMEM:
+        if groups == 1:
+            return None
         groups //= 2
-    return Geometry(threads, th, tw, nc, chunk, groups, grid,
-                    smem_bytes(th, tw, nc, chunk, bf16, groups))
+    held = min(REG_THREADS_PER_SM // (threads * groups),
+               SMEM_PER_SM // (smem(chunk, groups) + 1024))
+    return Geometry(threads, th, tw, nc, chunk, groups, grid, smem(chunk, groups), images,
+                    held)
+
+
+def serial_work(g: Geometry, C: int, bf16: bool) -> float:
+    """A closed-form estimate of the busiest SM's work for launch ``g``,
+    in f32 FMAs a thread: the waves of blocks the card holds at once,
+    times the channels each group walks, times a thread's work a channel
+    (its pointwise product: 32 FMAs on the CUDA cores, about 4 on the
+    tensor cores; its share of the depthwise pass, 25 taps over the
+    tile's rows, 800 / Cout tile; its share of the halo loads, about 2 a
+    value)."""
+    waves = _cdiv(g.blocks, SMS * g.per_sm)
+    channels = _cdiv(C, g.groups * g.chunk) * g.chunk
+    halo = g.images * (g.tile_h + 4) * (g.tile_w + 4) / g.threads
+    return waves * channels * ((4 if bf16 else 32) + 800 / g.cout_tile + 2 * halo)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_geometry(N: int, H: int, W: int, C: int, Cout: int, dtype: torch.dtype,
+                    images: int = 1, persistent: bool = False) -> Geometry:
+    """K1's launch for one level, in closed form; with ``images`` > 1 the
+    launch of K2 (image groups), with ``persistent`` K3's blocks.
+
+    A block of ``T`` threads computes ``32 T`` outputs per item (f32:
+    each thread 4 rows x 8 channels; bf16: each warp 32 x 32), so rows x
+    Cout tile = ``32 T``, where the rows are ``images`` x the pixel tile
+    of each.  The Cout tile is all of Cout (rounded up to a power of two:
+    a multiple of 8 in f32, of 32 in bf16) up to 256, and the rows are at
+    least 8 (f32) or 32 (bf16), and at least 4 pixels an image.  A
+    smaller ``T`` shrinks the pixel tile and, once it is at its least,
+    splits Cout into more tiles (each recomputing the depthwise pass and
+    re-reading the halo).  For one image ``T`` is the largest of 256 (128
+    for an f32 Cout tile of at most 64), 128, 64, 32 whose grid covers the
+    card's SMs once; where even 32 threads leave SMs idle, the grid is the
+    largest there is.  An image group's tile is at its least sooner, and
+    its block may hold so much shared memory that a grid covering the SMs
+    takes two waves: so for ``images`` > 1 that ``T`` is only the least,
+    and a larger one (less Cout split) is taken where it has less
+    :func:`serial_work` (the larger on a tie).
+
+    Where the grid holds fewer than 1024 threads an SM, each block runs
+    up to 256 / ``T`` groups of ``T`` threads that split C between them,
+    at most one group a chunk; the groups' partial products are summed in
+    a fixed order.  The C chunk (32, 16 or 8 channels; bf16 32 or 16) is
+    the largest whose shared memory leaves room for as many blocks an SM
+    as the registers hold (at most 128 a thread) or the grid puts there;
+    where even the least does not fit, the groups halve."""
+    if dtype not in DTYPES:
+        raise ValueError(f"K1 takes float32 or bfloat16, got {dtype}")
+    bf16 = dtype == torch.bfloat16
+    nc_all = min(256, max(32 if bf16 else 8, 1 << (Cout - 1).bit_length()))
+    # f32 levels whose Cout tile is at most 64 wide (the pruned levels 4-5)
+    # take at most 128 threads a block: their weight chunks are small, and
+    # four blocks an SM hide each other's barriers better than two
+    sizes = (128, 64, 32) if not bf16 and nc_all <= 64 else (256, 128, 64, 32)
+    options = [g for g in (_launch(N, H, W, C, Cout, bf16, images, persistent, t)
+                           for t in sizes) if g is not None]
+    if not options:
+        raise ValueError(f"no launch of {images} images a block fits shared memory at "
+                         f"{(N, H, W, C, Cout)}")
+    pick = next((g for g in options if g.blocks >= SMS),
+                max(options, key=lambda g: (g.blocks, g.threads)))
+    if images > 1:  # split Cout only as far as it pays
+        pick = min((g for g in options if g.threads >= pick.threads),
+                   key=lambda g: (serial_work(g, C, bf16), -g.threads))
+    return pick
 
 
 def kernel_weights(dw_w: torch.Tensor, pw_w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -5,10 +5,13 @@ Counterpart of the Pallas TPU kernel
 It computes K1's function (``fused_decoder.py``) with K1's operands and
 layouts; what it keeps from the TPU kernel is ``block_batch``: a block
 holds the same tile of that many images, so each chunk of weights it
-loads serves all of them.  The TPU kernel's (N/B, H, W, B, C) view
-existed only for Mosaic's tiling and has no counterpart here: K2 reads
-and writes channels_last like K1.  The CUDA source is
-``fastdepth_tpu_torch/csrc/fused_decoder_hwbc.cu``.
+loads serves all of them, and the pointwise product is one tile GEMM
+over the group's pixels.  The TPU kernel's (N/B, H, W, B, C) view existed
+only for Mosaic's tiling and has no counterpart here: K2 reads and writes
+channels_last like K1.  The CUDA source is
+``fastdepth_tpu_torch/csrc/fused_decoder_hwbc.cu``; its block is K1's
+(``csrc/stage_tile.cuh``), and :func:`launch_geometry` picks the launch
+in closed form, K1's rules over image groups.
 
 Dispatch: a CPU tensor takes the plain version (K1's,
 :func:`fused_decoder_stage_reference`); a CUDA tensor launches K2 or
@@ -21,7 +24,9 @@ from typing import Optional
 
 import torch
 
+from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
 from fastdepth_tpu_torch.ops.cuda.fused_decoder import (
+    Geometry,
     check_stage,
     fused_decoder_stage_reference,
     launch_stage,
@@ -30,7 +35,7 @@ from fastdepth_tpu_torch.ops.cuda.fused_decoder import (
 
 LAUNCHES = 0
 
-MAX_BLOCK_BATCH = 8  # the depthwise rows of 8 images fill 67.6 KB of shared memory
+MAX_BLOCK_BATCH = 8  # the kernels take image groups of 1, 2, 4 or 8
 
 
 def kernel_block_batch(block_batch: int, n: int) -> int:
@@ -43,6 +48,22 @@ def kernel_block_batch(block_batch: int, n: int) -> int:
     return 1 << (b - 1).bit_length()
 
 
+def launch_geometry(N: int, H: int, W: int, C: int, Cout: int, dtype: torch.dtype,
+                    block_batch: int) -> Geometry:
+    """K2's launch for one level at ``block_batch`` images per block
+    (rounded by :func:`kernel_block_batch`), in closed form: K1's rules
+    (``fused_decoder.launch_geometry``) with the tile GEMM's rows an image
+    group's pixel tiles.  Where image groups x tiles leave SMs idle it
+    shrinks the per-image tile (down to 4 pixels), then splits C over
+    thread groups, and only last splits Cout."""
+    return K1.launch_geometry(N, H, W, C, Cout, dtype, images=kernel_block_batch(block_batch, N))
+
+
+def launch_args(g: Geometry):
+    """The geometry as the C entries of K2 and K3 take it."""
+    return (g.threads, g.tile_h, g.tile_w, g.cout_tile, g.chunk, g.groups, g.images)
+
+
 def fused_decoder_stage_hwbc(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
                              pw_w: torch.Tensor, pw_b: torch.Tensor,
                              skip: Optional[torch.Tensor] = None, *,
@@ -53,10 +74,14 @@ def fused_decoder_stage_hwbc(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Te
     the CPU this is the plain version; on a CUDA tensor it launches K2 or
     raises."""
     global LAUNCHES
-    N = check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, "K2")[0]
-    B = kernel_block_batch(block_batch, N)
+    N, C, H, W, Cout = check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, "K2")
+    kernel_block_batch(block_batch, N)
     if use_plain_version("K2", x):
         return fused_decoder_stage_reference(x, dw_w, dw_b, pw_w, pw_b, skip)
-    out = launch_stage("fd_fused_decoder_stage_hwbc", "K2", x, dw_w, dw_b, pw_w, pw_b, skip, extra=(B,))
+    g = launch_geometry(N, H, W, C, Cout, x.dtype, block_batch)
+    if g.grid[0] >= 2 ** 31 or g.grid[1] > 65535:
+        raise ValueError(f"K2's grid {g.grid} is too large for one launch")
+    out = launch_stage("fd_fused_decoder_stage_hwbc", "K2", x, dw_w, dw_b, pw_w, pw_b, skip,
+                       extra=launch_args(g))
     LAUNCHES += 1
     return out

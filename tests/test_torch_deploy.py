@@ -227,3 +227,91 @@ def test_profiler_trace_is_a_no_op_without_a_directory(tmp_path):
     with trace(str(tmp_path / "t")), annotate("step"):
         torch.ones(4).sum()
     assert "step" in (tmp_path / "t" / "trace.json").read_text()
+
+
+# --- f32 is true f32: the entry points turn TF32 off -----------------------
+
+def _tf32():
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+@pytest.fixture
+def tf32_on(monkeypatch):
+    """Both TF32 flags on, as a process may find them (PyTorch turns
+    cuDNN's on by default); monkeypatch restores them afterwards."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+
+
+@pytest.fixture
+def val_root(tmp_path):
+    """Two raw NYU val frames (480x640 h5) under DIR/nyudepthv2/val."""
+    h5py = pytest.importorskip("h5py")
+    root = tmp_path / "data" / "nyudepthv2" / "val" / "scene"
+    root.mkdir(parents=True)
+    rng = np.random.RandomState(0)
+    for i in range(2):
+        with h5py.File(str(root / f"{i:05d}.h5"), "w") as f:
+            f["rgb"] = (rng.rand(3, 480, 640) * 255).astype(np.uint8)
+            f["depth"] = (rng.rand(480, 640) * 9 + 0.5).astype(np.float32)
+    return str(tmp_path / "data")
+
+
+def test_deploy_cli_in_f32_turns_tf32_off(tiny_ckpt, rgb_npy, tmp_path, tf32_on):  # noqa: F811
+    from fastdepth_tpu_torch.cli import deploy
+
+    deploy.main(["--model", tiny_ckpt, "--input-fp", rgb_npy, "--warmup", "1", "--run", "1",
+                 "--output-fp", str(tmp_path / "p.npy"), "--device", "cpu"])
+    assert _tf32() == (False, False)
+
+
+def test_evaluate_cli_in_f32_turns_tf32_off(tiny_ckpt, val_root, tf32_on):  # noqa: F811
+    from fastdepth_tpu_torch.cli import evaluate
+
+    avg = evaluate.main(["--evaluate", tiny_ckpt, "--data-root", val_root, "--batch-size", "2",
+                         "--device", "cpu", "--no-images", "--workers", "1",
+                         "--print-freq", "0"])
+    assert np.isfinite(avg.rmse)
+    assert _tf32() == (False, False)
+
+
+@pytest.mark.parametrize("cli", ["evaluate", "deploy"])
+def test_clis_in_bf16_leave_tf32_as_found(cli, tiny_ckpt, rgb_npy, val_root, tmp_path,  # noqa: F811
+                                          tf32_on):
+    from fastdepth_tpu_torch.cli import deploy, evaluate
+
+    if cli == "deploy":
+        deploy.main(["--model", tiny_ckpt, "--input-fp", rgb_npy, "--warmup", "1", "--run", "1",
+                     "--output-fp", str(tmp_path / "p.npy"), "--device", "cpu", "--bf16"])
+    else:
+        evaluate.main(["--evaluate", tiny_ckpt, "--data-root", val_root, "--batch-size", "2",
+                       "--device", "cpu", "--no-images", "--workers", "1", "--print-freq", "0",
+                       "--bf16"])
+    assert _tf32() == (True, True)
+
+
+def test_evaluator_and_compile_forward_in_f32_turn_tf32_off(tiny_model, monkeypatch):
+    from fastdepth_tpu_torch.engine import Evaluator
+    from fastdepth_tpu_torch.engine.aot import compile_forward
+
+    model, params = tiny_model
+    for make in (lambda: Evaluator(model, params, batch_size=2, dtype=torch.float32,
+                                   device="cpu"),
+                 lambda: compile_forward(model, params, batch_size=1, image_size=(32, 32),
+                                         device="cpu")):
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+        monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+        make()
+        assert _tf32() == (False, False)
+
+
+@pytest.mark.parametrize("found", [True, False])
+def test_bf16_prepare_leaves_tf32_as_found(tiny_model, found, monkeypatch):
+    from fastdepth_tpu_torch.engine.aot import _prepare
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", found)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", found)
+    model, params = tiny_model
+    _prepare(model, params, batch_size=2, dtype=torch.bfloat16, fold_bn=True, impl="auto",
+             device="cpu")
+    assert _tf32() == (found, found)

@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
+from fastdepth_tpu_torch.models import fused as F
 from fastdepth_tpu_torch.ops import blocks as TB
+from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
 from fastdepth_tpu_torch.ops.cuda import fused_decoder_hwbc as K2
 from fastdepth_tpu_torch.ops.cuda import fused_decoder_v3 as K3
 from fastdepth_tpu_torch.ops.cuda import head as K4
@@ -143,6 +145,99 @@ def test_stage_wrappers_reject_what_the_kernels_do_not_take(rng, name):
             stage(*args, **kwargs)
 
 
+# (level, H=W, C, Cout): the pruned flagship's five levels
+PRUNED_LEVELS = [(1, 7, 512, 200), (2, 14, 200, 256), (3, 28, 256, 120), (4, 56, 120, 56),
+                 (5, 112, 56, 16)]
+BLOCK_BATCHES = {"K2": F.V2_BLOCK_BATCHES, "K3": F.V3_BLOCK_BATCHES}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 8, 128])
+@pytest.mark.parametrize("level", PRUNED_LEVELS)
+@pytest.mark.parametrize("name", list(STAGES))
+def test_launch_geometry_of_k2_and_k3(name, level, n, dtype):
+    """The launch K2 / K3 get at their forwards' images per block: a block
+    shape the kernels take (fd_fused_decoder_stage_hwbc / _v3's check),
+    all of Cout <= 256 in one tile wherever a grid with it could still
+    cover the 132 SMs, shared memory within a block's 227 KB and the
+    blocks an SM holds within its 228 KB (and its registers), and every
+    (image, pixel, output channel) in exactly one work item."""
+    index, H, C, Cout = level
+    mod = STAGES[name][0]
+    g = mod.launch_geometry(n, H, H, C, Cout, dtype, BLOCK_BATCHES[name][index])
+    bf16 = dtype == torch.bfloat16
+    B = K2.kernel_block_batch(BLOCK_BATCHES[name][index], n)
+    p = g.tile_h * g.tile_w
+    assert g.images == B
+    # the kernels' block shapes
+    assert g.threads in (32, 64, 128, 256) and g.tile_w in (4, 8, 16, 32)
+    assert g.tile_h & (g.tile_h - 1) == 0 and p >= 4
+    assert g.groups in (1, 2, 4, 8) and g.groups * g.threads <= 256
+    assert g.groups <= -(-C // g.chunk)  # every group has a chunk of C
+    assert B * p * g.cout_tile == 32 * g.threads  # the register tiles cover the GEMM
+    assert B * p >= (32 if bf16 else 8) and g.cout_tile >= (32 if bf16 else 8)
+    assert g.cout_tile <= 256 and g.cout_tile & (g.cout_tile - 1) == 0
+    assert g.chunk in ((16, 32) if bf16 else (8, 16, 32))
+    # Cout splits only where no grid with all of it covers the SMs: with
+    # the least rows a block (32 threads, or the dtype's floor) and the
+    # least per-image tile
+    nc_all = min(256, max(32 if bf16 else 8, 1 << (Cout - 1).bit_length()))
+    if g.cout_tile < nc_all:
+        rows = max(32 * 32 // nc_all, 32 if bf16 else 8, 4 * B)
+        th, tw = K1.TILES[rows // B]
+        assert -(-n // B) * -(-H // th) * -(-H // tw) < K1.SMS
+    # shared memory and residency
+    assert g.smem == K1.smem_bytes(g.tile_h, g.tile_w, g.cout_tile, g.chunk, bf16, g.groups,
+                                   B, persistent=name == "K3")
+    assert g.smem <= K1.MAX_SMEM
+    assert g.per_sm >= 1 and g.per_sm * (g.smem + 1024) <= K1.SMEM_PER_SM
+    assert g.per_sm * g.threads * g.groups <= K1.REG_THREADS_PER_SM
+    if name == "K3":
+        assert K3.resident_blocks(g) == K1.SMS * g.per_sm
+    # the work items: (image group, tile) x Cout tiles, each output once
+    tiles_w, tiles = -(-H // g.tile_w), -(-H // g.tile_h) * -(-H // g.tile_w)
+    assert g.grid == (-(-n // B) * tiles, -(-Cout // g.cout_tile))
+    if n <= 8:
+        hits = np.zeros((n, H, H, Cout), np.int32)
+        for bx in range(g.grid[0]):
+            grp, tile = divmod(bx, tiles)
+            h0, w0 = (tile // tiles_w) * g.tile_h, (tile % tiles_w) * g.tile_w
+            for by in range(g.grid[1]):
+                c0 = by * g.cout_tile
+                hits[grp * B:(grp + 1) * B, h0:h0 + g.tile_h, w0:w0 + g.tile_w,
+                     c0:c0 + g.cout_tile] += 1
+        assert (hits == 1).all()
+
+
+def test_k2_and_k3_geometry_is_k1s_for_one_image():
+    """One image a block is K1's launch: K2's exactly, K3's with the same
+    blocks, tiles and work items (its groups and chunk may differ: its
+    epilogue stages beside the ring)."""
+    for n, H, C, Cout in ((8, 28, 256, 120), (1, 7, 512, 200), (128, 112, 56, 16)):
+        for dtype in (torch.float32, torch.bfloat16):
+            g1 = K1.launch_geometry(n, H, H, C, Cout, dtype)
+            assert K2.launch_geometry(n, H, H, C, Cout, dtype, 1) == g1
+            g3 = K3.launch_geometry(n, H, H, C, Cout, dtype, 1)
+            assert (g3.threads, g3.tile_h, g3.tile_w, g3.cout_tile, g3.grid) == (
+                g1.threads, g1.tile_h, g1.tile_w, g1.cout_tile, g1.grid)
+
+
+def test_image_groups_split_cout_only_as_far_as_it_pays():
+    """K1's rule (the largest block whose grid covers the SMs) is the
+    least block an image group takes; a larger one wins where its
+    estimated serial work is less: at 14^2 with 8 images a block, K1's
+    rule covers the SMs with 64-thread groups but in two waves of one
+    block an SM, and 128 threads (Cout in two tiles) do it in one."""
+    f32 = torch.float32
+    g = K2.launch_geometry(8, 14, 14, 200, 256, f32, 8)
+    assert g.threads == 128 and g.cout_tile == 128 and g.blocks < K1.SMS * g.per_sm
+    # at batch 128 every rule takes all of Cout
+    for H, C, Cout in ((7, 512, 200), (14, 200, 256), (28, 256, 120)):
+        for name in STAGES:
+            g = STAGES[name][0].launch_geometry(128, H, H, C, Cout, f32, 8)
+            assert g.cout_tile >= Cout and g.threads == 256
+
+
 def test_head_wrapper_rejects_what_k4_does_not_take():
     x = torch.zeros(2, 16, 5, 5).contiguous(memory_format=torch.channels_last)
     w, b = torch.zeros(16), torch.zeros(1)
@@ -200,9 +295,12 @@ def _bound(want, dtype):
     return 1e-4 * max(1.0, scale) if dtype == torch.float32 else 2.0 ** -7 * scale
 
 
-# (N, H, W, C, Cout): the test widths (C=12 and Cout=6 take K3's element
-# loads), a ragged group (N=3), and a flagship-like aligned shape
-CARD_SHAPES = [(2, 7, 7, 12, 6), (3, 6, 9, 40, 70), (4, 14, 14, 64, 32)]
+# (N, H, W, C, Cout): the test widths (C=12 and Cout=6 take the element
+# loads), a ragged group (N=3), a flagship-like aligned shape, an aligned
+# ragged group with partial tiles (N=5), and the flagship's levels at
+# batch 8 (the pruned five and the unpruned first)
+CARD_SHAPES = [(2, 7, 7, 12, 6), (3, 6, 9, 40, 70), (4, 14, 14, 64, 32), (5, 10, 12, 48, 24),
+               *[(8, h, h, c, cout) for _, h, c, cout in PRUNED_LEVELS], (8, 7, 7, 1024, 512)]
 
 
 @pytest.mark.cuda

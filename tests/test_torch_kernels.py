@@ -241,6 +241,31 @@ def test_k1_matches_plain_version_on_the_card(shape, dtype, monkeypatch):
     assert float((got.float() - want).abs().max()) <= bound
 
 
+@pytest.mark.cuda
+def test_k1_outputs_equal_the_recorded_digests_bit_for_bit():
+    """On a CUDA device: K1's outputs at the flagship's levels (batch 8
+    and 1, f32 and bf16; ``cli.bench_decoder.digests``) hash to what K1
+    gave on the same inputs at commit d7adecb, before it took its leaf
+    device pieces from stage_tile.cuh
+    (``fastdepth_tpu_torch/measurements/k1_digests_d7adecb.json``, written
+    on an H100 by ``bench_decoder --digests`` run against that tree)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (on a GPU host: python -m pytest "
+                    "--noconftest tests/test_torch_kernels.py -m cuda)")
+    import json
+    import os
+
+    from fastdepth_tpu_torch.cli.bench_decoder import digests
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "fastdepth_tpu_torch", "measurements", "k1_digests_d7adecb.json")
+    with open(path) as f:
+        want = json.load(f)["k1_sha256"]
+    got = digests()
+    assert got.keys() == want.keys()
+    assert [k for k in want if got[k] != want[k]] == []
+
+
 LEVELS = [(7, 512, 200), (14, 200, 256), (28, 256, 120), (56, 120, 56), (112, 56, 16),
           (7, 1024, 512), (9, 33, 13), (9, 33, 200)]
 
