@@ -33,7 +33,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    deploy CLI in f32 in a fresh process, whose TF32 flags start at
    PyTorch's defaults: it must turn TF32 off and its prediction must
    agree with the straight forward (TF32 off) within 1e-3;
-7. probes: every tag of the probe catalogue (engine/probes.py, the
+7. train path: the committed weights fine-tuned at 224x224 through the
+   port's train item path (seeded raw frames, the real augmentations):
+   one f32 step on the card against the CPU (with an f64 CPU step as the
+   momentum's reference), the loss falling over 10 steps, a checkpoint
+   round trip, remat and accumulation, cli.train's epoch loop in f32 and
+   bf16 with K1's and K4's launches in its validation, and the step time
+   at b8 and b128 in f32 and bf16 with the peak memory;
+8. probes: every tag of the probe catalogue (engine/probes.py, the
    scripts' Pallas probes) runs its kernel (K5, K6, or K3) once, with
    K5's and K6's launches counted on that run; then the launch floor
    (the least a call costs in the same timer), each kernel against its
@@ -42,11 +49,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    to it (with the CUDA kernels K6's taps and up_only yardsticks run
    as); K5's copy sweep (dma_copy) and K6's scale rows (compute_sweep),
    each checked against its plain version;
-8. tools: engine/calibrate (reduced call count) measures the card's
+9. tools: engine/calibrate (reduced call count) measures the card's
    ceilings, and cli.profile --mode prefix --batch 128 profiles the
    pruned flagship on them; the summed roofline bounds must not exceed
    the measured full forward;
-9. prints the kernels' JSON line, then the result line.
+10. prints the kernels' JSON line, then the result line.
 
 Nothing here, and nothing of the port it drives, imports JAX or the JAX
 package.
@@ -75,6 +82,9 @@ E2E_BATCHES = 4
 STAGES_PER_FORWARD = 5
 
 DEPLOY_WARMUP, DEPLOY_RUN = 10, 50
+TRAIN_ITEMS, VAL_ITEMS, TRAIN_EPOCHS = 4 * BATCH, 2 * BATCH, 2  # 4 steps an epoch
+TRAIN_LR = 1e-3
+TRAIN_BIG_BATCH = 128
 PROBE_CALLS = 10
 CALIBRATE_CALLS = 3
 PROFILE_CALLS = 5
@@ -470,6 +480,301 @@ def fresh_deploy_f32(in_fp: str, out_fp: str, want: np.ndarray) -> dict:
             "max_abs_err_vs_straight": err}
 
 
+class _SeededFrames:
+    """The item loader NYUDataset calls with an ``*.h5`` path: a seeded
+    raw 480x640 uint8 RGB frame and f32 depth (the h5 item format), keyed
+    by the file's number, in place of the h5 read (no h5py needed)."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+
+    def __call__(self, path: str):
+        rng = np.random.RandomState(self.seed * 100003 + int(os.path.basename(path)[:-3]))
+        return (rng.randint(0, 256, (480, 640, 3), dtype=np.uint8),
+                rng.uniform(0.5, 10.0, (480, 640)).astype(np.float32))
+
+
+def _seeded_datasets(root: str):
+    """NYUDataset train and val splits over empty ``*.h5`` names whose
+    items are :class:`_SeededFrames`: the port's real train item path
+    (random rotation, scale, crop, flip, colour jitter) and val path."""
+    from fastdepth_tpu_torch.data import NYUDataset
+
+    out = []
+    for split, n, seed in (("train", TRAIN_ITEMS, 1), ("val", VAL_ITEMS, 2)):
+        d = os.path.join(root, split, "scene")
+        os.makedirs(d)
+        for i in range(2, 2 + n):  # 00001 is the holdout split's
+            open(os.path.join(d, f"{i:05d}.h5"), "w").close()
+        out.append(NYUDataset(os.path.join(root, split), split=split, loader=_SeededFrames(seed),
+                              seed=0))
+    return out
+
+
+def _host_state(state) -> dict:
+    """A train state's params and momentum as f64 CPU copies, by key."""
+    flat = {k: v.detach().double().cpu().clone() for k, v in state.params.state_dict().items()}
+    flat.update({"momentum." + k: v.double().cpu().clone() for k, v in state.momentum.items()})
+    return flat
+
+
+def _max_diff(a: dict, b: dict, keys) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in keys)
+
+
+@contextlib.contextmanager
+def _deterministic():
+    """cuDNN's deterministic algorithms, for the checks that compare two
+    runs of one step on the card (the main path keeps the defaults:
+    weight-gradient algorithms may add in a varying order)."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def train_phase(model, params) -> dict:
+    """The training path on the flagship at 224x224, fine-tuning the
+    committed weights (unfolded: BatchNorm trains):
+    - one f32 step at batch 8 on the card and on the CPU from one tree and
+      batch (seeded frames through the real train item path): loss within
+      rtol 1e-4, every parameter and running statistic within 1e-4; the
+      momentum (the gradient, ill-conditioned in f32) within 4x of the CPU
+      f32 step's own distance to an f64 CPU step;
+    - 10 f32 steps on a fixed batch lower the loss;
+    - a checkpoint round trip: restore gives params, momentum and step back
+      bit for bit, and the next step from it matches the live next step
+      within 1e-5 (cuDNN's deterministic algorithms for both);
+    - remat within 1e-4 of the plain step; accum_steps=2 finite, with the
+      running statistics of two sequential microbatch merges;
+    - cli.train.train_loop for 2 epochs of 4 steps in f32, then bf16: every
+      loss finite, validate() after each epoch with K1 launched 5 times and
+      K4 once a forward (counts set to 0 just before, read just after),
+      finite metrics, a checkpoint.npz that restores;
+    - the median step time (forward, backward, update, merge; CUDA events,
+      10 steps after 3) and frames/s at b8 and b128, f32 and bf16, and the
+      peak memory at b128."""
+    import copy
+
+    from fastdepth_tpu_torch import BatchLoader, build
+    from fastdepth_tpu_torch.checkpoint.io import load_train_checkpoint, save_train_checkpoint
+    from fastdepth_tpu_torch.cli import train as train_cli
+    from fastdepth_tpu_torch.config import TrainConfig
+    from fastdepth_tpu_torch.models import layers as L
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+    from fastdepth_tpu_torch.train import Trainer, sgd_init
+    from fastdepth_tpu_torch.train.trainer import make_train_step
+
+    out = {}
+    tc = TrainConfig(lr=TRAIN_LR, weight_decay=1e-4)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_ds, val_ds = _seeded_datasets(os.path.join(tmp, "nyudepthv2"))
+        rgb, depth, _ = next(iter(BatchLoader(train_ds, batch_size=BATCH, shuffle=True,
+                                              drop_last=True, pad_last=False, num_workers=4)))
+        x, d = torch.from_numpy(rgb), torch.from_numpy(depth)
+
+        # the card against the CPU, one f32 step; an f64 CPU step as the
+        # reference for the momentum
+        states, losses = {}, {}
+        for name, dev, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                                 ("cpu_f64", "cpu", torch.float64)):
+            st = sgd_init(copy.deepcopy(params).to(device=dev, dtype=dtype))
+            st, loss = make_train_step(model, tc)(st, x.to(dev, dtype), d.to(dev, dtype),
+                                                  TRAIN_LR)
+            states[name], losses[name] = _host_state(st), float(loss)
+        keys = list(states["card"])
+        mom = [k for k in keys if k.startswith("momentum.")]
+        stats = [k for k in keys if k.endswith((".bn.mean", ".bn.var"))
+                 and not k.startswith("momentum.")]
+        trainable = [k for k in keys if k not in mom and k not in stats]
+        a, b, ref = states["card"], states["cpu"], states["cpu_f64"]
+        row = {"loss_card": losses["card"], "loss_cpu": losses["cpu"],
+               "loss_rel_diff": abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"]),
+               "params_max_abs_diff": _max_diff(a, b, trainable),
+               "stats_max_abs_diff": _max_diff(a, b, stats),
+               "momentum_card_vs_f64": _max_diff(a, ref, mom),
+               "momentum_cpu_vs_f64": _max_diff(b, ref, mom),
+               "momentum_card_vs_cpu": _max_diff(a, b, mom),
+               "momentum_max_abs": max(float(ref[k].abs().max()) for k in mom)}
+        print(f"train card vs CPU, one f32 step b{BATCH} lr {TRAIN_LR}: {json.dumps(row)}")
+        if not (row["loss_rel_diff"] <= 1e-4 and row["params_max_abs_diff"] <= 1e-4
+                and row["stats_max_abs_diff"] <= 1e-4
+                and row["momentum_card_vs_f64"] <= 4 * row["momentum_cpu_vs_f64"]):
+            fail(f"train step on the card disagrees with the CPU: {row}")
+        out["card_vs_cpu"] = row
+
+        # the loss falls on a fixed batch
+        xc, dc = x.cuda(), d.cuda()
+        tr = Trainer(model, params, tc, device="cuda")
+        first = float(tr._step(tr.state, xc, dc, TRAIN_LR)[1])
+        for _ in range(9):
+            tr.state, loss = tr._step(tr.state, xc, dc, TRAIN_LR)
+        last = float(loss)
+        print(f"train f32 b{BATCH}: loss {first:.5f} -> {last:.5f} over 10 steps on one batch")
+        if not last < first:
+            fail(f"10 f32 train steps did not lower the loss: {first} -> {last}")
+        out["loss_10_steps"] = [first, last]
+
+        # checkpoint round trip, remat, accumulation
+        with _deterministic():
+            path = os.path.join(tmp, "checkpoint.npz")
+            save_train_checkpoint(path, tr.state, model.config, epoch=0)
+            tree, cfg, _ = load_train_checkpoint(path)
+            tr2 = Trainer(build(cfg), params, tc, device="cuda")
+            tr2.restore(tree)
+            live, back = _host_state(tr.state), _host_state(tr2.state)
+            if (int(tr2.state.step) != int(tr.state.step)
+                    or any(not torch.equal(live[k], back[k]) for k in live)):
+                fail("restore did not give back params, momentum and step bit for bit")
+            tr.state, _ = tr._step(tr.state, xc, dc, TRAIN_LR)
+            tr2.state, _ = tr2._step(tr2.state, xc, dc, TRAIN_LR)
+            resume_err = _max_diff(_host_state(tr.state), _host_state(tr2.state), list(live))
+            runs = {}
+            for name, kw in (("plain", {}), ("remat", {"remat": True}),
+                             ("accum", {"accum_steps": 2})):
+                st = sgd_init(copy.deepcopy(params).cuda())
+                st, loss = make_train_step(model, tc, **kw)(st, xc, dc, TRAIN_LR)
+                runs[name] = (float(loss), _host_state(st))
+            remat_err = _max_diff(runs["plain"][1], runs["remat"][1], keys)
+            manual = copy.deepcopy(params).cuda()
+            for i in range(2):
+                rec = {}
+                model.apply(manual, xc[i * BATCH // 2:(i + 1) * BATCH // 2], train=True,
+                            stats=rec)
+                L.merge_stats(manual, rec)
+            want = {k: v.double().cpu() for k, v in manual.state_dict().items()}
+            accum_stats_err = _max_diff(want, runs["accum"][1], stats)
+            accum_finite = np.isfinite(runs["accum"][0]) and all(
+                torch.isfinite(v).all() for v in runs["accum"][1].values())
+        row = {"restored_bit_for_bit": True, "next_step_max_abs_diff": resume_err,
+               "remat_max_abs_diff": remat_err, "accum_loss": runs["accum"][0],
+               "accum_stats_max_abs_diff": accum_stats_err}
+        print(f"train checkpoint / remat / accum (cuDNN deterministic): {json.dumps(row)}")
+        if not resume_err <= 1e-5:
+            fail(f"the step after restore differs from the live one by {resume_err}")
+        if not remat_err <= 1e-4:
+            fail(f"remat differs from the plain step by {remat_err}")
+        if not (accum_finite and accum_stats_err <= 1e-5):
+            fail(f"accum_steps=2: finite {accum_finite}, running statistics "
+                 f"{accum_stats_err} from two sequential merges")
+        out.update(row)
+
+        # the CLI's epoch loop, f32 then bf16
+        val_forwards = -(-VAL_ITEMS // BATCH) + 1  # validate() warms up on its first batch
+        for name, extra in (("f32", []), ("bf16", ["--bf16"])):
+            out_dir = os.path.join(tmp, f"run_{name}")
+            args = train_cli.parse_args(
+                ["--epochs", str(TRAIN_EPOCHS), "--batch-size", str(BATCH), "--eval-batch-size",
+                 str(BATCH), "--workers", "4", "--print-freq", "0", "--output-dir", out_dir,
+                 "--lr", str(TRAIN_LR), "--device", "cuda"] + extra)
+            log = io.StringIO()
+            _reset(K1, K4)
+            with contextlib.redirect_stdout(log):
+                # no comparison PNGs: they need matplotlib
+                best = train_cli.train_loop(args, model, params, train_ds, val_ds,
+                                            make_images=False)
+            torch.cuda.synchronize()
+            k1, k4 = _counts(K1, K4)
+            epochs = re.findall(r"=> epoch (\d+): train loss ([-\w.]+)", log.getvalue())
+            print(f"train_loop {name}: epochs {epochs}; validate RMSE {best.rmse:.4f} delta1 "
+                  f"{best.delta1:.4f}; K1 {k1}, K4 {k4} launches")
+            forwards = TRAIN_EPOCHS * val_forwards
+            if (k1, k4) != (STAGES_PER_FORWARD * forwards, forwards):
+                fail(f"train_loop {name}: K1 launched {k1} and K4 {k4} times over {forwards} "
+                     f"validation forwards, want {STAGES_PER_FORWARD} and 1 per forward")
+            losses = [float(v) for _, v in epochs]
+            if len(losses) != TRAIN_EPOCHS or not all(np.isfinite(losses)):
+                fail(f"train_loop {name}: epoch losses {losses}")
+            if not all(np.isfinite([best.rmse, best.mae, best.delta1, best.absrel])):
+                fail(f"train_loop {name}: validation metrics not finite: {best.rmse}")
+            tree, _, meta = load_train_checkpoint(os.path.join(out_dir, "checkpoint.npz"))
+            tr3 = Trainer(model, params, tc, device="cuda")
+            tr3.restore(tree)
+            steps = TRAIN_EPOCHS * (TRAIN_ITEMS // BATCH)
+            if meta["epoch"] != TRAIN_EPOCHS - 1 or int(tr3.state.step) != steps:
+                fail(f"train_loop {name}: checkpoint at epoch {meta['epoch']}, step "
+                     f"{int(tr3.state.step)}, want {TRAIN_EPOCHS - 1} and {steps}")
+            out[f"loop_{name}"] = {"epoch_losses": losses, "rmse": best.rmse,
+                                   "delta1": best.delta1, "k1_launches": k1, "k4_launches": k4,
+                                   "validation_forwards": forwards}
+    out["times"] = train_times(model, params)
+    return out
+
+
+def _kernel_time(fn):
+    """The CUDA kernels of one call of ``fn``, by ``torch.profiler``: (their
+    summed time in us, [(name, us)] largest first), or (None, []) where the
+    profiler recorded no device activity.  Kernels of one stream do not
+    overlap, so the sum is the device's busy time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    if not by_name:
+        return None, []
+    return sum(by_name.values()), sorted(by_name.items(), key=lambda kv: -kv[1])
+
+
+def train_times(model, params) -> dict:
+    """Median step time (forward, backward, SGD update, statistics merge)
+    over 10 steps after 3, CUDA events around each step on one seeded
+    device batch, and frames/s, at b8 and b128 in f32 and bf16; the peak
+    device memory of each run; the kernel time of one more step
+    (``torch.profiler``), against which the median reads as host time."""
+    from fastdepth_tpu_torch.config import TrainConfig
+    from fastdepth_tpu_torch.train import Trainer
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for batch in (BATCH, TRAIN_BIG_BATCH):
+        x = torch.rand(batch, *OUTPUT_HW, 3, generator=gen, device="cuda")
+        d = torch.rand(batch, *OUTPUT_HW, 1, generator=gen, device="cuda") * 9.5 + 0.5
+        for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            tr = Trainer(model, params, TrainConfig(lr=TRAIN_LR), compute_dtype=dtype,
+                         device="cuda")
+            for _ in range(3):
+                tr.state, loss = tr._step(tr.state, x, d, TRAIN_LR)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(10):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                    enable_timing=True)
+                start.record()
+                tr.state, loss = tr._step(tr.state, x, d, TRAIN_LR)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            if not np.isfinite(float(loss)):
+                fail(f"train timing b{batch} {name}: non-finite loss")
+            ms = float(np.median(times))
+            row = {"step_ms": ms, "frames_per_s": batch / ms * 1e3,
+                   "step_ms_min": float(np.min(times)), "step_ms_max": float(np.max(times)),
+                   "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            busy_us, top = _kernel_time(lambda: tr._step(tr.state, x, d, TRAIN_LR))
+            row["kernel_ms"] = None if busy_us is None else busy_us / 1e3
+            row["top_kernels_ms"] = [(k, us / 1e3) for k, us in top[:6]]
+            print(f"train step b{batch} {name}: median {ms:.3f} ms ({row['frames_per_s']:.1f} "
+                  f"frames/s; min {row['step_ms_min']:.3f}, max {row['step_ms_max']:.3f}), peak "
+                  f"memory {row['peak_mem_gib']:.2f} GiB; kernel time of one step "
+                  + ("not measured (no device events traced)" if busy_us is None else
+                     f"{busy_us / 1e3:.3f} ms ({busy_us / 1e3 / ms:.0%} of the median step), "
+                     "largest: " + "; ".join(f"{k[:60]} {v:.3f}" for k, v in
+                                             row["top_kernels_ms"])))
+            out[f"b{batch}_{name}"] = row
+            del tr
+    return out
+
+
 def probe_phase() -> dict:
     """The probe catalogue on the card.  The slice's path: every tag's
     kernel once, with K5's and K6's counts set to 0 just before and read
@@ -619,6 +924,7 @@ def main() -> None:
     e2e = e2e_phase(model, params)
     fwd = forwards_phase(model, params)
     dep = deploy_phase(model, params)
+    train_phase(model, params)
     kernels.update(probe_phase())
     tools_phase()
     # launches: each kernel's count on the f32 run of its path (K1: the

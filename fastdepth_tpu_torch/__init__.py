@@ -1,7 +1,7 @@
 """fastdepth_tpu_torch — the PyTorch/CUDA port of fastdepth_tpu.
 
-The same FastDepth models, metrics and evaluation as the JAX package
-beside it, on one NVIDIA GPU (written for the H100): PyTorch for the
+The same FastDepth models, metrics, evaluation and training as the JAX
+package beside it, on one NVIDIA GPU (written for the H100): PyTorch for the
 plain tensor code, cuDNN for the encoder's convolutions, and a kernel
 written by hand in CUDA C++ for every kernel the JAX package wrote in
 Pallas for the TPU (``ops/cuda/``).  Module paths mirror
@@ -36,6 +36,16 @@ _EXPORTS = {
     "params_from_jax": "fastdepth_tpu_torch.checkpoint.from_jax",
     "params_to_jax": "fastdepth_tpu_torch.checkpoint.from_jax",
     "load_checkpoint": "fastdepth_tpu_torch.checkpoint.io",
+    "save_checkpoint": "fastdepth_tpu_torch.checkpoint.io",
+    "save_train_checkpoint": "fastdepth_tpu_torch.checkpoint.io",
+    "load_train_checkpoint": "fastdepth_tpu_torch.checkpoint.io",
+    "TrainConfig": "fastdepth_tpu_torch.config",
+    "Trainer": "fastdepth_tpu_torch.train.trainer",
+    "TrainState": "fastdepth_tpu_torch.train.trainer",
+    "sgd_init": "fastdepth_tpu_torch.train.trainer",
+    "train_step": "fastdepth_tpu_torch.train.trainer",
+    "l1_loss": "fastdepth_tpu_torch.train.loss",
+    "masked_l1_loss": "fastdepth_tpu_torch.train.loss",
     "NYUDataset": "fastdepth_tpu_torch.data.nyu",
     "BatchLoader": "fastdepth_tpu_torch.data.loader",
     "ValPipeline": "fastdepth_tpu_torch.data.pipeline",

@@ -110,6 +110,48 @@ def load_checkpoint(path: str) -> Tuple[Dict, ModelConfig, Dict[str, Any]]:
     return unflatten_tree(flat), config, meta
 
 
+def save_train_checkpoint(
+    path: str,
+    state,
+    config: ModelConfig,
+    *,
+    epoch: int,
+    best_result: Optional[Dict[str, float]] = None,
+    extra: Optional[Dict[str, Any]] = None,
+) -> None:
+    """Full resumable training state — params, SGD momentum buffers and
+    the step counter — in one atomic npz, in the JAX package's layout
+    (``params/…``, ``momentum/…`` in NHWC/HWIO, an int32 ``step``,
+    ``extra.train_state``), so either package resumes it.  ``state`` is a
+    ``train.trainer.TrainState`` (duck-typed: ``.params`` a parameter
+    tree, ``.momentum`` a dict keyed like its state dict, ``.step``)."""
+    from fastdepth_tpu_torch.checkpoint.from_jax import params_to_jax
+
+    tree = {
+        "params": params_to_jax(state.params.state_dict()),
+        "momentum": params_to_jax(state.momentum),
+        "step": np.asarray(int(state.step), np.int32),
+    }
+    save_checkpoint(
+        path, tree, config, epoch=epoch, best_result=best_result,
+        extra=dict(extra or {}, train_state=True),
+    )
+
+
+def load_train_checkpoint(path: str) -> Tuple[Dict, ModelConfig, Dict[str, Any]]:
+    """Load a checkpoint written by :func:`save_train_checkpoint` (by
+    either package).  Returns ``({'params','momentum','step'}, config,
+    meta)``, the trees in the npz layout (``Trainer.restore`` converts)."""
+    tree, config, meta = load_checkpoint(path)
+    if not meta.get("extra", {}).get("train_state"):
+        raise ValueError(
+            f"{path!r} is a params-only checkpoint, not a training state; "
+            "resume needs the checkpoint.npz written by cli.train (it holds "
+            "the optimizer momentum and step counter too)"
+        )
+    return tree, config, meta
+
+
 def _to_numpy(tree):
     """numpy arrays and torch tensors -> host numpy, recursively; a torch
     bfloat16 tensor becomes an ml_dtypes bfloat16 array (the dtype the

@@ -10,6 +10,8 @@ conv gives one channel.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
@@ -53,23 +55,31 @@ def make_fastdepth(cfg: ModelConfig, *, folded: bool = False) -> nn.ModuleDict:
     })
 
 
-def apply_fastdepth(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """NHWC forward: (N, 224, 224, 3) -> (N, 224, 224, 1)."""
+def apply_fastdepth(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig, *,
+                    train: bool = False, stats: Optional[L.StatsDict] = None) -> torch.Tensor:
+    """NHWC forward: (N, 224, 224, 3) -> (N, 224, 224, 1).  With ``train``
+    every BatchNorm normalises by the batch's moments and records its new
+    running statistics into ``stats`` under the JAX package's paths
+    (``('encoder', 'conv3', 'dw', 'bn')``, ``('decoder', 'decode_conv2',
+    'pw', 'bn')``)."""
     feats, tapped = MN.apply_encoder(
         params["encoder"], B.from_nhwc(x), relu6=cfg.encoder_relu6,
-        taps=SKIP_TAPS if cfg.skip else ())
+        taps=SKIP_TAPS if cfg.skip else (), train=train, stats=L.sub_stats(stats, "encoder"))
     y = feats
     dec = params["decoder"]
     for i in range(1, 6):
         p = dec[f"decode_conv{i}"]
+        path = ("decoder", f"decode_conv{i}")
         if cfg.decoder_depthwise:
-            y = L.apply_conv_bn(y, p["dw"], depthwise=True)
-            y = L.apply_conv_bn(y, p["pw"])
+            y = L.apply_conv_bn(y, p["dw"], depthwise=True, train=train, stats=stats,
+                                path=path + ("dw",))
+            y = L.apply_conv_bn(y, p["pw"], train=train, stats=stats, path=path + ("pw",))
         else:
-            y = L.apply_conv_bn(y, p["conv"])
+            y = L.apply_conv_bn(y, p["conv"], train=train, stats=stats, path=path + ("conv",))
         y = B.upsample_nearest2x(y)
         # skip fusion AFTER the upsample (models.py:720-729)
         if cfg.skip and i in SKIP_AFTER:
             t = tapped[SKIP_AFTER[i]]
             y = y + t if cfg.skip == "add" else torch.cat([y, t], dim=1)
-    return B.to_nhwc(L.apply_conv_bn(y, dec["decode_conv6"]["pw"]))
+    return B.to_nhwc(L.apply_conv_bn(y, dec["decode_conv6"]["pw"], train=train, stats=stats,
+                                     path=("decoder", "decode_conv6", "pw")))

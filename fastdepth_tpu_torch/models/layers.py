@@ -7,14 +7,23 @@ with ``/`` replaced by ``.`` (``encoder.conv3.dw.w``,
 ``decoder.decode_conv2.pw.bn.scale``).  Each conv leaf is a
 :class:`ConvBN` holding either an unfolded ``bn`` or a folded bias ``b``,
 the npz ``{'w','bn'}`` / ``{'w','b'}`` pair.  The math is a plain
-function, :func:`apply_conv_bn`.  This slice is inference only: no
-parameter takes a gradient.
+function, :func:`apply_conv_bn`.
+
+``w``, ``b``, ``bn.scale`` and ``bn.bias`` are ``nn.Parameter`` s and
+``bn.mean`` / ``bn.var`` buffers, as in a torch ``BatchNorm2d``.  The
+parameters come frozen (``Model.load`` and ``Model.init`` give inference
+trees); ``train.trainer.sgd_init`` turns their gradients on.  In training
+mode :func:`apply_conv_bn` records each BatchNorm's new running
+statistics into a ``stats`` dict keyed by its path (a tuple of names)
+and writes no buffer; the caller merges them (:func:`merge_stats`; the
+trainer writes them into its flat buffer of running statistics).  A
+folded tree is for inference: its leaves stay frozen.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Callable, Optional, Sequence
+from typing import Callable, Dict, MutableMapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -22,12 +31,17 @@ from torch import nn
 from fastdepth_tpu_torch.ops import blocks as B
 
 
+StatsDict = MutableMapping[Tuple[str, ...], Dict[str, torch.Tensor]]
+
+
 def _frozen(t: torch.Tensor) -> nn.Parameter:
+    """A parameter with its gradient off until a trainer turns it on."""
     return nn.Parameter(t, requires_grad=False)
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm statistics, named like the npz leaves."""
+    """BatchNorm's parameters (``scale``, ``bias``) and running statistics
+    (the ``mean`` / ``var`` buffers), named like the npz leaves."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -61,15 +75,49 @@ def conv_leaf(w_shape: Sequence[int], *, folded: bool) -> ConvBN:
     return ConvBN(w, bn=BatchNorm(cout))
 
 
+def sub_stats(stats: Optional[StatsDict], prefix: str) -> Optional[StatsDict]:
+    """A view of ``stats`` that prefixes the paths its writers record
+    (shared stats plumbing for every model family)."""
+    if stats is None:
+        return None
+
+    class _Prefixed(dict):
+        def __setitem__(self, key, value):
+            stats[(prefix,) + key] = value
+
+    return _Prefixed()
+
+
 def apply_conv_bn(x: torch.Tensor, p: ConvBN, *, stride: int = 1,
-                  act: Optional[Callable] = B.relu, depthwise: bool = False) -> torch.Tensor:
-    """conv (+ folded bias) -> [BN] -> [act], the eval path of the JAX
-    ``apply_conv_bn``."""
+                  act: Optional[Callable] = B.relu, depthwise: bool = False,
+                  train: bool = False, stats: Optional[StatsDict] = None,
+                  path: Tuple[str, ...] = ()) -> torch.Tensor:
+    """conv (+ folded bias) -> [BN] -> [act].  With ``train`` the BatchNorm
+    normalises by the batch's moments and its new running statistics go
+    to ``stats[path + ('bn',)]``."""
     conv = B.depthwise_conv2d if depthwise else B.conv2d
     y = conv(x, p.w, stride=stride, bias=p.b)
     if p.bn is not None:
-        y = B.batch_norm(y, p.bn)
+        if train:
+            y, new_bn = B.batch_norm_train(y, p.bn)
+            if stats is not None:
+                stats[path + ("bn",)] = new_bn
+        else:
+            y = B.batch_norm(y, p.bn)
     return act(y) if act is not None else y
+
+
+@torch.no_grad()
+def merge_stats(params: nn.Module, stats: StatsDict) -> nn.Module:
+    """Write the running statistics ``stats`` recorded into ``params``'s
+    BatchNorm buffers, in place; returns ``params``.  Only ``mean`` and
+    ``var`` are written: ``scale`` and ``bias`` stay as the optimiser left
+    them."""
+    for path, entry in stats.items():
+        bn = params.get_submodule(".".join(path))
+        for k, v in entry.items():
+            getattr(bn, k).copy_(v)
+    return params
 
 
 def fold_params(p: ConvBN) -> ConvBN:
@@ -80,12 +128,14 @@ def fold_params(p: ConvBN) -> ConvBN:
     return ConvBN(w, b=b)
 
 
+@torch.no_grad()
 def tree_fold(params: nn.Module) -> nn.Module:
-    """A copy of ``params`` with every BatchNorm folded into its conv."""
+    """A copy of ``params`` with every BatchNorm folded into its conv; the
+    folded leaves are frozen, whatever the source's."""
     out = copy.deepcopy(params)
     unfolded = [(parent, name) for parent in out.modules()
                 for name, child in parent.named_children()
                 if isinstance(child, ConvBN) and child.bn is not None]
     for parent, name in unfolded:
         setattr(parent, name, fold_params(getattr(parent, name)))
-    return out
+    return out.requires_grad_(False)

@@ -5,7 +5,7 @@ stem conv_bn(3, c0, s2), then 13 depthwise-separable blocks with ReLU6).
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -33,20 +33,25 @@ def make_encoder(channels: Sequence[int] = MOBILENET_V1_CHANNELS,
 
 
 def apply_encoder(params: nn.ModuleDict, x: torch.Tensor, *, relu6: bool = True,
-                  taps: Tuple[int, ...] = ()) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
+                  taps: Tuple[int, ...] = (), train: bool = False,
+                  stats: Optional[L.StatsDict] = None
+                  ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
     """Run the encoder on channels_last NCHW; returns (features,
     {block_index: tap_activation}) (reference models.py:710-719 taps
-    i == 1, 3, 5)."""
+    i == 1, 3, 5).  ``train``/``stats``: see ``layers.apply_conv_bn``; the
+    paths are ``('conv0', 'bn')`` and ``('convK', 'dw'|'pw', 'bn')``."""
     act = B.relu6 if relu6 else B.relu
     tapped: Dict[int, torch.Tensor] = {}
-    x = L.apply_conv_bn(x, params["conv0"], stride=2, act=act)
+    x = L.apply_conv_bn(x, params["conv0"], stride=2, act=act, train=train, stats=stats,
+                        path=("conv0",))
     if 0 in taps:
         tapped[0] = x
     for i in range(1, 14):
         p = params[f"conv{i}"]
         x = L.apply_conv_bn(x, p["dw"], stride=MOBILENET_STRIDES[i - 1], act=act,
-                            depthwise=True)
-        x = L.apply_conv_bn(x, p["pw"], act=act)
+                            depthwise=True, train=train, stats=stats, path=(f"conv{i}", "dw"))
+        x = L.apply_conv_bn(x, p["pw"], act=act, train=train, stats=stats,
+                            path=(f"conv{i}", "pw"))
         if i in taps:
             tapped[i] = x
     return x, tapped

@@ -61,9 +61,12 @@ class Model:
         params = I.init_tree(FD.make_fastdepth(self.config, folded=False), generator)
         return _channels_last(params).to(device)
 
-    def apply(self, params: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
-        """The straight NHWC forward (``apply_fastdepth``)."""
-        return FD.apply_fastdepth(params, x, self.config)
+    def apply(self, params: nn.ModuleDict, x: torch.Tensor, *, train: bool = False,
+              stats: Optional[L.StatsDict] = None) -> torch.Tensor:
+        """The straight NHWC forward (``apply_fastdepth``); ``train`` and
+        ``stats`` as there (train-mode BatchNorm, running statistics
+        recorded into ``stats``)."""
+        return FD.apply_fastdepth(params, x, self.config, train=train, stats=stats)
 
     def fold(self, params: nn.ModuleDict) -> nn.ModuleDict:
         """A copy with every BatchNorm folded and, where K1 covers the

@@ -10,7 +10,7 @@ to PyTorch (cuDNN on the card).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -57,6 +57,26 @@ def batch_norm(x: torch.Tensor, bn, *, eps: float = BN_EPS) -> torch.Tensor:
     ``scale``, ``bias``, ``mean`` and ``var``."""
     inv = torch.rsqrt(bn.var + eps) * bn.scale
     return x * _per_channel(inv) + _per_channel(bn.bias - bn.mean * inv)
+
+
+def batch_norm_train(x: torch.Tensor, bn, *, eps: float = BN_EPS,
+                     momentum: float = 0.1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Training-mode BatchNorm over (N, H, W); returns the output and the
+    new running statistics ``{'mean', 'var'}`` (torch's convention: new =
+    (1 - m) * old + m * batch, the variance unbiased), which the caller
+    merges: ``bn``'s buffers are never written here (``F.batch_norm``
+    updates copies of them), so a forward run twice
+    (``torch.utils.checkpoint``) or a skipped step leaves them as they
+    were.
+
+    One ``F.batch_norm`` call (cuDNN's on the card): a bf16 ``x`` with
+    ``bn``'s f32 parameters takes PyTorch's mixed-precision path, which
+    accumulates the moments in f32 and returns bf16.  It needs more than
+    one value a channel (N * H * W > 1), as torch's BatchNorm2d does."""
+    mean, var = bn.mean.clone(), bn.var.clone()
+    y = F.batch_norm(x, mean, var, bn.scale, bn.bias, training=True, momentum=momentum,
+                     eps=eps)
+    return y, {"mean": mean, "var": var}
 
 
 def fold_bn(w: torch.Tensor, bn, *, eps: float = BN_EPS) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -69,6 +69,12 @@ def test_no_source_imports_or_loads_the_jax_package(path):
     assert violations(path) == []
 
 
+def test_the_walk_covers_the_train_slice():
+    for path in ("fastdepth_tpu_torch/train/__init__.py", "fastdepth_tpu_torch/train/loss.py",
+                 "fastdepth_tpu_torch/train/trainer.py", "fastdepth_tpu_torch/cli/train.py"):
+        assert path in SOURCES, path
+
+
 def test_the_guard_catches_what_it_forbids(tmp_path, monkeypatch):
     src = ("import jax.numpy as jnp\nfrom fastdepth_tpu.config import ModelConfig\n"
            "import fastdepth_tpu_torch\nfrom . import sibling\n"
@@ -94,7 +100,7 @@ def test_every_module_imports_with_the_jax_package_blocked():
 import importlib, pkgutil
 import fastdepth_tpu_torch as fd
 names = ["fastdepth_tpu_torch"]
-for sub in ("cli", "engine", "models", "checkpoint", "data", "ops", "ops.cuda"):
+for sub in ("cli", "engine", "models", "checkpoint", "data", "ops", "ops.cuda", "train"):
     pkg = importlib.import_module("fastdepth_tpu_torch." + sub)
     names.append(pkg.__name__)
     names += [pkg.__name__ + "." + m.name for m in pkgutil.iter_modules(pkg.__path__)]
@@ -159,6 +165,38 @@ deploy.main(["--model", {tiny_npz!r}, "--input-fp", {rgb!r}, "--output-fp", {pre
 """)
     out = np.load(pred)
     assert out.shape == (1, 1, 64, 64) and np.isfinite(out).all()
+
+
+def test_train_cli_runs_on_the_cpu_with_the_jax_package_blocked(tmp_path):
+    """One tiny epoch of cli.train, --device cpu, on an h5 tree: the four
+    outputs, and a checkpoint that resumes."""
+    root = tmp_path / "nyudepthv2"
+    out = tmp_path / "out"
+    code = TINY + f"""
+import dataclasses, json, os, h5py, numpy as np
+rng = np.random.RandomState(0)
+for split, n in (("train", 4), ("val", 2)):
+    d = os.path.join({str(root)!r}, split, "scene")
+    os.makedirs(d)
+    for i in range(2, 2 + n):
+        with h5py.File(os.path.join(d, f"{{i:05d}}.h5"), "w") as f:
+            f["rgb"] = (rng.rand(3, 480, 640) * 255).astype(np.uint8)
+            f["depth"] = (rng.rand(480, 640) * 9 + 0.5).astype(np.float32)
+arch = os.path.join({str(tmp_path)!r}, "tiny.json")
+with open(arch, "w") as f:
+    json.dump(dataclasses.asdict(CFG), f)
+from fastdepth_tpu_torch.cli import train
+common = ["--data-root", {str(tmp_path)!r}, "--batch-size", "2", "--eval-batch-size", "2",
+          "--workers", "1", "--print-freq", "0", "--output-dir", {str(out)!r}, "--device", "cpu"]
+train.main(common + ["--arch-json", arch, "--epochs", "1"])
+best = train.main(common + ["--epochs", "2", "--resume", os.path.join({str(out)!r},
+                                                                       "checkpoint.npz")])
+print("rmse", best.rmse)
+"""
+    log = _run(code)
+    assert "=> resumed at epoch 1" in log and "rmse" in log
+    for name in ("train.csv", "test.csv", "model_best.npz", "checkpoint.npz"):
+        assert (out / name).exists(), name
 
 
 def test_profile_and_probe_clis_run_on_the_cpu_with_the_jax_package_blocked(tmp_path):
