@@ -33,14 +33,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    deploy CLI in f32 in a fresh process, whose TF32 flags start at
    PyTorch's defaults: it must turn TF32 off and its prediction must
    agree with the straight forward (TF32 off) within 1e-3;
-7. train path: the committed weights fine-tuned at 224x224 through the
+7. serve path: the serving daemon (engine/server.py) on the committed
+   weights at 224x224, each server behind a unix socket: f32 at batch 8
+   (64 frames through request_stream at depth 32, 8 lone requests), uint8
+   in and f16 out, chain mode with a window of 4, and bf16, every answer
+   held against the straight forward (bf16: the port's bf16 fused
+   forward), K1's and K4's launches counted over each server's run;
+   frames/s, the stats' p50/p99 and occupancy, and a lone frame's round
+   trip; and the uint8 normalisation bit for bit on all 256 values;
+8. train path: the committed weights fine-tuned at 224x224 through the
    port's train item path (seeded raw frames, the real augmentations):
    one f32 step on the card against the CPU (with an f64 CPU step as the
    momentum's reference), the loss falling over 10 steps, a checkpoint
    round trip, remat and accumulation, cli.train's epoch loop in f32 and
    bf16 with K1's and K4's launches in its validation, and the step time
    at b8 and b128 in f32 and bf16 with the peak memory;
-8. probes: every tag of the probe catalogue (engine/probes.py, the
+9. probes: every tag of the probe catalogue (engine/probes.py, the
    scripts' Pallas probes) runs its kernel (K5, K6, or K3) once, with
    K5's and K6's launches counted on that run; then the launch floor
    (the least a call costs in the same timer), each kernel against its
@@ -49,11 +57,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    to it (with the CUDA kernels K6's taps and up_only yardsticks run
    as); K5's copy sweep (dma_copy) and K6's scale rows (compute_sweep),
    each checked against its plain version;
-9. tools: engine/calibrate (reduced call count) measures the card's
+10. tools: engine/calibrate (reduced call count) measures the card's
    ceilings, and cli.profile --mode prefix --batch 128 profiles the
    pruned flagship on them; the summed roofline bounds must not exceed
    the measured full forward;
-10. prints the kernels' JSON line, then the result line.
+11. prints the kernels' JSON line, then the result line.
 
 Nothing here, and nothing of the port it drives, imports JAX or the JAX
 package.
@@ -82,6 +90,8 @@ E2E_BATCHES = 4
 STAGES_PER_FORWARD = 5
 
 DEPLOY_WARMUP, DEPLOY_RUN = 10, 50
+SERVE_FRAMES, SERVE_DEPTH, SERVE_LONE, SERVE_TIMED = 64, 32, 8, 2  # timed: extra streams
+SERVE_CHAIN = 4  # the chain server's window
 TRAIN_ITEMS, VAL_ITEMS, TRAIN_EPOCHS = 4 * BATCH, 2 * BATCH, 2  # 4 steps an epoch
 TRAIN_LR = 1e-3
 TRAIN_BIG_BATCH = 128
@@ -99,7 +109,7 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def device_phase() -> None:
+def device_phase() -> dict:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run measures the port on the GPU "
              "and has no CPU fallback")
@@ -113,6 +123,7 @@ def device_phase() -> None:
     print(f"device: {card['name']} x{card['count']}, torch {card['torch']}, CUDA "
           f"{card['cuda']}; TF32 off for cuDNN convolutions and matmuls (f32 phases are "
           "true f32)")
+    return card
 
 
 def build_phase() -> None:
@@ -478,6 +489,157 @@ def fresh_deploy_f32(in_fp: str, out_fp: str, want: np.ndarray) -> dict:
         fail(f"fresh-process f32 deploy disagrees with the straight forward: {err}")
     return {"tf32_before": flags["before"], "tf32_after": flags["after"],
             "max_abs_err_vs_straight": err}
+
+
+def _serve_one(srv, tmp: str, name: str, inputs, lone_inputs):
+    """Drive one server through its unix socket: a warm-up request, then
+    (K1's and K4's counts set to 0 just before, read just after) the
+    stream of ``inputs`` at depth SERVE_DEPTH and SERVE_LONE lone
+    requests, then SERVE_TIMED more streams that are only timed.  Returns
+    (stream answers, lone answers, row)."""
+    import threading
+
+    from fastdepth_tpu_torch.engine.server import request, request_stream, serve_unix_socket
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+
+    sock = os.path.join(tmp, f"{name}.sock")
+    ready, stop = threading.Event(), threading.Event()
+    t = threading.Thread(target=serve_unix_socket, args=(srv, sock),
+                         kwargs={"ready": ready, "stop": stop, "log": lambda *a: None},
+                         daemon=True)
+    t.start()
+    try:
+        if not ready.wait(30):
+            fail(f"serve {name}: the socket never came up")
+        request(sock, lone_inputs[0])  # warm-up: the first forward's set-up
+        before = srv.stats()
+        _reset(K1, K4)
+        t0 = time.perf_counter()
+        answers = list(request_stream(sock, inputs, depth=SERVE_DEPTH))
+        stream_s = [time.perf_counter() - t0]
+        lone, lone_ms = [], []
+        for x in lone_inputs:
+            t0 = time.perf_counter()
+            lone.append(request(sock, x))
+            lone_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        k1, k4 = _counts(K1, K4)
+        after = srv.stats()
+        for _ in range(SERVE_TIMED):
+            t0 = time.perf_counter()
+            n = sum(1 for _ in request_stream(sock, inputs, depth=SERVE_DEPTH))
+            stream_s.append(time.perf_counter() - t0)
+            if n != len(inputs):
+                fail(f"serve {name}: a timed stream answered {n} of {len(inputs)} frames")
+        stats = srv.stats()  # latency and occupancy over the wire's requests
+        inproc_ms = []
+        for x in lone_inputs:
+            t0 = time.perf_counter()
+            srv.submit(x).result(timeout=60)
+            inproc_ms.append((time.perf_counter() - t0) * 1e3)
+        # the same frames submitted in process at once: the server
+        # without the wire
+        t0 = time.perf_counter()
+        for fut in [srv.submit(x) for x in inputs]:
+            fut.result(timeout=60)
+        burst_fps = len(inputs) / (time.perf_counter() - t0)
+    finally:
+        stop.set()
+        t.join(30)
+        srv.close()
+    if t.is_alive():
+        fail(f"serve {name}: the accept loop did not stop")
+    if len(answers) != len(inputs):
+        fail(f"serve {name}: the stream answered {len(answers)} of {len(inputs)} frames")
+    batches = after["batches"] - before["batches"]
+    frames = after["frames"] - before["frames"]
+    # a batch launches K1 once a level and K4 once; chain runs a batch-1
+    # forward a frame (the padded tail of a window is never run)
+    forwards = frames if srv.chain else batches
+    if not (k1 == STAGES_PER_FORWARD * forwards and k4 == forwards and forwards > 0):
+        fail(f"serve {name}: K1 launched {k1} and K4 {k4} times over {forwards} forwards "
+             f"({batches} batches, {frames} frames), want {STAGES_PER_FORWARD} and 1 a forward")
+    fps = [len(inputs) / s for s in stream_s]
+    row = {"launches": k1, "k4_launches": k4, "batches": batches, "frames": frames,
+           "stream_fps": fps, "stream_fps_median": float(np.median(fps)),
+           "lone_round_trip_ms": lone_ms, "lone_round_trip_ms_median": float(np.median(lone_ms)),
+           "lone_in_process_ms_median": float(np.median(inproc_ms)),
+           "in_process_burst_fps": burst_fps,
+           "latency_ms": stats["latency_ms"], "mean_occupancy": stats["mean_occupancy"]}
+    return answers, lone, row
+
+
+def serve_phase(model, params, card: dict) -> dict:
+    """The serving daemon on the committed weights at 224x224 (see
+    :func:`_serve_one` for what each server is driven through): f32 at
+    batch 8 and chain (window SERVE_CHAIN) within 1e-3 of the straight
+    forward (TF32 off) of the same frames; uint8 in / f16 out within 1e-3
+    + 2^-10 max|ref| of the straight forward of raw/255; bf16 at batch 8
+    within 2^-7 max|ref| of the port's bf16 fused forward called directly
+    on the same frames.  First, engine.server.normalize on the card bit
+    for bit against numpy's division on all 256 uint8 values (and how
+    many of them a division by a Python number, a multiply by the
+    reciprocal on CUDA, gets wrong)."""
+    from fastdepth_tpu_torch.engine.aot import _prepare, compile_forward
+    from fastdepth_tpu_torch.engine.server import InferenceServer, normalize
+
+    values = np.arange(256, dtype=np.uint8)
+    want_u8 = values.astype(np.float32) / np.float32(255)
+    on_card = torch.from_numpy(values).cuda()
+    got_u8 = normalize(on_card, torch.float32).cpu().numpy()
+    if not np.array_equal(got_u8, want_u8):
+        fail(f"serve: normalize differs from numpy's /255 on "
+             f"{int((got_u8 != want_u8).sum())} of 256 values")
+    scalar_off = int(((on_card.float() / 255.0).cpu().numpy() != want_u8).sum())
+    print(f"serve: normalize bit for bit with numpy's /255 on 256 of 256 values; a division "
+          f"by the Python number 255.0 on the card differs on {scalar_off}")
+
+    rng = np.random.RandomState(5)
+    raw = rng.randint(0, 256, (SERVE_FRAMES, *OUTPUT_HW, 3), dtype=np.uint8)
+    frames = raw.astype(np.float32) / np.float32(255)  # == normalize, checked above
+    fn, p = compile_forward(model, params, batch_size=BATCH, image_size=OUTPUT_HW,
+                            impl="xla", device="cuda")
+    want = np.concatenate([fn(p, torch.from_numpy(frames[i:i + BATCH]).cuda()).cpu().numpy()
+                           for i in range(0, SERVE_FRAMES, BATCH)])
+    pb, apply_bf16 = _prepare(model, params, batch_size=BATCH, dtype=torch.bfloat16,
+                              fold_bn=True, impl="fused", device="cuda")
+    with torch.inference_mode():
+        want_bf16 = np.concatenate([
+            apply_bf16(pb, torch.from_numpy(frames[i:i + BATCH]).cuda().to(torch.bfloat16))
+            .float().cpu().numpy() for i in range(0, SERVE_FRAMES, BATCH)])
+    scale = float(np.abs(want).max())
+    servers = [  # name, server kwargs, inputs, reference, bound
+        ("f32", {"batch_size": BATCH}, frames, want, 1e-3),
+        ("uint8_f16", {"batch_size": BATCH, "input_dtype": np.uint8,
+                       "output_dtype": np.float16}, raw, want, 1e-3 + 2 ** -10 * scale),
+        ("chain", {"batch_size": SERVE_CHAIN, "chain": True}, frames, want, 1e-3),
+        ("bf16", {"batch_size": BATCH, "dtype": torch.bfloat16}, frames, want_bf16,
+         2 ** -7 * float(np.abs(want_bf16).max())),
+    ]
+    out = {"normalize_scalar_division_off": scalar_off}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kw, inputs, ref, bound in servers:
+            srv = InferenceServer(model, params, image_size=OUTPUT_HW, device="cuda", **kw)
+            answers, lone, row = _serve_one(srv, tmp, name, list(inputs),
+                                            list(inputs[:SERVE_LONE]))
+            got = np.stack(answers + lone).astype(np.float32)
+            err = float(np.abs(got - np.concatenate([ref, ref[:SERVE_LONE]])).max())
+            row["max_abs_err"], row["bound"] = err, bound
+            lat = row["latency_ms"]
+            print(f"serve {name} b{kw['batch_size']} on {card['nvidia_smi']}: "
+                  f"{SERVE_FRAMES} frames streamed at depth {SERVE_DEPTH}: "
+                  + ", ".join(f"{f:.1f}" for f in row["stream_fps"])
+                  + f" frames/s (in process, no wire: {row['in_process_burst_fps']:.1f}); stats p50 {lat['p50']:.3f} ms, p99 {lat['p99']:.3f} ms over "
+                  f"{lat['count']} requests, mean occupancy {row['mean_occupancy']:.3f}; lone "
+                  f"frame round trip median {row['lone_round_trip_ms_median']:.3f} ms (in "
+                  f"process {row['lone_in_process_ms_median']:.3f} ms); K1 {row['launches']}, "
+                  f"K4 {row['k4_launches']} launches over {row['batches']} batches / "
+                  f"{row['frames']} frames; max|diff| {err:.3e} (bound {bound:.3e})")
+            if got.shape != (SERVE_FRAMES + SERVE_LONE, *OUTPUT_HW, 1) or not err <= bound:
+                fail(f"serve {name}: answers of shape {got.shape}, max|diff| {err} > {bound}")
+            out[name] = row
+    return out
 
 
 class _SeededFrames:
@@ -917,13 +1079,14 @@ KERNELS = [
 
 def main() -> None:
     t0 = time.perf_counter()
-    device_phase()
+    card = device_phase()
     build_phase()
     kernels = kernel_phase()
     model, params = load_weights()
     e2e = e2e_phase(model, params)
     fwd = forwards_phase(model, params)
     dep = deploy_phase(model, params)
+    srv = serve_phase(model, params, card)
     train_phase(model, params)
     kernels.update(probe_phase())
     tools_phase()
@@ -937,10 +1100,12 @@ def main() -> None:
     # bound_by the term that binds most of it; library_ms one PyTorch call
     # per call where one computes the same function, else null (K5 and K6:
     # summed over library_tags, beside ms_over_library_tags, the kernel's
-    # own time over the same tags)
+    # own time over the same tags); serve_launches: K1's and K4's counts
+    # over the f32 server's counted run (serve phase)
     launches = {"K1": e2e["f32"]["launches"], "K2": fwd["f32"]["v2"]["launches"],
                 "K3": fwd["f32"]["v3"]["launches"], "K4": dep["f32"]["k4_launches"],
                 "K5": kernels["K5"]["launches"], "K6": kernels["K6"]["launches"]}
+    serve_launches = {"K1": srv["f32"]["launches"], "K4": srv["f32"]["k4_launches"]}
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
@@ -952,6 +1117,7 @@ def main() -> None:
         "plain_events_ms": kernels[key]["plain_events_ms"],
         **{f: kernels[key][f] for f in ("library_tags", "ms_over_library_tags")
            if f in kernels[key]},
+        **({"serve_launches": serve_launches[key]} if key in serve_launches else {}),
     } for key, name, source, replaces in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,7 @@ from fastdepth_tpu.models import build as jax_build
 from fastdepth_tpu_torch.checkpoint import params_from_jax, params_to_jax
 from fastdepth_tpu_torch.models import build as port_build
 from torch_port_config import to_port
+import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 
 def build(cfg):

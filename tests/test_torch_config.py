@@ -16,6 +16,7 @@ from fastdepth_tpu.models import registry as JR
 from fastdepth_tpu_torch import config as T
 from fastdepth_tpu_torch.models import registry as TR
 from torch_port_config import to_jax, to_port
+import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -19,6 +19,7 @@ from fastdepth_tpu_torch.data import native as TNAT
 from fastdepth_tpu_torch.data import nyu as TN
 from fastdepth_tpu_torch.data import pipeline as TP
 from fastdepth_tpu_torch.data import transforms as TT
+import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from test_cli_tools import tiny_ckpt  # noqa: F401  (shared fixture)
+import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 TINY_ENC = (4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24)
 TINY_DEC = (18, 14, 10, 6, 4)

@@ -15,6 +15,7 @@ import torch
 
 from test_eval_e2e import nyu_val_root, torch_ckpt  # noqa: F401  (shared fixtures)
 from test_rehearsal_weights import val16_tree  # noqa: F401  (shared fixture)
+from torch_threads import child_env  # torch's CPU threads: a share per xdist worker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 METRICS = ["rmse", "mae", "delta1", "absrel", "lg10", "mse", "delta2", "delta3"]
@@ -83,7 +84,7 @@ def test_committed_weights_reproduce_the_pinned_row(val16_tree, monkeypatch):  #
 
 
 def _run(code_or_args, **kw):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = child_env(PYTHONPATH=REPO)
     return subprocess.run([sys.executable, *code_or_args], capture_output=True, text=True,
                           cwd=REPO, env=env, timeout=300, **kw)
 

@@ -20,6 +20,7 @@ from fastdepth_tpu_torch.ops.cuda import fused_decoder_hwbc as K2
 from fastdepth_tpu_torch.ops.cuda import fused_decoder_v3 as K3
 from fastdepth_tpu_torch.ops.cuda import head as K4
 from torch_port_config import to_jax
+import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 TINY_ENC = (4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24)
 TINY_DEC = (18, 14, 10, 6, 4)

@@ -19,6 +19,7 @@ from fastdepth_tpu_torch.checkpoint import params_from_jax
 from fastdepth_tpu_torch.models import build as port_build
 from fastdepth_tpu_torch.ops import init as I
 from torch_port_config import to_port
+import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 TINY_ENC = (4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24)
 TINY_DEC = (18, 14, 10, 6, 4)

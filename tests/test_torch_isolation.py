@@ -12,6 +12,7 @@ import sys
 
 import numpy as np
 import pytest
+from torch_threads import child_env  # torch's CPU threads: a share per xdist worker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = sorted(os.path.relpath(p, REPO) for p in glob.glob(
@@ -88,11 +89,16 @@ def test_the_guard_catches_what_it_forbids(tmp_path, monkeypatch):
 
 
 def _run(code, cwd=REPO, timeout=300):
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = child_env(PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", BLOCK + code], capture_output=True,
                           text=True, cwd=cwd, env=env, timeout=timeout)
     assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
     return proc.stdout
+
+
+def test_the_walk_covers_the_serve_slice():
+    for path in ("fastdepth_tpu_torch/engine/server.py", "fastdepth_tpu_torch/cli/serve.py"):
+        assert path in SOURCES, path
 
 
 def test_every_module_imports_with_the_jax_package_blocked():
@@ -212,3 +218,38 @@ assert probe.main(["--device", "cpu", "--calls", "1",
 print("ok")
 """)
     assert out.strip().endswith("ok")
+
+
+def test_serve_cli_runs_on_the_cpu_with_the_jax_package_blocked(tiny_npz, tmp_path):
+    """engine.server imports, ``cli.serve --help`` exits 0, and a daemon
+    launched by ``cli.serve.main`` on the CPU answers the CLI's --ping and
+    --stats over a unix socket, all with both packages blocked."""
+    sock = str(tmp_path / "fd.sock")
+    rgb = str(tmp_path / "rgb.npy")
+    np.save(rgb, np.random.RandomState(0).rand(64, 64, 3).astype(np.float32))
+    out = _run(f"""
+import contextlib, io, threading
+from fastdepth_tpu_torch.engine import server
+from fastdepth_tpu_torch.cli import serve
+help_text = io.StringIO()
+with contextlib.redirect_stdout(help_text):
+    try:
+        serve.main(["--help"])
+    except SystemExit as e:
+        assert e.code == 0, e.code
+assert "--device" in help_text.getvalue()
+ready, stop = threading.Event(), threading.Event()
+t = threading.Thread(target=serve.main, args=(["--evaluate", {tiny_npz!r}, "--socket", {sock!r},
+                     "--batch-size", "2", "--image-size", "64", "64", "--stats-every", "0",
+                     "--device", "cpu"],), kwargs=dict(_ready=ready, _stop=stop), daemon=True)
+t.start()
+assert ready.wait(60)
+assert serve.main(["--socket", {sock!r}, "--ping", {rgb!r}]) == 0
+assert serve.main(["--socket", {sock!r}, "--stats"]) == 0
+stop.set()
+t.join(30)
+assert not t.is_alive()
+print("served", server.InferenceServer.__name__)
+""")
+    assert "pred shape=(64, 64, 1)" in out and '"frames": 1' in out
+    assert out.strip().endswith("served InferenceServer")

@@ -19,6 +19,7 @@ from fastdepth_tpu_torch.ops.cuda import fused_decoder_hwbc as K2
 from fastdepth_tpu_torch.ops.cuda import fused_decoder_v3 as K3
 from fastdepth_tpu_torch.ops.cuda import head as K4
 from fastdepth_tpu_torch.ops.cuda.fused_decoder import kernel_weights
+import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 STAGES = {"K2": (K2, K2.fused_decoder_stage_hwbc), "K3": (K3, K3.fused_decoder_stage_v3)}
 

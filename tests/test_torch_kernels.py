@@ -16,6 +16,7 @@ import torch
 from fastdepth_tpu_torch.ops import blocks as TB
 from fastdepth_tpu_torch.ops.cuda import _build
 from fastdepth_tpu_torch.ops.cuda import fused_decoder as K
+import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 
 def _jax_operands(rng, N, H, W, C, Cout, has_skip):

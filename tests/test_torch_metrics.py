@@ -8,6 +8,7 @@ import jax.numpy as jnp
 
 from fastdepth_tpu import metrics as JM
 from fastdepth_tpu_torch import metrics as TM
+import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 
 def _batch(rng, n=4, size=16):

@@ -22,6 +22,7 @@ from fastdepth_tpu_torch.models import fused as F
 from fastdepth_tpu_torch.models.registry import fastdepth_pruned, fastdepth_unpruned
 from fastdepth_tpu_torch.ops import blocks as TB
 from fastdepth_tpu_torch.ops.cuda import fused_decoder as K
+import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_ENC = (4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24)

@@ -27,6 +27,7 @@ from fastdepth_tpu_torch.engine import probes as P
 from fastdepth_tpu_torch.ops import blocks as TB
 from fastdepth_tpu_torch.ops.cuda import probes as KP
 from fastdepth_tpu_torch.ops.cuda.fused_decoder_v3 import fused_decoder_stage_v3
+import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -19,6 +19,7 @@ from fastdepth_tpu_torch.cli import profile as TP
 from fastdepth_tpu_torch.config import ModelConfig
 from fastdepth_tpu_torch.models import build
 from torch_port_config import to_jax
+import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 TINY_ENC = (4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24)
 TINY_DEC = (18, 14, 10, 6, 4)

@@ -15,6 +15,7 @@ from fastdepth_tpu.engine import roofline as JRL
 from fastdepth_tpu_torch.engine import calibrate
 from fastdepth_tpu_torch.engine import roofline as RL
 from torch_port_config import to_port
+from torch_threads import child_env  # torch's CPU threads: a share per xdist worker
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_ENC = (4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24)
@@ -113,5 +114,5 @@ def test_the_measurement_path_imports_no_jax():
             "import fastdepth_tpu_torch.engine.roofline, fastdepth_tpu_torch.engine.calibrate\n"
             "import fastdepth_tpu_torch.cli.profile, fastdepth_tpu_torch.cli.probe\n"
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = child_env(PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=120)

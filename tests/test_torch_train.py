@@ -17,6 +17,7 @@ JAX's in ``test_torch_train_cli.py``.
 """
 
 import copy
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -39,6 +40,7 @@ from fastdepth_tpu_torch.train import trainer as T
 from fastdepth_tpu_torch.train.trainer import make_train_step, step_lr
 
 from torch_port_config import to_port
+import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 TINY_ENC = (4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24)
 TINY_DEC_ADD = (18, 14, 10, 6, 4)
@@ -534,19 +536,27 @@ VARIANTS = {
 
 
 @pytest.fixture(scope="module")
-def jax_f64_steps():
+def jax_f64_steps(jax_tree):
     """The JAX package's jitted train steps under x64, one per variant,
-    built on first use and shared by the tests of this module."""
-    cache = {}
+    shared by the tests of this module.  XLA's compile of each (~15 s on
+    the CPU, twice that on a loaded test machine) is most of this
+    module's time, so the first use compiles all four at once, one
+    thread a variant, by calling each on the 3-step test's arguments."""
+    steps = {}
+    for variant, (kw, wd) in VARIANTS.items():
+        steps[variant] = jax.jit(JT.make_train_step(
+            jax_build(JCFG), JaxTrainConfig(lr=0.01, weight_decay=wd), **kw))
+    rgb, depth = _data(np.random.RandomState(0), n=8, hw=64, dtype=np.float64)
 
-    def get(variant):
-        if variant not in cache:
-            kw, wd = VARIANTS[variant]
-            cache[variant] = jax.jit(JT.make_train_step(
-                jax_build(JCFG), JaxTrainConfig(lr=0.01, weight_decay=wd), **kw))
-        return cache[variant]
+    def compile_by_calling(step):
+        with jax.enable_x64(True):
+            state = JT.sgd_init(jax.tree.map(jnp.asarray, _f64(jax_tree)))
+            jax.block_until_ready(step(state, jnp.asarray(rgb), jnp.asarray(depth),
+                                       jnp.float64(0.01)))
 
-    return get
+    with ThreadPoolExecutor(len(steps)) as pool:
+        list(pool.map(compile_by_calling, steps.values()))
+    return steps.__getitem__
 
 
 def _f64(tree):

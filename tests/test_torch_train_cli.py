@@ -36,6 +36,7 @@ from fastdepth_tpu_torch.train.trainer import make_train_step
 
 from test_cli_tools import _make_nyu_tree
 from torch_port_config import to_port
+import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 TINY_ENC = (4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24)
 TINY_DEC = (18, 14, 10, 6, 4)
