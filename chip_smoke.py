@@ -40,15 +40,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
    held against the straight forward (bf16: the port's bf16 fused
    forward), K1's and K4's launches counted over each server's run;
    frames/s, the stats' p50/p99 and occupancy, and a lone frame's round
-   trip; and the uint8 normalisation bit for bit on all 256 values;
-8. train path: the committed weights fine-tuned at 224x224 through the
+   trip; and the uint8 normalisation bit for bit on all 256 values (the
+   eval path checks the Evaluator's uint8 path the same way);
+8. zoo: the rest of the model zoo at 224x224 with seeded random weights
+   (Model.init's convs, drawn BatchNorm statistics, a non-negative last
+   conv; no trained zoo weights exist): resnet50-upproj at full
+   width through validate() b8 f32 and bf16, cli.deploy.main b1 f32,
+   one b8 f32 train step on the card against the CPU's (loss, parameters
+   and running statistics; the momentum against an f64 CPU step), four
+   steps of cli.train's epoch loop b8 f32, and a b8 f32 server over a
+   unix socket driven as the serve phase drives the flagship's (K1 and
+   K4 launched 0 times), each f32 output within 1e-3 * max(1, max|cpu|)
+   of the port's straight forward on the CPU (TF32 off), bf16 within a
+   relative L2 error of 2e-2 of the card's f32; frames/s, deploy ms,
+   train step ms (b8 f32 and bf16), serving frames/s and p50/p99, peak
+   memory and the largest kernels of one b8 step; mobilenet-nnconv5
+   (BASELINE config #2) through validate() b8 f32 on the head-commute
+   forward (K1 and K4 launched 0 times); then every registry decoder on
+   a tiny MobileNet encoder and ResNet-18/34 (skip add, concat), -50
+   (bottleneck_skips add, concat), -101 and -152, one b2 f32 forward each
+   through compile_forward on the card against the CPU, same bound;
+9. train path: the committed weights fine-tuned at 224x224 through the
    port's train item path (seeded raw frames, the real augmentations):
    one f32 step on the card against the CPU (with an f64 CPU step as the
    momentum's reference), the loss falling over 10 steps, a checkpoint
    round trip, remat and accumulation, cli.train's epoch loop in f32 and
    bf16 with K1's and K4's launches in its validation, and the step time
    at b8 and b128 in f32 and bf16 with the peak memory;
-9. probes: every tag of the probe catalogue (engine/probes.py, the
+10. probes: every tag of the probe catalogue (engine/probes.py, the
    scripts' Pallas probes) runs its kernel (K5, K6, or K3) once, with
    K5's and K6's launches counted on that run; then the launch floor
    (the least a call costs in the same timer), each kernel against its
@@ -57,11 +76,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    to it (with the CUDA kernels K6's taps and up_only yardsticks run
    as); K5's copy sweep (dma_copy) and K6's scale rows (compute_sweep),
    each checked against its plain version;
-10. tools: engine/calibrate (reduced call count) measures the card's
+11. tools: engine/calibrate (reduced call count) measures the card's
    ceilings, and cli.profile --mode prefix --batch 128 profiles the
    pruned flagship on them; the summed roofline bounds must not exceed
    the measured full forward;
-11. prints the kernels' JSON line, then the result line.
+12. prints the kernels' JSON line, then the result line.
 
 Nothing here, and nothing of the port it drives, imports JAX or the JAX
 package.
@@ -325,6 +344,8 @@ def e2e_phase(model, params) -> dict:
             fail(f"{name}: predictions of shape {tuple(pred.shape)}, finite: "
                  f"{bool(torch.isfinite(pred).all())}")
         fps = BATCH / _median_ms(ev, (x, d)) * 1e3
+        if name == "f32":
+            _check_evaluator_uint8(ev)
         row = {k: getattr(avg, k) for k in ("rmse", "mae", "delta1", "absrel", "lg10")}
         out[name] = {"launches": k1, "k4_launches": k4, "forwards": forwards, "metrics": row,
                      "validate_fps": 1.0 / avg.gpu_time, "step_fps": fps}
@@ -342,6 +363,34 @@ def e2e_phase(model, params) -> dict:
             out[name]["straight_step_fps"] = BATCH / _median_ms(plain, (x, d)) * 1e3
         print(f"e2e {name}: {json.dumps(out[name])}")
     return out
+
+
+def _check_evaluator_uint8(ev) -> None:
+    """The Evaluator's uint8 path (``--device-normalize``) hands its forward
+    the host path's f32 frames (numpy's /255) bit for bit on all 256
+    values, on the card: its forward is swapped for one that records its
+    input."""
+    seen = []
+
+    def record(params, x):
+        seen.append(x.cpu())
+        return torch.zeros((*x.shape[:3], 1), device=x.device)
+
+    raw = np.stack([np.arange(256, dtype=np.uint8).reshape(16, 16)] * 3, axis=-1)[None]
+    forward, ev._apply = ev._apply, record
+    try:
+        ev(ev.put(raw), ev.put(np.ones((1, 16, 16, 1), np.float32)))
+    finally:
+        ev._apply = forward
+    want = raw.astype(np.float32) / np.float32(255)
+    off = int((seen[0].numpy() != want).sum())
+    scalar = (torch.from_numpy(raw).cuda().float() / 255.0).cpu().numpy()
+    scalar_err = float(np.abs(scalar - want).max())
+    print(f"e2e: Evaluator's uint8 path on the card vs the host path's /255: {off} of 768 "
+          f"values differ (bound 0); a division by the Python number 255.0 on the card: "
+          f"{int((scalar != want).sum())} differ, max|diff| {scalar_err:.3e}")
+    if off:
+        fail(f"the Evaluator's uint8 normalisation differs from the host path on {off} values")
 
 
 def forwards_phase(model, params) -> dict:
@@ -491,12 +540,15 @@ def fresh_deploy_f32(in_fp: str, out_fp: str, want: np.ndarray) -> dict:
             "max_abs_err_vs_straight": err}
 
 
-def _serve_one(srv, tmp: str, name: str, inputs, lone_inputs):
+def _serve_one(srv, tmp: str, name: str, inputs, lone_inputs,
+               per_forward=(STAGES_PER_FORWARD, 1)):
     """Drive one server through its unix socket: a warm-up request, then
     (K1's and K4's counts set to 0 just before, read just after) the
     stream of ``inputs`` at depth SERVE_DEPTH and SERVE_LONE lone
-    requests, then SERVE_TIMED more streams that are only timed.  Returns
-    (stream answers, lone answers, row)."""
+    requests, then SERVE_TIMED more streams that are only timed.  K1 and
+    K4 must have launched ``per_forward`` times a forward over the counted
+    run (the flagship's 5 and 1; a zoo model's 0 and 0).  Returns (stream
+    answers, lone answers, row)."""
     import threading
 
     from fastdepth_tpu_torch.engine.server import request, request_stream, serve_unix_socket
@@ -557,9 +609,11 @@ def _serve_one(srv, tmp: str, name: str, inputs, lone_inputs):
     # a batch launches K1 once a level and K4 once; chain runs a batch-1
     # forward a frame (the padded tail of a window is never run)
     forwards = frames if srv.chain else batches
-    if not (k1 == STAGES_PER_FORWARD * forwards and k4 == forwards and forwards > 0):
+    if not ((k1, k4) == (per_forward[0] * forwards, per_forward[1] * forwards)
+            and forwards > 0):
         fail(f"serve {name}: K1 launched {k1} and K4 {k4} times over {forwards} forwards "
-             f"({batches} batches, {frames} frames), want {STAGES_PER_FORWARD} and 1 a forward")
+             f"({batches} batches, {frames} frames), want {per_forward[0]} and "
+             f"{per_forward[1]} a forward")
     fps = [len(inputs) / s for s in stream_s]
     row = {"launches": k1, "k4_launches": k4, "batches": batches, "frames": frames,
            "stream_fps": fps, "stream_fps_median": float(np.median(fps)),
@@ -568,6 +622,19 @@ def _serve_one(srv, tmp: str, name: str, inputs, lone_inputs):
            "in_process_burst_fps": burst_fps,
            "latency_ms": stats["latency_ms"], "mean_occupancy": stats["mean_occupancy"]}
     return answers, lone, row
+
+
+def _print_serve(label: str, row: dict, card: dict) -> None:
+    lat = row["latency_ms"]
+    print(f"{label} on {card['nvidia_smi']}: {SERVE_FRAMES} frames streamed at depth "
+          f"{SERVE_DEPTH}: " + ", ".join(f"{f:.1f}" for f in row["stream_fps"])
+          + f" frames/s (in process, no wire: {row['in_process_burst_fps']:.1f}); stats p50 "
+          f"{lat['p50']:.3f} ms, p99 {lat['p99']:.3f} ms over {lat['count']} requests, mean "
+          f"occupancy {row['mean_occupancy']:.3f}; lone frame round trip median "
+          f"{row['lone_round_trip_ms_median']:.3f} ms (in process "
+          f"{row['lone_in_process_ms_median']:.3f} ms); K1 {row['launches']}, K4 "
+          f"{row['k4_launches']} launches over {row['batches']} batches / {row['frames']} "
+          f"frames; max|diff| {row['max_abs_err']:.3e} (bound {row['bound']:.3e})")
 
 
 def serve_phase(model, params, card: dict) -> dict:
@@ -626,19 +693,375 @@ def serve_phase(model, params, card: dict) -> dict:
             got = np.stack(answers + lone).astype(np.float32)
             err = float(np.abs(got - np.concatenate([ref, ref[:SERVE_LONE]])).max())
             row["max_abs_err"], row["bound"] = err, bound
-            lat = row["latency_ms"]
-            print(f"serve {name} b{kw['batch_size']} on {card['nvidia_smi']}: "
-                  f"{SERVE_FRAMES} frames streamed at depth {SERVE_DEPTH}: "
-                  + ", ".join(f"{f:.1f}" for f in row["stream_fps"])
-                  + f" frames/s (in process, no wire: {row['in_process_burst_fps']:.1f}); stats p50 {lat['p50']:.3f} ms, p99 {lat['p99']:.3f} ms over "
-                  f"{lat['count']} requests, mean occupancy {row['mean_occupancy']:.3f}; lone "
-                  f"frame round trip median {row['lone_round_trip_ms_median']:.3f} ms (in "
-                  f"process {row['lone_in_process_ms_median']:.3f} ms); K1 {row['launches']}, "
-                  f"K4 {row['k4_launches']} launches over {row['batches']} batches / "
-                  f"{row['frames']} frames; max|diff| {err:.3e} (bound {bound:.3e})")
+            _print_serve(f"serve {name} b{kw['batch_size']}", row, card)
             if got.shape != (SERVE_FRAMES + SERVE_LONE, *OUTPUT_HW, 1) or not err <= bound:
                 fail(f"serve {name}: answers of shape {got.shape}, max|diff| {err} > {bound}")
             out[name] = row
+    return out
+
+
+# --- the model zoo (resnet50-upproj, mobilenet-nnconv5, the sweeps) -------
+
+ZOO_SEED = 9
+ZOO_CPU_ROWS = 2  # frames of a card batch held against the CPU forward
+ZOO_TRAIN_STEPS = TRAIN_ITEMS // BATCH
+# the tiny MobileNet encoder of the port's tests; the shuffle decoders
+# divide its width by 4 five times, so they take a 1024-wide last block
+ZOO_TINY_ENC = (4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24)
+ZOO_TINY_DEC = (18, 14, 10, 6, 4)
+ZOO_RESNETS = ["resnet18-nnconv5-skipadd", "resnet18-nnconv5-skipconcat",
+               "resnet34-nnconv5-skipadd", "resnet34-nnconv5-skipconcat",
+               ("resnet50", "add"), ("resnet50", "concat"),
+               "resnet101-deconv5dw", "resnet152-upconv"]
+# bf16 against the card's f32 forward: relative L2 error. Each bf16
+# rounding is off by up to 2^-9 (~2e-3) of its value; ResNet-50 + UpProj
+# stacks 68 rounded convs (weights and activations both bf16), whose
+# errors add like a random walk, sqrt(68) * 2e-3 ~ 1.6e-2, hence 2e-2; a
+# wrong kernel or layout is off by O(1).  Printed beside it: the error of
+# an independent bf16 forward (PyTorch's on the CPU, the same
+# fold-then-cast, weights and frames) against its own f32
+ZOO_BF16_REL_L2 = 2e-2
+
+
+def _zoo_err(got, want, label: str) -> float:
+    """max|got - want| / max(1, max|want|), the zoo's f32 measure (bound
+    1e-3: the random models' outputs reach far above 1)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        fail(f"zoo {label}: output of shape {got.shape}, want {want.shape}")
+    if not np.isfinite(got).all():
+        fail(f"zoo {label}: the card's output is not finite")
+    if not np.abs(want).max() >= 1e-3:
+        fail(f"zoo {label}: the CPU's output peaks at {np.abs(want).max()}: it carries no "
+             "signal")
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+def _zoo_check(label: str, got, want, bound: float = 1e-3) -> float:
+    err = _zoo_err(got, want, label)
+    print(f"zoo {label}: card vs CPU straight forward, max|diff| / max(1, max|cpu|) "
+          f"{err:.3e} (bound {bound:g})")
+    if not err <= bound:
+        fail(f"zoo {label}: the card disagrees with the CPU: {err} > {bound}")
+    return err
+
+
+def _cpu_forward(model, params, x: np.ndarray, dtype=torch.float32) -> np.ndarray:
+    """The port's forward on the CPU: f32, the straight forward on the
+    unfolded tree (the reference); bf16, the path the card's bf16 runs
+    (fold in f32, cast, engine/aot._prepare), f32 out."""
+    from fastdepth_tpu_torch.engine.aot import _prepare
+
+    x = torch.from_numpy(np.ascontiguousarray(x))
+    with torch.inference_mode():
+        if dtype == torch.float32:
+            return model.apply(params, x).numpy()
+        p, apply = _prepare(model, params, batch_size=x.shape[0], dtype=dtype, fold_bn=True,
+                            impl="auto", device="cpu")
+        return apply(p, x.to(dtype)).float().numpy()
+
+
+def _rel_l2(got, want) -> float:
+    want = np.asarray(want, np.float64)
+    return float(np.linalg.norm(np.asarray(got, np.float64) - want) / np.linalg.norm(want))
+
+
+# the last conv of each decoder: the depth head, or the shuffle decoders'
+# last stage (their output is its pixel shuffle)
+ZOO_LAST_CONVS = ("decoder.final.pw", "decoder.decode_conv6.pw", "decoder.conv4.pw",
+                  "decoder.conv4.conv")
+
+
+def _random_bn(params, seed: int):
+    """Make Model.init's tree carry signal to the output, in place: draw
+    every BatchNorm's statistics (scale and var in [0.5, 1.5), mean N(0,
+    0.1), bias in [0, 0.2)) and make the last conv's weights non-negative.
+    Model.init leaves BatchNorm at its defaults, and the reference's He
+    rule for a depthwise conv (n = k^2 * C) shrinks activations C-fold a
+    layer: at init a MobileNet's depth map is ~1e-17 (measured on one H100).
+    Deep random ResNets go the other way: their activations grow into a
+    common mode per channel, so a random head's sign is the same at every
+    pixel and its ReLU can be dark on the whole map.  Non-negative weights
+    over non-negative (post-ReLU) inputs and a positive bias keep the
+    output lit wherever its input is."""
+    from fastdepth_tpu_torch.models.layers import BatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in params.named_modules():
+            if isinstance(m, BatchNorm):
+                c = m.mean.numel()
+                m.scale.copy_(torch.rand(c, generator=gen) + 0.5)
+                m.var.copy_(torch.rand(c, generator=gen) + 0.5)
+                m.mean.copy_(torch.randn(c, generator=gen) * 0.1)
+                m.bias.copy_(torch.rand(c, generator=gen) * 0.2)
+            elif name in ZOO_LAST_CONVS:
+                m.w.abs_()
+    return params
+
+
+def _zoo_model(spec, *, tiny_decoder: str = None):
+    """(model, params on the CPU): Model.init's tree, seeded, given signal
+    by :func:`_random_bn`."""
+    from fastdepth_tpu_torch import ModelConfig, build, from_name
+
+    if tiny_decoder is not None:
+        enc = (ZOO_TINY_ENC[:13] + (1024,) if tiny_decoder.startswith("shuffle")
+               else ZOO_TINY_ENC)
+        model = build(ModelConfig(decoder=tiny_decoder, skip=None, encoder_channels=enc,
+                                  decoder_channels=ZOO_TINY_DEC))
+    elif isinstance(spec, tuple):
+        model = build(ModelConfig(encoder=spec[0], decoder="nnconv5", skip=spec[1],
+                                  bottleneck_skips=True))
+    else:
+        model = from_name(spec)
+    return model, _random_bn(model.init(torch.Generator().manual_seed(ZOO_SEED)), ZOO_SEED)
+
+
+def _zoo_serve(model, params, card: dict) -> dict:
+    """An InferenceServer (b8 f32) on ``model`` behind a unix socket,
+    driven as the flagship's servers are (:func:`_serve_one`, K1 and K4
+    launched 0 times) on SERVE_FRAMES seeded frames: every answer within
+    1e-3 * max(1, max|ref|) of the card's straight forward of the same
+    frames, the first ZOO_CPU_ROWS also against the CPU's."""
+    from fastdepth_tpu_torch.engine.aot import compile_forward
+    from fastdepth_tpu_torch.engine.server import InferenceServer
+
+    frames = np.random.RandomState(ZOO_SEED).rand(SERVE_FRAMES, *OUTPUT_HW, 3).astype(np.float32)
+    fn, p = compile_forward(model, params, batch_size=BATCH, image_size=OUTPUT_HW, impl="xla",
+                            device="cuda")
+    want = np.concatenate([fn(p, torch.from_numpy(frames[i:i + BATCH]).cuda()).cpu().numpy()
+                           for i in range(0, SERVE_FRAMES, BATCH)])
+    del fn, p
+    srv = InferenceServer(model, params, batch_size=BATCH, image_size=OUTPUT_HW, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        answers, lone, row = _serve_one(srv, tmp, "zoo", list(frames),
+                                        list(frames[:SERVE_LONE]), per_forward=(0, 0))
+    got = np.stack(answers + lone)
+    want = np.concatenate([want, want[:SERVE_LONE]])
+    scale = max(1.0, float(np.abs(want).max()))
+    row["max_abs_err"] = _zoo_err(got, want, "serve vs the card's forward") * scale
+    row["bound"] = 1e-3 * scale
+    _print_serve(f"zoo serve {model.config.encoder}-{model.config.decoder} b{BATCH} f32", row,
+                 card)
+    if not row["max_abs_err"] <= row["bound"]:
+        fail(f"zoo serve: max|diff| {row['max_abs_err']} > {row['bound']}")
+    row["max_rel_err_vs_cpu"] = _zoo_check(
+        "resnet50-upproj serve f32", got[:ZOO_CPU_ROWS],
+        _cpu_forward(model, params, frames[:ZOO_CPU_ROWS]))
+    return row
+
+
+def _zoo_flagship(card: dict) -> dict:
+    """resnet50-upproj at full width and 224x224, random weights
+    (:func:`_zoo_model`), through every entry point on the card:
+    validate() b8 f32 and bf16, cli.deploy.main b1 f32, one b8 f32 train
+    step against the same step on the CPU (:func:`_step_card_vs_cpu`),
+    four steps of cli.train's epoch loop b8 f32, and a server
+    (:func:`_zoo_serve`); each f32 output against the port's straight
+    forward on the CPU, bf16 against the card's f32 (ZOO_BF16_REL_L2)."""
+    from fastdepth_tpu_torch import (OUTPUT_SIZE, RAW_SIZE, BatchLoader, Evaluator,
+                                     ValPipeline, params_to_jax, save_checkpoint, validate)
+    from fastdepth_tpu_torch.checkpoint.io import load_train_checkpoint
+    from fastdepth_tpu_torch.cli import deploy
+    from fastdepth_tpu_torch.cli import train as train_cli
+    from fastdepth_tpu_torch.config import TrainConfig
+
+    model, params = _zoo_model("resnet50-upproj")
+    out = {"params": sum(v.numel() for v in params.state_dict().values())}
+    loader = _Frames(_frames(ValPipeline.create(raw_size=RAW_SIZE, output_size=OUTPUT_SIZE),
+                             seed=ZOO_SEED))
+    rgb0, depth0, _ = loader.batches[0]
+    cpu0 = _cpu_forward(model, params, rgb0[:ZOO_CPU_ROWS])
+    preds = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        torch.cuda.reset_peak_memory_stats()
+        ev = Evaluator(model, params, batch_size=BATCH, dtype=dtype, device="cuda")
+        if next(ev.params.parameters()).device.type != "cuda":
+            fail("zoo: the evaluator's params are not on the card")
+        avg = validate(loader, ev, print_freq=0, make_images=False, log=lambda s: None)
+        x, d = ev.put(rgb0), ev.put(depth0)
+        pred, _ = ev(x, d)
+        preds[name] = pred.cpu().numpy()
+        ms = _median_ms(ev, (x, d))
+        row = {"step_fps": BATCH / ms * 1e3, "validate_fps": 1.0 / avg.gpu_time,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "rmse": avg.rmse}
+        if not np.isfinite([avg.rmse, avg.mae, avg.delta1]).all():
+            fail(f"zoo validate {name}: metrics not finite: {avg}")
+        if name == "f32":
+            row["max_rel_err_vs_cpu"] = _zoo_check("resnet50-upproj validate f32",
+                                                   preds[name][:ZOO_CPU_ROWS], cpu0)
+            busy_us, top = _kernel_time(lambda: ev(x, d))
+            row["kernel_ms"] = None if busy_us is None else busy_us / 1e3
+            row["top_kernels_ms"] = [(k, us / 1e3) for k, us in top[:8]]
+        else:
+            rows = slice(0, ZOO_CPU_ROWS)
+            rel = _rel_l2(preds[name][rows], preds["f32"][rows])
+            cpu_rel = _rel_l2(_cpu_forward(model, params, rgb0[rows], torch.bfloat16), cpu0)
+            print(f"zoo resnet50-upproj validate bf16: relative L2 error to the card's f32 "
+                  f"{rel:.3e} on {ZOO_CPU_ROWS} frames ({_rel_l2(preds[name], preds['f32']):.3e} "
+                  f"on {BATCH}; bound {ZOO_BF16_REL_L2:g}); the CPU's bf16 to its f32 "
+                  f"{cpu_rel:.3e}")
+            if not rel <= ZOO_BF16_REL_L2:
+                fail(f"zoo bf16 forward: relative L2 error {rel} > {ZOO_BF16_REL_L2}")
+            row.update(rel_l2_vs_f32=rel, cpu_rel_l2=cpu_rel)
+        print(f"zoo resnet50-upproj eval b{BATCH} {name} on {card['nvidia_smi']}: step "
+              f"{row['step_fps']:.1f} frames/s (median {ms:.3f} ms), validate() "
+              f"{row['validate_fps']:.1f} frames/s, peak memory {row['peak_mem_gib']:.2f} GiB"
+              + ("" if name != "f32" or row["kernel_ms"] is None else
+                 f"; kernel time of one step {row['kernel_ms']:.3f} ms, largest: "
+                 + "; ".join(f"{k[:70]} {v:.3f}" for k, v in row["top_kernels_ms"])))
+        out[f"eval_{name}"] = row
+        del ev
+
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "resnet50_upproj.npz")
+        save_checkpoint(npz, params_to_jax(params.state_dict()), model.config)
+        in_fp, out_fp = os.path.join(tmp, "rgb.npy"), os.path.join(tmp, "pred.npy")
+        np.save(in_fp, rgb0[0])
+        torch.cuda.reset_peak_memory_stats()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            deploy.main(["--model", npz, "--input-fp", in_fp, "--output-fp", out_fp,
+                         "--warmup", "5", "--run", "20", "--device", "cuda"])
+        text = log.getvalue()
+        timed = re.search(r"\[timed\] mean=([\d.]+) ms  median=([\d.]+) ms", text)
+        gflop = re.search(r"([\d.]+) GFLOP/frame", text)
+        pred = np.load(out_fp).transpose(0, 2, 3, 1)
+        row = {"median_ms": float(timed.group(2)), "gflop_per_frame": float(gflop.group(1)),
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "max_rel_err_vs_cpu": _zoo_check("resnet50-upproj deploy b1 f32", pred,
+                                                cpu0[:1])}
+        print(f"zoo resnet50-upproj deploy b1 f32 on {card['nvidia_smi']}: median "
+              f"{row['median_ms']:.3f} ms, {row['gflop_per_frame']:.3f} GFLOP/frame, peak "
+              f"memory {row['peak_mem_gib']:.2f} GiB")
+        out["deploy_f32"] = row
+
+        train_ds, val_ds = _seeded_datasets(os.path.join(tmp, "nyudepthv2"))
+        rgb, depth, _ = next(iter(BatchLoader(train_ds, batch_size=BATCH, shuffle=True,
+                                              drop_last=True, pad_last=False, num_workers=4)))
+        out["train_step_card_vs_cpu"] = _step_card_vs_cpu(
+            "zoo resnet50-upproj train", model, params, torch.from_numpy(rgb),
+            torch.from_numpy(depth), TrainConfig(lr=TRAIN_LR, weight_decay=1e-4))
+        out_dir = os.path.join(tmp, "run")
+        args = train_cli.parse_args(
+            ["--arch", "resnet50-upproj", "--epochs", "1", "--batch-size", str(BATCH),
+             "--eval-batch-size", str(BATCH), "--workers", "4", "--print-freq", "0",
+             "--output-dir", out_dir, "--lr", str(TRAIN_LR), "--device", "cuda"])
+        torch.cuda.reset_peak_memory_stats()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            best = train_cli.train_loop(args, model, params, train_ds, val_ds,
+                                        make_images=False)
+        losses = [float(v) for v in re.findall(r"=> epoch \d+: train loss ([-\w.]+)",
+                                               log.getvalue())]
+        tree, _, _ = load_train_checkpoint(os.path.join(out_dir, "checkpoint.npz"))
+        if int(np.asarray(tree["step"])) != ZOO_TRAIN_STEPS or not np.isfinite(losses).all():
+            fail(f"zoo train_loop: step {np.asarray(tree['step'])}, losses {losses}")
+        from fastdepth_tpu_torch import params_from_jax
+
+        trained = model.load(params_from_jax(tree["params"]))
+        ev = Evaluator(model, trained, batch_size=1, device="cuda")
+        got = ev(ev.put(rgb0[:1]), ev.put(depth0[:1]))[0].cpu().numpy()
+        row = {"steps": ZOO_TRAIN_STEPS, "epoch_loss": losses,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "validate_rmse": best.rmse,
+               "max_rel_err_vs_cpu": _zoo_check("resnet50-upproj trained weights, card",
+                                                got, _cpu_forward(model, trained, rgb0[:1]))}
+        print(f"zoo resnet50-upproj train_loop b{BATCH} f32 on {card['nvidia_smi']}: "
+              f"{ZOO_TRAIN_STEPS} steps, epoch loss {losses}, peak memory "
+              f"{row['peak_mem_gib']:.2f} GiB")
+        out["train_loop_f32"] = row
+    out["train_times"] = train_times(model, params, batches=(BATCH,), card=card)
+
+    out["serve_f32"] = _zoo_serve(model, params, card)
+    return out
+
+
+def _zoo_mobilenet_nnconv5(card: dict) -> dict:
+    """mobilenet-nnconv5 (BASELINE config #2) at full width: validate() b8
+    f32 through the head-commute forward, which _pick_apply must choose,
+    with K1 and K4 launched 0 times."""
+    from fastdepth_tpu_torch import OUTPUT_SIZE, RAW_SIZE, Evaluator, ValPipeline, validate
+    from fastdepth_tpu_torch.models import fused as F
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+
+    model, params = _zoo_model("mobilenet-nnconv5")
+    loader = _Frames(_frames(ValPipeline.create(raw_size=RAW_SIZE, output_size=OUTPUT_SIZE),
+                             seed=ZOO_SEED + 1))
+    calls = []
+    opt = F.apply_fastdepth_opt
+    F.apply_fastdepth_opt = lambda *a: calls.append(1) or opt(*a)
+    try:
+        ev = Evaluator(model, params, batch_size=BATCH, device="cuda")
+        _reset(K1, K4)
+        avg = validate(loader, ev, print_freq=0, make_images=False, log=lambda s: None)
+        torch.cuda.synchronize()
+        k1, k4 = _counts(K1, K4)
+        forwards, opt_forwards = E2E_BATCHES + 1, len(calls)
+        if (opt_forwards, k1, k4) != (forwards, 0, 0):
+            fail(f"zoo mobilenet-nnconv5: {opt_forwards} opt forwards of {forwards}, K1 {k1}, "
+                 f"K4 {k4} launches (want all forwards through opt, no kernel)")
+        rgb0, depth0, _ = loader.batches[0]
+        x, d = ev.put(rgb0), ev.put(depth0)
+        pred = ev(x, d)[0].cpu().numpy()
+        fps = BATCH / _median_ms(ev, (x, d)) * 1e3
+    finally:
+        F.apply_fastdepth_opt = opt
+    err = _zoo_check("mobilenet-nnconv5 validate f32 (opt)", pred[:ZOO_CPU_ROWS],
+                     _cpu_forward(model, params, rgb0[:ZOO_CPU_ROWS]))
+    print(f"zoo mobilenet-nnconv5 eval b{BATCH} f32 (opt) on {card['nvidia_smi']}: step "
+          f"{fps:.1f} frames/s, validate() {1.0 / avg.gpu_time:.1f} frames/s; opt forwards "
+          f"{opt_forwards} of {forwards}, K1 {k1}, K4 {k4}")
+    return {"opt_forwards": opt_forwards, "k1_launches": k1, "k4_launches": k4, "step_fps": fps,
+            "max_rel_err_vs_cpu": err}
+
+
+def _zoo_sweep() -> dict:
+    """Every registry decoder on the tiny MobileNet encoder, then the
+    ResNets at full width: one b2 f32 forward at 224x224 each, through
+    compile_forward (fold, then _pick_apply's choice) on the card, against
+    the straight forward on the CPU."""
+    from fastdepth_tpu_torch.config import DECODER_NAMES
+    from fastdepth_tpu_torch.engine.aot import compile_forward
+
+    x = np.random.RandomState(ZOO_SEED).rand(2, *OUTPUT_HW, 3).astype(np.float32)
+    out = {}
+    for spec in [("tiny", d) for d in DECODER_NAMES] + [("full", r) for r in ZOO_RESNETS]:
+        kind, name = spec
+        model, params = (_zoo_model(None, tiny_decoder=name) if kind == "tiny"
+                         else _zoo_model(name))
+        label = (f"mobilenet(tiny)-{name}" if kind == "tiny" else
+                 name if isinstance(name, str) else f"{name[0]}-nnconv5-skip{name[1]}-bottleneck")
+        fn, p = compile_forward(model, params, batch_size=2, image_size=OUTPUT_HW,
+                                device="cuda")
+        got = fn(p, torch.from_numpy(x).cuda()).cpu().numpy()
+        out[label] = _zoo_err(got, _cpu_forward(model, params, x), label)
+        if not out[label] <= 1e-3:
+            fail(f"zoo sweep {label}: the card disagrees with the CPU: {out[label]}")
+        del fn, p
+    worst = max(out, key=out.get)
+    print(f"zoo sweep: {len(out)} models ({len(DECODER_NAMES)} decoders, {len(ZOO_RESNETS)} "
+          f"ResNets), b2 f32 224x224, card vs CPU max|diff| / max(1, max|cpu|) <= "
+          f"{out[worst]:.3e} ({worst}; bound 1e-3)")
+    return out
+
+
+def zoo_phase(card: dict) -> dict:
+    """The rest of the model zoo on the card (random seeded weights: no
+    trained zoo weights exist in the repo): :func:`_zoo_flagship`,
+    :func:`_zoo_mobilenet_nnconv5`, :func:`_zoo_sweep`."""
+    out, seconds = {}, {}
+    for name, part in (("resnet50_upproj", lambda: _zoo_flagship(card)),
+                       ("mobilenet_nnconv5", lambda: _zoo_mobilenet_nnconv5(card)),
+                       ("sweep", _zoo_sweep)):
+        t0 = time.perf_counter()
+        out[name] = part()
+        seconds[name] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    print(f"zoo: all passed in {sum(seconds.values()):.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()) + ")")
     return out
 
 
@@ -697,6 +1120,54 @@ def _deterministic():
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
 
 
+def _split_keys(state: dict):
+    """A :func:`_host_state`'s keys: (trainable, running statistics,
+    momentum)."""
+    mom = [k for k in state if k.startswith("momentum.")]
+    stats = [k for k in state if k.endswith((".bn.mean", ".bn.var")) and k not in mom]
+    return [k for k in state if k not in mom and k not in stats], stats, mom
+
+
+def _step_card_vs_cpu(label: str, model, params, x, d, tc) -> dict:
+    """One f32 SGD step on the card and on the CPU from one tree and batch
+    (host tensors ``x``, ``d``), and an f64 CPU step as the momentum's
+    reference: the loss within rtol 1e-4, every parameter and running
+    statistic within 1e-4, the momentum (the gradient, ill-conditioned in
+    f32) within 4x of the CPU f32 step's own distance to the f64 step."""
+    import copy
+
+    from fastdepth_tpu_torch.train import sgd_init
+    from fastdepth_tpu_torch.train.trainer import make_train_step
+
+    states, losses, seconds = {}, {}, {}
+    for name, dev, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                             ("cpu_f64", "cpu", torch.float64)):
+        t0 = time.perf_counter()
+        st = sgd_init(copy.deepcopy(params).to(device=dev, dtype=dtype))
+        st, loss = make_train_step(model, tc)(st, x.to(dev, dtype), d.to(dev, dtype), tc.lr)
+        states[name], losses[name] = _host_state(st), float(loss)
+        seconds[name] = time.perf_counter() - t0
+    trainable, stats, mom = _split_keys(states["card"])
+    a, b, ref = states["card"], states["cpu"], states["cpu_f64"]
+    row = {"loss_card": losses["card"], "loss_cpu": losses["cpu"],
+           "loss_rel_diff": abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"]),
+           "params_max_abs_diff": _max_diff(a, b, trainable),
+           "stats_max_abs_diff": _max_diff(a, b, stats),
+           "params_max_abs": max(float(b[k].abs().max()) for k in trainable),
+           "stats_max_abs": max(float(b[k].abs().max()) for k in stats),
+           "momentum_card_vs_f64": _max_diff(a, ref, mom),
+           "momentum_cpu_vs_f64": _max_diff(b, ref, mom),
+           "momentum_card_vs_cpu": _max_diff(a, b, mom),
+           "momentum_max_abs": max(float(ref[k].abs().max()) for k in mom),
+           "seconds": seconds}
+    print(f"{label} card vs CPU, one f32 step b{x.shape[0]} lr {tc.lr}: {json.dumps(row)}")
+    if not (row["loss_rel_diff"] <= 1e-4 and row["params_max_abs_diff"] <= 1e-4
+            and row["stats_max_abs_diff"] <= 1e-4
+            and row["momentum_card_vs_f64"] <= 4 * row["momentum_cpu_vs_f64"]):
+        fail(f"{label}: the train step on the card disagrees with the CPU: {row}")
+    return row
+
+
 def train_phase(model, params) -> dict:
     """The training path on the flagship at 224x224, fine-tuning the
     committed weights (unfolded: BatchNorm trains):
@@ -738,35 +1209,7 @@ def train_phase(model, params) -> dict:
                                               drop_last=True, pad_last=False, num_workers=4)))
         x, d = torch.from_numpy(rgb), torch.from_numpy(depth)
 
-        # the card against the CPU, one f32 step; an f64 CPU step as the
-        # reference for the momentum
-        states, losses = {}, {}
-        for name, dev, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
-                                 ("cpu_f64", "cpu", torch.float64)):
-            st = sgd_init(copy.deepcopy(params).to(device=dev, dtype=dtype))
-            st, loss = make_train_step(model, tc)(st, x.to(dev, dtype), d.to(dev, dtype),
-                                                  TRAIN_LR)
-            states[name], losses[name] = _host_state(st), float(loss)
-        keys = list(states["card"])
-        mom = [k for k in keys if k.startswith("momentum.")]
-        stats = [k for k in keys if k.endswith((".bn.mean", ".bn.var"))
-                 and not k.startswith("momentum.")]
-        trainable = [k for k in keys if k not in mom and k not in stats]
-        a, b, ref = states["card"], states["cpu"], states["cpu_f64"]
-        row = {"loss_card": losses["card"], "loss_cpu": losses["cpu"],
-               "loss_rel_diff": abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"]),
-               "params_max_abs_diff": _max_diff(a, b, trainable),
-               "stats_max_abs_diff": _max_diff(a, b, stats),
-               "momentum_card_vs_f64": _max_diff(a, ref, mom),
-               "momentum_cpu_vs_f64": _max_diff(b, ref, mom),
-               "momentum_card_vs_cpu": _max_diff(a, b, mom),
-               "momentum_max_abs": max(float(ref[k].abs().max()) for k in mom)}
-        print(f"train card vs CPU, one f32 step b{BATCH} lr {TRAIN_LR}: {json.dumps(row)}")
-        if not (row["loss_rel_diff"] <= 1e-4 and row["params_max_abs_diff"] <= 1e-4
-                and row["stats_max_abs_diff"] <= 1e-4
-                and row["momentum_card_vs_f64"] <= 4 * row["momentum_cpu_vs_f64"]):
-            fail(f"train step on the card disagrees with the CPU: {row}")
-        out["card_vs_cpu"] = row
+        out["card_vs_cpu"] = _step_card_vs_cpu("train", model, params, x, d, tc)
 
         # the loss falls on a fixed batch
         xc, dc = x.cuda(), d.cuda()
@@ -800,7 +1243,8 @@ def train_phase(model, params) -> dict:
                 st = sgd_init(copy.deepcopy(params).cuda())
                 st, loss = make_train_step(model, tc, **kw)(st, xc, dc, TRAIN_LR)
                 runs[name] = (float(loss), _host_state(st))
-            remat_err = _max_diff(runs["plain"][1], runs["remat"][1], keys)
+            remat_err = _max_diff(runs["plain"][1], runs["remat"][1], list(runs["plain"][1]))
+            stats = _split_keys(runs["plain"][1])[1]
             manual = copy.deepcopy(params).cuda()
             for i in range(2):
                 rec = {}
@@ -885,18 +1329,18 @@ def _kernel_time(fn):
     return sum(by_name.values()), sorted(by_name.items(), key=lambda kv: -kv[1])
 
 
-def train_times(model, params) -> dict:
+def train_times(model, params, batches=(BATCH, TRAIN_BIG_BATCH), card=None) -> dict:
     """Median step time (forward, backward, SGD update, statistics merge)
     over 10 steps after 3, CUDA events around each step on one seeded
-    device batch, and frames/s, at b8 and b128 in f32 and bf16; the peak
-    device memory of each run; the kernel time of one more step
+    device batch, and frames/s, at each of ``batches`` in f32 and bf16;
+    the peak device memory of each run; the kernel time of one more step
     (``torch.profiler``), against which the median reads as host time."""
     from fastdepth_tpu_torch.config import TrainConfig
     from fastdepth_tpu_torch.train import Trainer
 
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(4)
-    for batch in (BATCH, TRAIN_BIG_BATCH):
+    for batch in batches:
         x = torch.rand(batch, *OUTPUT_HW, 3, generator=gen, device="cuda")
         d = torch.rand(batch, *OUTPUT_HW, 1, generator=gen, device="cuda") * 9.5 + 0.5
         for name, dtype in (("f32", None), ("bf16", torch.bfloat16)):
@@ -925,7 +1369,9 @@ def train_times(model, params) -> dict:
             busy_us, top = _kernel_time(lambda: tr._step(tr.state, x, d, TRAIN_LR))
             row["kernel_ms"] = None if busy_us is None else busy_us / 1e3
             row["top_kernels_ms"] = [(k, us / 1e3) for k, us in top[:6]]
-            print(f"train step b{batch} {name}: median {ms:.3f} ms ({row['frames_per_s']:.1f} "
+            print(f"train step {model.config.encoder}-{model.config.decoder} b{batch} {name}"
+                  + (f" on {card['nvidia_smi']}" if card else "")
+                  + f": median {ms:.3f} ms ({row['frames_per_s']:.1f} "
                   f"frames/s; min {row['step_ms_min']:.3f}, max {row['step_ms_max']:.3f}), peak "
                   f"memory {row['peak_mem_gib']:.2f} GiB; kernel time of one step "
                   + ("not measured (no device events traced)" if busy_us is None else
@@ -1087,6 +1533,7 @@ def main() -> None:
     fwd = forwards_phase(model, params)
     dep = deploy_phase(model, params)
     srv = serve_phase(model, params, card)
+    zoo_phase(card)
     train_phase(model, params)
     kernels.update(probe_phase())
     tools_phase()

@@ -15,7 +15,7 @@ MobileNet checkpoint is a state_dict with DataParallel 'module.' prefixes
   pruned checkpoint (whose architecture exists only inside the pickle,
   SURVEY.md §2) round-trips into an explicit ModelConfig.
 
-torch is imported lazily: it is a converter-time-only dependency.
+The ResNet block tables are the models' own (``models/resnet.py``).
 """
 
 from __future__ import annotations
@@ -27,12 +27,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from fastdepth_tpu_torch.config import ModelConfig
-
-# torchvision ResNet block counts and bottleneck depths (the JAX
-# package's models/resnet.py holds the same two constants)
-RESNET_LAYERS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
-                 101: (3, 4, 23, 3), 152: (3, 8, 36, 3)}
-BOTTLENECK = {50, 101, 152}
+from fastdepth_tpu_torch.models.resnet import BOTTLENECK, RESNET_LAYERS
 
 _TO_NHWC = (2, 3, 1, 0)  # OIHW->HWIO; (C,1,kh,kw)->(kh,kw,1,C); convT->HWOI
 

@@ -2,13 +2,16 @@
 
 The tree (``checkpoint.io``, the JAX package's npz format; nested dicts of numpy arrays,
 NHWC/HWIO layout) is the interchange format.  A state-dict key is the
-npz key with ``/`` replaced by ``.``; conv weights turn HWIO
-``(kh, kw, cin, cout)`` -> OIHW ``(cout, cin, kh, kw)``, which maps a
-depthwise ``(k, k, 1, C)`` to ``(C, 1, k, k)``.  Every other leaf (folded
-bias ``b``, BatchNorm ``scale/bias/mean/var``) is copied as is, so both
-``{'w','bn'}`` and ``{'w','b'}`` trees convert, and the round trip is
-bit-exact.  Covers the forward-conv model families the port builds (no
-transposed-conv decoders yet).
+npz key with ``/`` replaced by ``.``; every 4-D weight goes through one
+permutation, ``transpose(3, 2, 0, 1)``: HWIO ``(kh, kw, cin, cout)`` ->
+OIHW ``(cout, cin, kh, kw)``, a depthwise ``(k, k, 1, C)`` -> ``(C, 1, k,
+k)``, and a transposed conv's HWOI ``(kh, kw, cout / g, cin)`` -> torch's
+ConvTranspose2d layout ``(cin, cout / g, kh, kw)``, dense or grouped.
+Every other leaf (biases ``b``, BatchNorm ``scale/bias/mean/var``, the
+classifier's 2-D ``fc.w (features, classes)``, which the port multiplies
+as ``x @ w`` as JAX does) is copied as is, so both ``{'w','bn'}`` and
+``{'w','b'}`` trees of every model family convert, and the round trip is
+bit-exact.
 """
 
 from __future__ import annotations

@@ -9,6 +9,11 @@ Usage:
         [--pretrained-encoder imagenet.npz|model_best.pth.tar]
         [--arch mobilenet-nnconv5dw-skipadd] [--bf16] [--device cuda|cpu]
 
+``--arch`` takes any name of the model registry (``models.from_name``):
+the FastDepth skip models, plain MobileNet with any registry decoder
+(``mobilenet-nnconv5``) and the ResNets (``resnet50-upproj``,
+``resnet18-nnconv5-skipconcat``).
+
 Writes ``train.csv``, ``test.csv``, ``model_best.npz`` and the resumable
 ``checkpoint.npz`` into --output-dir, in the JAX package's formats: a
 checkpoint of either CLI resumes in the other.  The multi-process and

@@ -33,6 +33,16 @@ def strict_f32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def normalize(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """uint8 [0, 255] frames -> ``dtype`` in [0, 1], bit for bit with the
+    host path's ``astype(float32) / 255``: cast, then divide in ``dtype``.
+    The divisor is a tensor on ``x``'s device: CUDA divides by a Python
+    number as a multiply by its reciprocal, which is 1 ulp off on 126 of
+    the 256 values in f32.  The evaluator's and the server's uint8 inputs
+    both come through here."""
+    return x.to(dtype) / torch.full((), 255.0, dtype=dtype, device=x.device)
+
+
 def _pick_apply(model: Model, params, impl: str, batch_size: int = 2):
     """The forward ``fn(params, x)`` an impl name selects.
 
@@ -43,9 +53,11 @@ def _pick_apply(model: Model, params, impl: str, batch_size: int = 2):
     folded, at any batch size and on any device (on the CPU, the kernels'
     plain versions run, so CPU runs take the same dispatch).  Otherwise it
     follows the JAX package's rule: 'opt' when folded, batch > 1 and
-    supported, else straight.  That rule rests on TPU measurements; an
-    H100 benchmark will revisit both choices.  Folded-ness is read off the
-    params tree."""
+    supported (the MobileNet nnconv decoders, skip or plain), else
+    straight: the rest of the zoo (the other registry decoders, every
+    ResNet) runs straight, never 'fused'.  That rule rests on TPU
+    measurements; an H100 benchmark will revisit both choices.
+    Folded-ness is read off the params tree."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     cfg = model.config

@@ -21,7 +21,7 @@ import torch
 
 from fastdepth_tpu_torch import viz
 from fastdepth_tpu_torch import metrics as M
-from fastdepth_tpu_torch.engine.aot import _prepare
+from fastdepth_tpu_torch.engine.aot import _prepare, normalize
 from fastdepth_tpu_torch.models.registry import Model
 
 CSV_FIELDNAMES = [
@@ -64,10 +64,7 @@ class Evaluator:
     def __call__(self, rgb: torch.Tensor, depth: torch.Tensor):
         """(pred (N, H, W, 1) f32, metrics (len(METRIC_FIELDS), N)), both on
         the device and not waited for."""
-        if rgb.dtype == torch.uint8:
-            rgb = rgb.to(self.dtype) / 255.0  # on-device /255 (same math as the host path)
-        else:
-            rgb = rgb.to(self.dtype)
+        rgb = normalize(rgb, self.dtype) if rgb.dtype == torch.uint8 else rgb.to(self.dtype)
         pred = self._apply(self.params, rgb).float()
         metrics = M.evaluate_batch(pred, depth)
         return pred, torch.stack([metrics[f] for f in M.METRIC_FIELDS])

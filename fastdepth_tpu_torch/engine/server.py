@@ -28,7 +28,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from fastdepth_tpu_torch.engine.aot import _prepare
+from fastdepth_tpu_torch.engine.aot import _prepare, normalize
 
 MESH_NOT_PORTED = ("serving over a device mesh (mesh=, --mesh-devices, --mesh-spatial) is "
                    "not ported yet: ROADMAP A12")
@@ -57,15 +57,6 @@ def _resolve_future(fut: Future, value=None, exc=None) -> None:
         fut.set_exception(exc)
     else:
         fut.set_result(value)
-
-
-def normalize(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """uint8 [0, 255] frames -> ``dtype`` in [0, 1] as the JAX server
-    computes them: cast, then divide in ``dtype``.  The divisor is a
-    tensor on ``x``'s device: CUDA divides by a Python number as a
-    multiply by its reciprocal, which is 1 ulp off on some of the 256
-    values."""
-    return x.to(dtype) / torch.full((), 255.0, dtype=dtype, device=x.device)
 
 
 class _Slot:

@@ -1,6 +1,7 @@
 """FastDepth: MobileNet encoder + NNConv decoder with skip connections —
 counterpart of ``fastdepth_tpu/models/fastdepth.py`` (reference
-MobileNetSkipAdd / MobileNetSkipConcat, models.py:654-814).
+MobileNetSkipAdd / MobileNetSkipConcat, models.py:654-814), and the plain
+MobileNet + registry decoder (reference MobileNet, models.py:420-460).
 
 Encoder taps x1 = conv1, x2 = conv3, x3 = conv5; each decoder stage i in
 1..5 runs dw5x5+pw (or a dense kxk conv), then nearest x2, then adds (or
@@ -16,6 +17,7 @@ import torch
 from torch import nn
 
 from fastdepth_tpu_torch.config import ModelConfig
+from fastdepth_tpu_torch.models import decoders as D
 from fastdepth_tpu_torch.models import layers as L
 from fastdepth_tpu_torch.models import mobilenet as MN
 from fastdepth_tpu_torch.ops import blocks as B
@@ -83,3 +85,24 @@ def apply_fastdepth(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig, *,
             y = y + t if cfg.skip == "add" else torch.cat([y, t], dim=1)
     return B.to_nhwc(L.apply_conv_bn(y, dec["decode_conv6"]["pw"], train=train, stats=stats,
                                      path=("decoder", "decode_conv6", "pw")))
+
+
+def make_mobilenet_decoder(cfg: ModelConfig, *, folded: bool = False) -> nn.ModuleDict:
+    """Plain MobileNet + registry decoder, no skips: the tree of the JAX
+    ``init_mobilenet_decoder``, zero-filled."""
+    return nn.ModuleDict({
+        "encoder": MN.make_encoder(cfg.encoder_channels, cfg.in_channels, folded=folded),
+        "decoder": D.make_decoder(cfg.decoder, in_channels=cfg.encoder_channels[-1],
+                                  channels=cfg.decoder_channels, folded=folded),
+    })
+
+
+def apply_mobilenet_decoder(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig, *,
+                            train: bool = False,
+                            stats: Optional[L.StatsDict] = None) -> torch.Tensor:
+    """NHWC forward of the plain MobileNet + registry decoder; statistics
+    under ``('encoder', ...)`` and ``('decoder', 'stage1', ...)``."""
+    feats, _ = MN.apply_encoder(params["encoder"], B.from_nhwc(x), relu6=cfg.encoder_relu6,
+                                train=train, stats=L.sub_stats(stats, "encoder"))
+    return B.to_nhwc(D.apply_decoder(params["decoder"], cfg.decoder, feats, train=train,
+                                     stats=L.sub_stats(stats, "decoder")))

@@ -130,7 +130,8 @@ def apply_fastdepth_opt(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig
     """Plain-PyTorch forward with the head-commute rewrite: the 1x1 head
     (per-pixel affine + ReLU) commutes with nearest duplication, so it
     runs BEFORE the final x2 upsample, on a quarter of the pixels.  Valid
-    for the NNConv family (nearest upsample) with folded params."""
+    for the NNConv family (nearest upsample), skip models and plain
+    MobileNet + nnconv decoders alike, with folded params."""
     if not supports_opt(cfg):
         raise ValueError(
             "opt path supports MobileNet encoders with nnconv decoders; "
@@ -139,9 +140,12 @@ def apply_fastdepth_opt(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig
                                      relu6=cfg.encoder_relu6,
                                      taps=SKIP_TAPS if cfg.skip else ())
     dec = params["decoder"]
+    # the skip models name the stages decode_conv1..6 (reference
+    # models.py:683-698), the plain ones stage1..5 + final (models/decoders.py)
+    skip_naming = "decode_conv1" in dec
     y = feats
     for i in range(1, 6):
-        p = dec[f"decode_conv{i}"]
+        p = dec[f"decode_conv{i}" if skip_naming else f"stage{i}"]
         if cfg.decoder_depthwise:
             y = B.relu(B.depthwise_conv2d(y, p["dw"].w, bias=p["dw"].b))
             y = B.relu(B.conv2d(y, p["pw"].w, bias=p["pw"].b))
@@ -153,6 +157,6 @@ def apply_fastdepth_opt(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig
         if cfg.skip and i in SKIP_AFTER:
             t = tapped[SKIP_AFTER[i]]
             y = y + t if cfg.skip == "add" else torch.cat([y, t], dim=1)
-    head = dec["decode_conv6"]["pw"]
+    head = dec["decode_conv6" if skip_naming else "final"]["pw"]
     y = B.relu(B.conv2d(y, head.w, bias=head.b))
     return B.to_nhwc(B.upsample_nearest2x(y))

@@ -52,27 +52,44 @@ class BatchNorm(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """One conv leaf: OIHW ``w`` and either ``bn`` (unfolded) or ``b``
-    (folded)."""
+    """One conv leaf: ``w`` and either ``bn`` (unfolded) or ``b`` (folded,
+    or a conv with a bias and no BatchNorm, such as ResNet's ``conv2``).
+    ``w`` is OIHW, or with ``transpose`` a transposed conv's ``(Cin, Cout
+    / groups, kh, kw)``: the leaf carries that so that folding scales the
+    right axis (the JAX package's ``transpose_keys``)."""
 
     def __init__(self, w: torch.Tensor, *, b: Optional[torch.Tensor] = None,
-                 bn: Optional[BatchNorm] = None):
+                 bn: Optional[BatchNorm] = None, transpose: bool = False):
         super().__init__()
         if (b is None) == (bn is None):
             raise ValueError("a conv leaf holds exactly one of b (folded) or bn")
         self.w = _frozen(w)
         self.b = None if b is None else _frozen(b)
         self.bn = bn
+        self.transpose = transpose
 
 
-def conv_leaf(w_shape: Sequence[int], *, folded: bool) -> ConvBN:
-    """A zero-filled leaf of the given OIHW shape, to be loaded from a
-    state dict."""
-    cout = w_shape[0]
+class Linear(nn.Module):
+    """A dense leaf ``{'w': (features, classes), 'b': (classes,)}``, the
+    ImageNet classifier's ``fc``, computed ``x @ w + b`` as in JAX."""
+
+    def __init__(self, features: int, classes: int):
+        super().__init__()
+        self.w = _frozen(torch.zeros(features, classes))
+        self.b = _frozen(torch.zeros(classes))
+
+
+def conv_leaf(w_shape: Sequence[int], *, folded: bool, transpose: bool = False,
+              groups: int = 1) -> ConvBN:
+    """A zero-filled leaf of the given weight shape, to be loaded from a
+    state dict: OIHW, or with ``transpose`` ``(Cin, Cout / groups, kh,
+    kw)``.  ``folded`` gives ``{'w','b'}`` (also the form of a conv with a
+    bias and no BatchNorm), else ``{'w','bn'}``."""
+    cout = w_shape[1] * groups if transpose else w_shape[0]
     w = torch.zeros(tuple(w_shape))
     if folded:
-        return ConvBN(w, b=torch.zeros(cout))
-    return ConvBN(w, bn=BatchNorm(cout))
+        return ConvBN(w, b=torch.zeros(cout), transpose=transpose)
+    return ConvBN(w, bn=BatchNorm(cout), transpose=transpose)
 
 
 def sub_stats(stats: Optional[StatsDict], prefix: str) -> Optional[StatsDict]:
@@ -90,13 +107,25 @@ def sub_stats(stats: Optional[StatsDict], prefix: str) -> Optional[StatsDict]:
 
 def apply_conv_bn(x: torch.Tensor, p: ConvBN, *, stride: int = 1,
                   act: Optional[Callable] = B.relu, depthwise: bool = False,
+                  padding: Optional[int] = None, output_padding: int = 0,
                   train: bool = False, stats: Optional[StatsDict] = None,
                   path: Tuple[str, ...] = ()) -> torch.Tensor:
-    """conv (+ folded bias) -> [BN] -> [act].  With ``train`` the BatchNorm
-    normalises by the batch's moments and its new running statistics go
-    to ``stats[path + ('bn',)]``."""
-    conv = B.depthwise_conv2d if depthwise else B.conv2d
-    y = conv(x, p.w, stride=stride, bias=p.b)
+    """conv (+ bias) -> [BN] -> [act].  A transposed leaf (``p.transpose``)
+    runs a transposed conv (``padding`` None means 0 there,
+    ``output_padding`` as ``ConvTranspose2d``'s), grouped as its weight
+    says: ``(Cin, Cout / groups, k, k)`` against the leaf's Cout (its
+    BatchNorm's or bias's width), so a depthwise ``(C, 1, k, k)`` leaf
+    runs C groups.  With ``train`` the BatchNorm normalises by the
+    batch's moments and its new running statistics go to
+    ``stats[path + ('bn',)]``."""
+    if p.transpose:
+        cout = (p.b if p.bn is None else p.bn.mean).shape[0]
+        y = B.conv2d_transpose(x, p.w, stride=stride, padding=padding or 0,
+                               output_padding=output_padding, groups=cout // p.w.shape[1],
+                               bias=p.b)
+    else:
+        conv = B.depthwise_conv2d if depthwise else B.conv2d
+        y = conv(x, p.w, stride=stride, padding=padding, bias=p.b)
     if p.bn is not None:
         if train:
             y, new_bn = B.batch_norm_train(y, p.bn)
@@ -124,8 +153,8 @@ def fold_params(p: ConvBN) -> ConvBN:
     """Fold ``bn`` into ``(w, b)``; an already-folded leaf passes through."""
     if p.bn is None:
         return p
-    w, b = B.fold_bn(p.w, p.bn)
-    return ConvBN(w, b=b)
+    w, b = B.fold_bn(p.w, p.bn, transpose=p.transpose)
+    return ConvBN(w, b=b, transpose=p.transpose)
 
 
 @torch.no_grad()

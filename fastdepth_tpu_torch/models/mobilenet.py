@@ -1,6 +1,8 @@
-"""MobileNetV1 encoder, channel-list parameterized — counterpart of
-``fastdepth_tpu/models/mobilenet.py`` (reference imagenet/mobilenet.py:
-stem conv_bn(3, c0, s2), then 13 depthwise-separable blocks with ReLU6).
+"""MobileNetV1 encoder, channel-list parameterized, and its ImageNet
+classifier head — counterpart of ``fastdepth_tpu/models/mobilenet.py``
+(reference imagenet/mobilenet.py: stem conv_bn(3, c0, s2), then 13
+depthwise-separable blocks with ReLU6; AvgPool2d(7) + Linear(1024,
+1000)).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from torch import nn
 from fastdepth_tpu_torch.config import MOBILENET_STRIDES, MOBILENET_V1_CHANNELS
 from fastdepth_tpu_torch.models import layers as L
 from fastdepth_tpu_torch.ops import blocks as B
+from fastdepth_tpu_torch.ops import init as I
 
 
 def make_encoder(channels: Sequence[int] = MOBILENET_V1_CHANNELS,
@@ -55,3 +58,39 @@ def apply_encoder(params: nn.ModuleDict, x: torch.Tensor, *, relu6: bool = True,
         if i in taps:
             tapped[i] = x
     return x, tapped
+
+
+def make_classifier(features: int = 1024, classes: int = 1000) -> nn.ModuleDict:
+    """The ImageNet head's tree ``{'fc': {'w': (features, classes), 'b':
+    (classes,)}}``, zero-filled."""
+    return nn.ModuleDict({"fc": L.Linear(features, classes)})
+
+
+def init_classifier(generator: torch.Generator, features: int = 1024,
+                    classes: int = 1000) -> nn.ModuleDict:
+    """The head at torch Linear's default init, U(+-1/sqrt(features)) for
+    ``w`` and ``b`` (``ops/init.uniform_linear``), drawn from
+    ``generator``."""
+    head = make_classifier(features, classes)
+    head["fc"].w.data, head["fc"].b.data = I.uniform_linear(features, classes, generator)
+    return head
+
+
+def apply_classifier(params: nn.ModuleDict, feats: torch.Tensor) -> torch.Tensor:
+    """Encoder features (channels_last NCHW) -> ``(N, classes)`` logits:
+    a global average pool (7x7 at 224^2) and ``x @ w + b``."""
+    x = B.avg_pool(feats, feats.shape[-1]).reshape(feats.shape[0], -1)
+    return x @ params["fc"].w + params["fc"].b
+
+
+def classifier_topk(logits: torch.Tensor, labels: torch.Tensor,
+                    ks: Tuple[int, ...] = (1, 5)) -> Dict[int, torch.Tensor]:
+    """Top-k accuracies (fractions in [0, 1]) of an ``(N, classes)``
+    logits batch, the torch ImageNet harness's ``accuracy(output, target,
+    topk=(1, 5))`` under which the reference reports ``best_prec1``
+    (imagenet/mobilenet.py:65-76).  Ties go to the lower class index, as
+    JAX's ``lax.top_k`` gives them: a stable descending sort (``torch.topk``
+    promises no order among ties).  Each accuracy is a device scalar."""
+    idx = torch.sort(logits, dim=1, descending=True, stable=True).indices[:, :max(ks)]
+    hits = idx == labels[:, None]
+    return {k: hits[:, :k].any(dim=1).float().mean() for k in ks}

@@ -1,15 +1,17 @@
 """Model registry: config -> Model, and name-string parsing — counterpart
 of ``fastdepth_tpu/models/registry.py``.
 
-The port covers the MobileNet skip family (MobileNetSkipAdd/Concat with
-an NNConv decoder, pruned or not).  Plain MobileNet + registry decoder
-models and the ResNet family come with ROADMAP item A11.
+Every family the JAX registry builds: the MobileNet skip family
+(MobileNetSkipAdd/Concat, pruned or not; ``models/fastdepth.py``), plain
+MobileNet + any registry decoder (``models/decoders.py``), and ResNet-18
+to -152, plain with a registry decoder or with add/concat skips
+(``models/resnet.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -24,6 +26,7 @@ from fastdepth_tpu_torch.config import (
 from fastdepth_tpu_torch.models import fastdepth as FD
 from fastdepth_tpu_torch.models import fused as F
 from fastdepth_tpu_torch.models import layers as L
+from fastdepth_tpu_torch.models import resnet as RN
 from fastdepth_tpu_torch.ops import init as I
 
 
@@ -32,6 +35,18 @@ def _channels_last(params: nn.ModuleDict) -> nn.ModuleDict:
         if isinstance(m, L.ConvBN):
             m.w.data = m.w.data.contiguous(memory_format=torch.channels_last)
     return params
+
+
+def _family(cfg: ModelConfig) -> Tuple[Callable, Callable]:
+    """(make(cfg, folded=...), apply(params, x, cfg, train=..., stats=...))
+    of the config's model family."""
+    if cfg.encoder == "mobilenet":
+        if cfg.skip is None:
+            return FD.make_mobilenet_decoder, FD.apply_mobilenet_decoder
+        return FD.make_fastdepth, FD.apply_fastdepth
+    if cfg.encoder.startswith("resnet"):
+        return RN.make_resnet_depth, RN.apply_resnet_depth
+    raise ValueError(f"unknown encoder family: {cfg.encoder!r}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +63,7 @@ class Model:
         is, conv weights channels_last, on ``device``.  Every key must
         match (strict load)."""
         folded = not any(".bn." in k for k in state_dict)
-        params = FD.make_fastdepth(self.config, folded=folded)
+        params = _family(self.config)[0](self.config, folded=folded)
         params.load_state_dict(state_dict, strict=True)
         return _channels_last(params).to(device)
 
@@ -58,15 +73,16 @@ class Model:
         He-normal conv weights drawn from ``generator``, BatchNorm at its
         defaults (``ops/init.py``), conv weights channels_last, on
         ``device``."""
-        params = I.init_tree(FD.make_fastdepth(self.config, folded=False), generator)
+        params = I.init_tree(_family(self.config)[0](self.config, folded=False), generator)
         return _channels_last(params).to(device)
 
     def apply(self, params: nn.ModuleDict, x: torch.Tensor, *, train: bool = False,
               stats: Optional[L.StatsDict] = None) -> torch.Tensor:
-        """The straight NHWC forward (``apply_fastdepth``); ``train`` and
-        ``stats`` as there (train-mode BatchNorm, running statistics
-        recorded into ``stats``)."""
-        return FD.apply_fastdepth(params, x, self.config, train=train, stats=stats)
+        """The straight NHWC forward of the config's family; ``train`` and
+        ``stats`` as in ``layers.apply_conv_bn`` (train-mode BatchNorm,
+        running statistics recorded into ``stats`` under the JAX
+        package's paths)."""
+        return _family(self.config)[1](params, x, self.config, train=train, stats=stats)
 
     def fold(self, params: nn.ModuleDict) -> nn.ModuleDict:
         """A copy with every BatchNorm folded and, where K1 covers the
@@ -81,15 +97,7 @@ class Model:
 
 def build(cfg: ModelConfig) -> Model:
     cfg.validate()
-    if cfg.encoder.startswith("resnet"):
-        raise NotImplementedError(
-            f"{cfg.encoder!r} models are not ported yet (ROADMAP A11: ResNet encoders)")
-    if cfg.encoder != "mobilenet":
-        raise ValueError(f"unknown encoder family: {cfg.encoder!r}")
-    if cfg.skip is None:
-        raise NotImplementedError(
-            f"plain MobileNet + {cfg.decoder!r} decoder models are not ported yet "
-            "(ROADMAP A11: registry decoders)")
+    _family(cfg)
     return Model(cfg)
 
 

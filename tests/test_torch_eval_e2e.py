@@ -123,3 +123,32 @@ def test_cli_device_cuda_without_a_card_exits_nonzero():
                  os.path.join(REPO, "docs", "rehearsal_model_r5.npz"), "--device", "cuda"])
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
+
+
+def test_evaluator_uint8_path_normalizes_bit_for_bit_with_the_host_path():
+    """``--device-normalize``: the Evaluator's uint8 path hands the forward
+    the f32 frames the host path (``data/native.gather_rgb_f32``, /255 on
+    the host) makes, bit for bit, on all 256 values: it divides through
+    ``engine.aot.normalize`` (a tensor divisor), never by a Python number
+    (a reciprocal multiply on the card, 1 ulp off on 126 of them)."""
+    import fastdepth_tpu_torch as fd
+    from fastdepth_tpu_torch.data import native
+
+    cfg = fd.ModelConfig(encoder_channels=(4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24),
+                         decoder_channels=(18, 14, 10, 6, 4))
+    model = fd.build(cfg)
+    ev = fd.Evaluator(model, model.init(torch.Generator().manual_seed(0)), device="cpu")
+    seen = []
+
+    def record(params, x):
+        seen.append(x.clone())
+        return torch.zeros((*x.shape[:3], 1))
+
+    ev._apply = record
+    raw = np.stack([np.arange(256, dtype=np.uint8).reshape(16, 16),
+                    np.arange(255, -1, -1, dtype=np.uint8).reshape(16, 16),
+                    np.roll(np.arange(256, dtype=np.uint8), 7).reshape(16, 16)], axis=-1)
+    host = native.gather_rgb_f32(raw, np.arange(16), np.arange(16))
+    ev(ev.put(raw[None]), ev.put(np.ones((1, 16, 16, 1), np.float32)))
+    assert seen[0].dtype == torch.float32
+    np.testing.assert_array_equal(seen[0].numpy()[0], host)

@@ -220,6 +220,41 @@ print("ok")
     assert out.strip().endswith("ok")
 
 
+def test_convert_cli_runs_on_the_cpu_with_the_jax_package_blocked(tmp_path):
+    """``cli.convert --help`` exits 0, and one conversion of a reference-style
+    pickle (plain MobileNet + NNConv, the released mobilenet-nnconv5dw
+    format, from tests/torch_oracle.py) writes an npz the port builds and
+    runs, all with both packages blocked."""
+    pth, npz = str(tmp_path / "m.pth.tar"), str(tmp_path / "m.npz")
+    out = _run(f"""
+import contextlib, io, sys
+import torch
+sys.path.insert(0, {os.path.join(REPO, "tests")!r})
+from torch_oracle import TorchMobileNetNNConv
+from fastdepth_tpu_torch.cli import convert
+help_text = io.StringIO()
+with contextlib.redirect_stdout(help_text):
+    try:
+        convert.main(["--help"])
+    except SystemExit as e:
+        assert e.code == 0, e.code
+assert "output" in help_text.getvalue()
+enc = (4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24)
+torch.save({{"epoch": 2, "best_result": None,
+             "model": TorchMobileNetNNConv(enc, (18, 14, 10, 6, 4)).eval()}}, {pth!r})
+cfg = convert.main([{pth!r}, {npz!r}])
+from fastdepth_tpu_torch import build, load_checkpoint, params_from_jax
+tree, cfg2, meta = load_checkpoint({npz!r})
+assert cfg2 == cfg and meta["epoch"] == 2
+model = build(cfg)
+with torch.no_grad():
+    y = model.apply(model.load(params_from_jax(tree)), torch.rand(1, 32, 32, 3))
+print("converted", cfg.decoder, cfg.skip, tuple(y.shape))
+""")
+    assert "=> config:" in out
+    assert out.strip().endswith("converted nnconv5dw None (1, 32, 32, 1)")
+
+
 def test_serve_cli_runs_on_the_cpu_with_the_jax_package_blocked(tiny_npz, tmp_path):
     """engine.server imports, ``cli.serve --help`` exits 0, and a daemon
     launched by ``cli.serve.main`` on the CPU answers the CLI's --ping and

@@ -195,14 +195,20 @@ def test_fullwidth_pruned_rehearsal_weights_match_jax(rng):
 # --- registry and dispatch ----------------------------------------------
 
 def test_registry_names_and_unported_families():
+    """The flagship names, and every family the JAX registry builds (the
+    port once refused all but the MobileNet skip family): each name
+    builds and parses to JAX's config (their trees are held against the
+    JAX init's in tests/test_torch_{decoders,resnet,zoo_ops}.py)."""
+    from fastdepth_tpu.models import from_name as jax_from_name
+
     assert from_name("mobilenet-nnconv5dw-skipadd-pruned").config == to_port(FASTDEPTH_PRUNED)
     assert fastdepth_pruned().config == to_port(FASTDEPTH_PRUNED)
     assert fastdepth_unpruned().config == to_port(FASTDEPTH_UNPRUNED)
     assert from_name("mobilenet-nnconv5dw-skipconcat").config.skip == "concat"
-    with pytest.raises(NotImplementedError, match="A11"):
-        from_name("resnet18-nnconv5-skipadd")
-    with pytest.raises(NotImplementedError, match="A11"):
-        from_name("mobilenet-nnconv5dw")
+    for name in ("resnet50-upproj", "mobilenet-nnconv5", "resnet18-nnconv5-skipconcat",
+                 "resnet18-nnconv5-skipadd", "mobilenet-nnconv5dw", "mobilenet-deconv3",
+                 "mobilenet-shuffle9dw", "resnet152-blconv7dw"):
+        assert from_name(name).config == to_port(jax_from_name(name).config), name
 
 
 def test_pick_apply_dispatch(tiny, monkeypatch):
