@@ -67,7 +67,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    round trip, remat and accumulation, cli.train's epoch loop in f32 and
    bf16 with K1's and K4's launches in its validation, and the step time
    at b8 and b128 in f32 and bf16 with the peak memory;
-10. probes: every tag of the probe catalogue (engine/probes.py, the
+10. input: the input pipeline's on-card half on the committed weights
+   over seeded raw frames: device augmentation (data/device_aug.py) bit
+   for bit against the host's train items and its own CPU run, the
+   device-augment train step bit for bit against the host-item step,
+   cli.train's epoch loop with --device-augment, device preprocessing
+   (Evaluator(val_pipeline=...)) against the host path with K1's and K4's
+   launches, metrics.evaluate, the pinned staging ring's wait; and the
+   times: cli.benchmark's train_run (b8, b128; f32, bf16; host against
+   device augmentation) and eval_run (b8 f32, host against device
+   preprocessing), the b128 copy and augmentation against its bound, and
+   engine/benchmark.throughput_sweep;
+11. probes: every tag of the probe catalogue (engine/probes.py, the
    scripts' Pallas probes) runs its kernel (K5, K6, or K3) once, with
    K5's and K6's launches counted on that run; then the launch floor
    (the least a call costs in the same timer), each kernel against its
@@ -76,11 +87,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    to it (with the CUDA kernels K6's taps and up_only yardsticks run
    as); K5's copy sweep (dma_copy) and K6's scale rows (compute_sweep),
    each checked against its plain version;
-11. tools: engine/calibrate (reduced call count) measures the card's
+12. tools: engine/calibrate (reduced call count) measures the card's
    ceilings, and cli.profile --mode prefix --batch 128 profiles the
    pruned flagship on them; the summed roofline bounds must not exceed
    the measured full forward;
-12. prints the kernels' JSON line, then the result line.
+13. prints the kernels' JSON line, then the result line.
 
 Nothing here, and nothing of the port it drives, imports JAX or the JAX
 package.
@@ -89,9 +100,11 @@ package.
 from __future__ import annotations
 
 import contextlib
+import cProfile
 import io
 import json
 import os
+import pstats
 import re
 import subprocess
 import sys
@@ -114,6 +127,12 @@ SERVE_CHAIN = 4  # the chain server's window
 TRAIN_ITEMS, VAL_ITEMS, TRAIN_EPOCHS = 4 * BATCH, 2 * BATCH, 2  # 4 steps an epoch
 TRAIN_LR = 1e-3
 TRAIN_BIG_BATCH = 128
+# the input phase: train items for the b8 and the b128 streaming runs
+# (12 and 3 steps a pass), val items for the eval runs (16 batches of 8),
+# loader threads
+INPUT_TRAIN_ITEMS = {BATCH: 12 * BATCH, TRAIN_BIG_BATCH: 4 * TRAIN_BIG_BATCH}
+INPUT_VAL_ITEMS = 16 * BATCH
+INPUT_WORKERS = 8
 PROBE_CALLS = 10
 CALIBRATE_CALLS = 3
 PROFILE_CALLS = 5
@@ -1079,21 +1098,39 @@ class _SeededFrames:
                 rng.uniform(0.5, 10.0, (480, 640)).astype(np.float32))
 
 
+class _PooledFrames:
+    """``n`` :class:`_SeededFrames` frames made in bulk up front; item ``k``
+    reads frame ``k % n`` (no copy).  The input phase's timed runs read
+    these, so that they time the augmentation paths and not the RNG (one
+    seeded frame costs ~3.5 ms of GIL-held numpy on one core)."""
+
+    def __init__(self, seed: int, n: int = 16):
+        frames = _SeededFrames(seed)
+        self.pool = [frames(f"{i:05d}.h5") for i in range(n)]
+
+    def __call__(self, path: str):
+        return self.pool[int(os.path.basename(path)[:-3]) % len(self.pool)]
+
+
+def _seeded_split(root: str, split: str, n: int) -> str:
+    """``n`` empty ``*.h5`` names under ``root/split/scene`` (from 00002:
+    00001 is the holdout split's); returns the split's directory."""
+    d = os.path.join(root, split, "scene")
+    os.makedirs(d)
+    for i in range(2, 2 + n):
+        open(os.path.join(d, f"{i:05d}.h5"), "w").close()
+    return os.path.join(root, split)
+
+
 def _seeded_datasets(root: str):
     """NYUDataset train and val splits over empty ``*.h5`` names whose
     items are :class:`_SeededFrames`: the port's real train item path
     (random rotation, scale, crop, flip, colour jitter) and val path."""
     from fastdepth_tpu_torch.data import NYUDataset
 
-    out = []
-    for split, n, seed in (("train", TRAIN_ITEMS, 1), ("val", VAL_ITEMS, 2)):
-        d = os.path.join(root, split, "scene")
-        os.makedirs(d)
-        for i in range(2, 2 + n):  # 00001 is the holdout split's
-            open(os.path.join(d, f"{i:05d}.h5"), "w").close()
-        out.append(NYUDataset(os.path.join(root, split), split=split, loader=_SeededFrames(seed),
-                              seed=0))
-    return out
+    return [NYUDataset(_seeded_split(root, split, n), split=split,
+                       loader=_SeededFrames(seed), seed=0)
+            for split, n, seed in (("train", TRAIN_ITEMS, 1), ("val", VAL_ITEMS, 2))]
 
 
 def _host_state(state) -> dict:
@@ -1383,6 +1420,385 @@ def train_times(model, params, batches=(BATCH, TRAIN_BIG_BATCH), card=None) -> d
     return out
 
 
+def _ring_check() -> dict:
+    """``engine/staging.PinnedRing`` on the card with one slot: the copy of a
+    first array waits behind a ~50 ms sleep on the stream, and the second
+    put into the same slot must wait for that copy before it refills the
+    buffer; both copies must arrive intact."""
+    from fastdepth_tpu_torch.engine.staging import PinnedRing
+
+    ring = PinnedRing("cuda", slots=1)
+    a = np.full((1 << 20,), 1.0, np.float32)
+    b = np.full((1 << 20,), 2.0, np.float32)
+    ring.put(a)  # allocates the slot
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(5e7))  # ~50 ms of device cycles ahead of the copy
+    t0 = time.perf_counter()
+    got_a = ring.put(a)
+    got_b = ring.put(b)  # must wait for got_a's copy
+    waited_ms = (time.perf_counter() - t0) * 1e3
+    ok = bool((got_a == 1.0).all()) and bool((got_b == 2.0).all())
+    print(f"input: pinned ring, one slot, a copy held ~50 ms behind a sleep: the refill "
+          f"waited {waited_ms:.1f} ms, both copies intact: {ok}")
+    if not ok:
+        fail("the pinned ring refilled a slot before its copy completed")
+    return {"refill_wait_ms": waited_ms}
+
+
+def _stack(ds, idxs):
+    items = [ds[i] for i in idxs]
+    return [np.stack([it[j] for it in items]) for j in range(len(items[0]))]
+
+
+def _differing(got: torch.Tensor, want: torch.Tensor) -> int:
+    return int((got != want).sum()) if got.shape == want.shape else got.numel()
+
+
+def input_phase(model, params, card: dict) -> dict:
+    """The input pipeline's on-card half, on the flagship at 224x224 with
+    the committed weights, over seeded raw 480x640 frames:
+    - train values: ``data/device_aug.apply_train_augment`` on the card
+      over b8 device-augment items equals the host's train items with the
+      same seed bit for bit (rgb and depth), and the same function's CPU
+      run on the same arrays;
+    - train step: one f32 b8 step from the raw arrays equals the step from
+      the host items bit for bit (loss, parameters, running statistics,
+      momentum), cuDNN's deterministic algorithms for both;
+    - train loop: cli.train.train_loop --device-augment, one epoch b8 f32,
+      a finite loss;
+    - eval values: ``Evaluator(val_pipeline=...)`` over raw frames against
+      the host-preprocessed path at b8 in f32 (the forward's input and the
+      metrics' target bit for bit, the metric rows within rtol 1e-6) and
+      bf16, K1 and K4 launched 5 and 1 times a forward; metrics.evaluate
+      against evaluate_batch;
+    - the pinned ring's wait on the card;
+    - times, over frames made up front (:class:`_PooledFrames`):
+      cli.benchmark's train_run at b8 and b128, f32 and bf16, host
+      against device augmentation, and eval_run at b8 f32, host against
+      device preprocessing (frames/s, with the host's cores and the loader
+      threads); at b128 the copy of a device-augment batch and of a host
+      batch, and apply_train_augment's time against its bound;
+      engine/benchmark.throughput_sweep at b1, b32 and b128."""
+    import copy
+
+    from fastdepth_tpu_torch import metrics as M
+    from fastdepth_tpu_torch.cli import benchmark as bench_cli
+    from fastdepth_tpu_torch.cli import train as train_cli
+    from fastdepth_tpu_torch.config import TrainConfig
+    from fastdepth_tpu_torch.data import BatchLoader, NYUDataset
+    from fastdepth_tpu_torch.data.device_aug import apply_train_augment
+    from fastdepth_tpu_torch.engine import Evaluator, validate
+    from fastdepth_tpu_torch.engine import evaluator as E
+    from fastdepth_tpu_torch.engine.benchmark import bound_us, throughput_sweep, time_pipelined
+    from fastdepth_tpu_torch.engine.staging import PinnedRing
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+    from fastdepth_tpu_torch.train import sgd_init
+    from fastdepth_tpu_torch.train.trainer import make_train_step
+
+    t_phase = time.perf_counter()
+    out = {}
+    where = (f"on {card['nvidia_smi']}, os.cpu_count() {os.cpu_count()}, "
+             f"-j {INPUT_WORKERS}")
+    with tempfile.TemporaryDirectory() as tmp:
+        seeded, pooled = _SeededFrames(3), _PooledFrames(3)
+
+        def split(name, n, frames=seeded, **kw):
+            """The ``name`` split's ``n`` seeded items."""
+            return NYUDataset(os.path.join(tmp, f"{name}_{n}", name), split=name,
+                              loader=frames, seed=0, **kw)
+
+        for n in sorted(set(INPUT_TRAIN_ITEMS.values())):
+            _seeded_split(os.path.join(tmp, f"train_{n}"), "train", n)
+        _seeded_split(os.path.join(tmp, f"val_{INPUT_VAL_ITEMS}"), "val", INPUT_VAL_ITEMS)
+        small = INPUT_TRAIN_ITEMS[BATCH]
+        host_ds, aug_ds = split("train", small), split("train", small, device_augment=True)
+
+        # train values: the card's augmentation against the host items
+        idxs = list(range(BATCH))
+        raw = _stack(aug_ds, idxs)
+        x_host, d_host = (torch.from_numpy(a) for a in _stack(host_ds, idxs))
+        raw_cuda = [torch.from_numpy(a).cuda() for a in raw]
+        rgb_c, depth_c = apply_train_augment(*raw_cuda, out_size=OUTPUT_HW)
+        rgb_cpu, depth_cpu = apply_train_augment(*[torch.from_numpy(a) for a in raw],
+                                                 out_size=OUTPUT_HW)
+        rgb_c, depth_c = rgb_c.cpu(), depth_c.cpu()
+        n_vals = rgb_c.numel() + depth_c.numel()
+        vs_host = _differing(rgb_c, x_host) + _differing(depth_c, d_host)
+        vs_cpu = _differing(rgb_c, rgb_cpu) + _differing(depth_c, depth_cpu)
+        print(f"input train values b{BATCH}: apply_train_augment on the card vs the host's "
+              f"train items: {vs_host} of {n_vals} values differ (bound 0); vs its CPU run: "
+              f"{vs_cpu} of {n_vals} differ (bound 0)")
+        if vs_host or vs_cpu:
+            fail(f"device augmentation differs from the host items on {vs_host} values and "
+                 f"from its CPU run on {vs_cpu}")
+        out["train_values_differing"] = {"host": vs_host, "cpu": vs_cpu, "of": n_vals}
+
+        # train step: raw arrays against host items, one f32 step each
+        tc = TrainConfig(lr=TRAIN_LR, weight_decay=1e-4)
+        with _deterministic():
+            s_h, l_h = make_train_step(model, tc)(sgd_init(copy.deepcopy(params).cuda()),
+                                                  x_host.cuda(), d_host.cuda(), TRAIN_LR)
+            s_d, l_d = make_train_step(model, tc, device_augment=True)(
+                sgd_init(copy.deepcopy(params).cuda()), *raw_cuda, TRAIN_LR)
+            a, b = _host_state(s_h), _host_state(s_d)
+        trainable, stats, mom = _split_keys(a)
+        unequal = {name: sum(not torch.equal(a[k], b[k]) for k in keys)
+                   for name, keys in (("params", trainable), ("stats", stats), ("momentum", mom))}
+        row = {"loss_host_items": float(l_h), "loss_device_augment": float(l_d),
+               "unequal_tensors": unequal, "of": {"params": len(trainable),
+                                                  "stats": len(stats), "momentum": len(mom)}}
+        print(f"input train step f32 b{BATCH} (cuDNN deterministic), device augmentation vs "
+              f"host items: {json.dumps(row)} (bound: bit for bit)")
+        if float(l_h) != float(l_d) or any(unequal.values()):
+            fail(f"the device-augment step differs from the host-item step: {row}")
+        out["train_step"] = row
+
+        # the CLI's epoch loop with --device-augment, one epoch
+        with tempfile.TemporaryDirectory() as run_dir:
+            args = train_cli.parse_args(
+                ["--epochs", "1", "--batch-size", str(BATCH), "--eval-batch-size", str(BATCH),
+                 "--workers", "4", "--print-freq", "0", "--output-dir", run_dir,
+                 "--lr", str(TRAIN_LR), "--device", "cuda", "--device-augment"])
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                best = train_cli.train_loop(args, model, params, aug_ds.take(TRAIN_ITEMS),
+                                            split("val", INPUT_VAL_ITEMS).take(VAL_ITEMS),
+                                            make_images=False)
+        losses = [float(v) for v in re.findall(r"=> epoch \d+: train loss ([-\w.]+)",
+                                                 log.getvalue())]
+        print(f"input train_loop --device-augment b{BATCH} f32, 1 epoch of "
+              f"{TRAIN_ITEMS // BATCH} steps: losses {losses}, validate RMSE {best.rmse:.4f}")
+        if len(losses) != 1 or not np.isfinite(losses[0]) or not np.isfinite(best.rmse):
+            fail(f"train_loop --device-augment: losses {losses}, RMSE {best.rmse}")
+        out["train_loop_losses"] = losses
+
+        # eval values: the gather on the card against the host path
+        val_host = split("val", INPUT_VAL_ITEMS)
+        val_raw = split("val", INPUT_VAL_ITEMS, raw_items=True)
+        host_loader = BatchLoader(val_host.take(2 * BATCH), batch_size=BATCH, num_workers=4,
+                                  pad_last=True)
+        raw_loader = BatchLoader(val_raw.take(2 * BATCH), batch_size=BATCH, num_workers=4,
+                                 pad_last=True)
+        forwards = 2 + 1  # validate() warms up on its first batch
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            ev_h = Evaluator(model, params, batch_size=BATCH, dtype=dtype, device="cuda")
+            ev_d = Evaluator(model, params, batch_size=BATCH, dtype=dtype, device="cuda",
+                             val_pipeline=val_raw.val_pipeline)
+            _reset(K1, K4)
+            avg_d = validate(raw_loader, ev_d, print_freq=0, make_images=False,
+                             log=lambda s: None)
+            torch.cuda.synchronize()
+            k1, k4 = _counts(K1, K4)
+            avg_h = validate(host_loader, ev_h, print_freq=0, make_images=False,
+                             log=lambda s: None)
+            if (k1, k4) != (STAGES_PER_FORWARD * forwards, forwards):
+                fail(f"device preprocessing {name}: K1 launched {k1} and K4 {k4} times over "
+                     f"{forwards} forwards, want {STAGES_PER_FORWARD} and 1 per forward")
+            # one batch through both, recording the forward's input and the
+            # metrics' target
+            seen = {"h": [], "d": []}
+            rgb_r, depth_r, _ = next(iter(raw_loader))
+            rgb_p, depth_p, _ = next(iter(host_loader))
+            rows = {}
+            batch_metrics = M.evaluate_batch
+            for key, ev, (r, d) in (("h", ev_h, (rgb_p, depth_p)), ("d", ev_d, (rgb_r, depth_r))):
+                forward = ev._apply
+
+                def record(p, x, forward=forward, key=key):
+                    seen[key].append(x.clone())
+                    return forward(p, x)
+
+                def metrics(pred, target, key=key):
+                    seen[key].append(target.clone())
+                    return batch_metrics(pred, target)
+
+                ev._apply, E.M.evaluate_batch = record, metrics
+                try:
+                    pred, rows[key] = ev(ev.put(r), ev.put(d))
+                finally:
+                    ev._apply, E.M.evaluate_batch = forward, batch_metrics
+            torch.cuda.synchronize()
+            in_diff = sum(_differing(g, w) for g, w in zip(seen["d"], seen["h"]))
+            # relative to the host row; equal entries (an infinite iRMSE on
+            # a zero prediction too) differ by 0
+            rel = float(torch.where(rows["d"] == rows["h"], 0.0,
+                                    (rows["d"] - rows["h"]).abs() / rows["h"].abs()).max())
+            row = {"k1_launches": k1, "k4_launches": k4, "forwards": forwards,
+                   "input_values_differing": in_diff, "metric_rows_max_rel_diff": rel,
+                   "validate_rmse_host": avg_h.rmse, "validate_rmse_device": avg_d.rmse}
+            print(f"input eval {name} b{BATCH}, device preprocessing vs the host path: "
+                  f"{json.dumps(row)}")
+            if name == "f32" and (in_diff or not rel <= 1e-6):
+                fail(f"device preprocessing f32: {in_diff} input values differ, metric rows "
+                     f"{rel} apart (bound 0 and rtol 1e-6)")
+            if not np.isfinite(avg_d.rmse):
+                fail(f"device preprocessing {name}: RMSE {avg_d.rmse}")
+            out[f"eval_{name}"] = row
+            if name == "f32":
+                single = M.evaluate(pred[0], depth_p[0])
+                want = M.evaluate_batch(pred[:1], ev_h.put(depth_p[:1]))
+                got = np.array([getattr(single, k) for k in M.METRIC_FIELDS])
+                ref = np.array([float(want[k][0]) for k in M.METRIC_FIELDS])
+                same = bool(np.array_equal(got, ref, equal_nan=True))
+                print(f"input metrics.evaluate vs evaluate_batch on one frame: equal {same}")
+                if not same:
+                    fail(f"metrics.evaluate {got} differs from evaluate_batch {ref}")
+        out["ring"] = _ring_check()
+        t_checks = time.perf_counter() - t_phase
+
+        # times: the streaming CLIs' run functions, host against device
+        times = {}
+        for batch in (BATCH, TRAIN_BIG_BATCH):
+            n = INPUT_TRAIN_ITEMS[batch]
+            for dt, extra in (("f32", []), ("bf16", ["--bf16"])):
+                for mode in ("host", "device"):
+                    args = bench_cli.parse_args(
+                        ["--train", "--batch-size", str(batch), "-j", str(INPUT_WORKERS),
+                         "--device", "cuda", "--json"] + extra
+                        + (["--device-augment"] if mode == "device" else []))
+                    ds = split("train", n, pooled, device_augment=mode == "device")
+                    with contextlib.redirect_stdout(io.StringIO()):
+                        r = bench_cli.train_run(ds, model, params, args)
+                    times[f"train_b{batch}_{dt}_{mode}"] = r
+                    print(f"input train_run b{batch} {dt} {mode} augmentation {where}: "
+                          f"{r['fps']:.1f} train frames/s ({r['frames']} frames in "
+                          f"{r['elapsed_s']:.3f} s, loss {r['final_loss']:.4f})")
+                    if not np.isfinite(r["final_loss"]):
+                        fail(f"train_run b{batch} {dt} {mode}: loss {r['final_loss']}")
+        for mode in ("host", "device"):
+            args = bench_cli.parse_args(
+                ["--batch-size", str(BATCH), "-j", str(INPUT_WORKERS), "--device", "cuda",
+                 "--json"] + (["--device-preprocess"] if mode == "device" else []))
+            ds = split("val", INPUT_VAL_ITEMS, pooled, raw_items=mode == "device",
+                       device_normalize=True)
+            with contextlib.redirect_stdout(io.StringIO()):
+                r = bench_cli.eval_run(ds, model, params, args)
+            times[f"eval_b{BATCH}_f32_{mode}"] = r
+            print(f"input eval_run b{BATCH} f32 {mode} preprocessing {where}: "
+                  f"{r['fps']:.1f} frames/s ({r['frames']} frames in {r['elapsed_s']:.3f} s)")
+
+        # where the streamed time goes: one item on one thread, the loader
+        # alone, and validate() over batches already in memory (wall time,
+        # kernel time, and the host functions that take the most of it)
+        big = TRAIN_BIG_BATCH
+        attrib = {}
+        for name, b, ds in (
+                ("train_host", big, split("train", INPUT_TRAIN_ITEMS[big], pooled)),
+                ("train_device_augment", big,
+                 split("train", INPUT_TRAIN_ITEMS[big], pooled, device_augment=True)),
+                ("val_host", BATCH, split("val", INPUT_VAL_ITEMS, pooled, device_normalize=True)),
+                ("val_raw", BATCH, split("val", INPUT_VAL_ITEMS, pooled, raw_items=True))):
+            t0 = time.perf_counter()
+            for i in range(BATCH):
+                ds[i]
+            item_ms = (time.perf_counter() - t0) / BATCH * 1e3
+            loader = BatchLoader(ds.take(2 * big), batch_size=b, num_workers=INPUT_WORKERS,
+                                 drop_last=True, pad_last=False)
+            t0 = time.perf_counter()
+            n = sum(batch[-1] for batch in loader)
+            attrib[name] = {"item_ms_one_thread": item_ms,
+                            "loader_items_per_s": n / (time.perf_counter() - t0)}
+            print(f"input {name} items {where}: {item_ms:.2f} ms an item on one thread; the "
+                  f"loader alone (b{b}) {attrib[name]['loader_items_per_s']:.1f} items/s")
+        mem = _Frames(list(BatchLoader(split("val", INPUT_VAL_ITEMS, pooled, device_normalize=True),
+                                       batch_size=BATCH, num_workers=INPUT_WORKERS)))
+        ev = Evaluator(model, params, batch_size=BATCH, device="cuda")
+
+        def run_validate():
+            return validate(mem, ev, print_freq=0, make_images=False, log=lambda s: None)
+
+        run_validate()
+        t0 = time.perf_counter()
+        avg = run_validate()
+        wall = time.perf_counter() - t0
+        busy_us, _ = _kernel_time(run_validate)
+        prof = cProfile.Profile()
+        prof.enable()
+        run_validate()
+        prof.disable()
+        top = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: -kv[1][2])[:8]
+        attrib["validate_in_memory"] = {
+            "frames_per_s": len(mem.dataset) / wall, "validate_fps": 1.0 / avg.gpu_time,
+            "kernel_ms": None if busy_us is None else busy_us / 1e3, "wall_ms": wall * 1e3,
+            "host_tottime_ms": [(f"{fn} ({os.path.basename(path)}:{line})", st[2] * 1e3, st[1])
+                                for (path, line, fn), st in top]}
+        v = attrib["validate_in_memory"]
+        print(f"input validate() b{BATCH} f32 over {len(mem.dataset)} frames in memory {where}: "
+              f"{v['frames_per_s']:.1f} frames/s wall ({wall * 1e3:.1f} ms), 1/gpu_time "
+              f"{v['validate_fps']:.1f}; kernel time "
+              + ("not measured" if busy_us is None else
+                 f"{busy_us / 1e3:.2f} ms ({busy_us / 1e3 / (wall * 1e3):.0%} of the wall)")
+              + "; host functions by own time under cProfile: "
+              + "; ".join(f"{k} {ms:.1f} ms / {n} calls" for k, ms, n in v["host_tottime_ms"]))
+        out["attribution"] = attrib
+
+        # b128 device augmentation: the copy and the augmentation alone
+        copies = {}
+        for name, kw in (("device_augment", {"device_augment": True}), ("host_items", {})):
+            arrays = next(iter(BatchLoader(split("train", INPUT_TRAIN_ITEMS[big], pooled, **kw),
+                                           batch_size=big, num_workers=INPUT_WORKERS,
+                                           drop_last=True, pad_last=False)))[:-1]
+            ring = PinnedRing("cuda", slots=len(arrays))
+            for a in arrays:  # allocate the slots
+                ring.put(a)
+            pinned = [torch.from_numpy(a).pin_memory() for a in arrays]
+            torch.cuda.synchronize()
+            row = {"bytes": sum(a.nbytes for a in arrays)}
+            # put: the staging memcpy on the host and the copy; dma: the copy
+            # from page-locked memory alone
+            for key, run in (("put_ms", lambda: [ring.put(a) for a in arrays]),
+                             ("dma_ms", lambda: [t.to("cuda", non_blocking=True)
+                                                 for t in pinned])):
+                ms = []
+                for _ in range(3):
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    start.record()
+                    dev = run()
+                    end.record()
+                    end.synchronize()
+                    ms.append(start.elapsed_time(end))
+                row[key] = float(np.median(ms))
+            row["dma_gb_per_s"] = row["bytes"] / row["dma_ms"] / 1e6
+            copies[name] = row
+            if name == "device_augment":
+                aug_args = tuple(dev)
+        aug_ms = time_pipelined(lambda *a: apply_train_augment(*a, out_size=OUTPUT_HW),
+                                aug_args, warmup=2, calls=5)["mean_s"] * 1e3
+        px = OUTPUT_HW[0] * OUTPUT_HW[1]
+        # gathered u8 rgb and f32 depth, the int32 map, the f32 rgb and depth
+        # written; the scale, kinds and the few looked-up table entries aside
+        aug_bytes = big * px * (3 + 4 + 4 + 12 + 4)
+        aug_bound_us, aug_by = bound_us(aug_bytes)
+        step_ms = (times[f"train_b{big}_f32_device"]["elapsed_s"] * 1e3
+                   / (times[f"train_b{big}_f32_device"]["frames"] / big))
+        row = {"copy": copies, "augment_ms": aug_ms, "augment_bound_ms": aug_bound_us / 1e3,
+               "augment_bound_by": aug_by, "augment_bytes": aug_bytes,
+               "streamed_step_ms_f32": step_ms,
+               "copy_share_of_streamed_step": copies["device_augment"]["put_ms"] / step_ms}
+        c, h = copies["device_augment"], copies["host_items"]
+        print(f"input b{big} device augmentation {where}: a batch of {c['bytes']} B: put "
+              f"(staging memcpy + copy) {c['put_ms']:.3f} ms, copy alone {c['dma_ms']:.3f} ms "
+              f"({c['dma_gb_per_s']:.1f} GB/s); host items ({h['bytes']} B): put "
+              f"{h['put_ms']:.3f} ms, copy {h['dma_ms']:.3f} ms; the put is "
+              f"{row['copy_share_of_streamed_step']:.1%} of the streamed f32 step "
+              f"({step_ms:.3f} ms); apply_train_augment {aug_ms:.3f} ms (events, 5 calls) "
+              f"against a bound of {aug_bound_us / 1e3:.4f} ms ({aug_by}, {aug_bytes} B)")
+        out["b128"] = row
+
+        sweep = throughput_sweep(model, model.fold(params), batch_sizes=(1, 32, 128),
+                                 warmup=2, calls=10)
+        for b, r in sweep.items():
+            print(f"input throughput_sweep b{b} f32 (straight folded forward) {where}: "
+                  f"{r['fps']:.1f} frames/s ({r['mean_s'] * 1e3:.3f} ms a call)")
+        out["sweep"] = sweep
+        out["times"] = times
+    torch.cuda.empty_cache()
+    print(f"input: all passed in {time.perf_counter() - t_phase:.1f} s (the checks "
+          f"{t_checks:.1f} s)")
+    return out
+
+
 def probe_phase() -> dict:
     """The probe catalogue on the card.  The slice's path: every tag's
     kernel once, with K5's and K6's counts set to 0 just before and read
@@ -1535,6 +1951,7 @@ def main() -> None:
     srv = serve_phase(model, params, card)
     zoo_phase(card)
     train_phase(model, params)
+    input_phase(model, params, card)
     kernels.update(probe_phase())
     tools_phase()
     # launches: each kernel's count on the f32 run of its path (K1: the

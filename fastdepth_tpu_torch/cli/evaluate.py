@@ -9,8 +9,8 @@ CKPT is a native .npz checkpoint or a reference PyTorch .pth[.tar]
 pickle, converted on load by the port's copy of the converter
 (unpickling a full-module checkpoint executes code: pass TRUSTED .pth
 files only).  Extras over the reference CLI: --batch-size, --bf16,
---no-fold-bn, --impl, --device-normalize, --no-images, --split, --csv,
---device.
+--no-fold-bn, --impl, --device-normalize, --device-preprocess, --no-images,
+--split, --csv, --device.
 """
 
 from __future__ import annotations
@@ -49,6 +49,11 @@ def parse_args(argv=None):
                    help="dataset split (holdout = the two NetAdapt files, nyu.py:13-24)")
     p.add_argument("--device-normalize", action="store_true",
                    help="send uint8 RGB and /255 on the device (less host->device transfer)")
+    p.add_argument("--device-preprocess", action="store_true",
+                   help="run the whole val resize/crop chain ON DEVICE as a "
+                        "gather inside the step (raw 480x640 frames "
+                        "ship to the card; host work drops to the h5 read; "
+                        "identical values to the host pipeline)")
     p.add_argument("--csv", default=None, help="append final metrics to this CSV")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the port's kernels; cpu runs their plain "
@@ -92,7 +97,8 @@ def main(argv=None):
     print("=> creating data loaders...")
     valdir = os.path.join(args.data_root, args.data, "val")
     dataset = NYUDataset(valdir, split=args.split, modality=args.modality,
-                         device_normalize=args.device_normalize)
+                         device_normalize=args.device_normalize,
+                         raw_items=args.device_preprocess)
     loader = BatchLoader(dataset, batch_size=args.batch_size,
                          num_workers=args.workers, pad_last=True)
     print("=> data loaders created.")
@@ -103,6 +109,7 @@ def main(argv=None):
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         fold_bn=not args.no_fold_bn,
         impl=args.impl,
+        val_pipeline=dataset.val_pipeline if args.device_preprocess else None,
         device=args.device,
     )
     return validate(
@@ -111,6 +118,7 @@ def main(argv=None):
         print_freq=args.print_freq,
         output_dir=os.path.dirname(os.path.abspath(args.evaluate)),
         make_images=not args.no_images,
+        viz_transform=dataset.val_pipeline if args.device_preprocess else None,
         write_to_file=args.csv is not None,
         csv_path=args.csv,
     )

@@ -7,7 +7,8 @@ semantics rebuilt here; recipe per BASELINE.json config #5).
 Usage:
     python -m fastdepth_tpu_torch.cli.train --data-root ../data [--epochs 20]
         [--pretrained-encoder imagenet.npz|model_best.pth.tar]
-        [--arch mobilenet-nnconv5dw-skipadd] [--bf16] [--device cuda|cpu]
+        [--arch mobilenet-nnconv5dw-skipadd] [--bf16] [--device-augment]
+        [--device cuda|cpu]
 
 ``--arch`` takes any name of the model registry (``models.from_name``):
 the FastDepth skip models, plain MobileNet with any registry decoder
@@ -16,9 +17,10 @@ the FastDepth skip models, plain MobileNet with any registry decoder
 
 Writes ``train.csv``, ``test.csv``, ``model_best.npz`` and the resumable
 ``checkpoint.npz`` into --output-dir, in the JAX package's formats: a
-checkpoint of either CLI resumes in the other.  The multi-process and
-mesh flags (ROADMAP A12) and --device-augment (ROADMAP A10) are parsed
-under the JAX names and refused.
+checkpoint of either CLI resumes in the other.  ``--device-augment``
+ships raw frames and the augmentation's parameters and augments on the
+card (``data/device_aug.py``).  The multi-process and mesh flags (ROADMAP
+A12) are parsed under the JAX names and refused.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import time
 import torch
 
 from fastdepth_tpu_torch.engine.aot import strict_f32
-from fastdepth_tpu_torch.train.trainer import DEVICE_AUGMENT_NOT_PORTED, MESH_NOT_PORTED
+from fastdepth_tpu_torch.train.trainer import MESH_NOT_PORTED
 
 
 def parse_args(argv=None):
@@ -79,8 +81,9 @@ def parse_args(argv=None):
                         "f32's exponent range); without it f32 is true f32 (TF32 off "
                         "for cuDNN's convolutions and for matmuls)")
     p.add_argument("--device-augment", action="store_true",
-                   help="the augmentation chain inside the train step: not ported yet "
-                        "(ROADMAP A10)")
+                   help="run the whole augmentation chain on the device inside the train "
+                        "step (the host ships raw frames + per-item gather maps/jitter "
+                        "grids; bit-identical items)")
     p.add_argument("--accum-steps", type=int, default=1,
                    help="gradient accumulation: split each batch into this many "
                         "sequential microbatches and apply one averaged update — the "
@@ -120,8 +123,6 @@ def _refuse_unported(args) -> None:
     if args.mesh_devices is not None or any(
             v is not None for v in (args.coord, args.num_processes, args.process_id)):
         raise SystemExit(MESH_NOT_PORTED)
-    if args.device_augment:
-        raise SystemExit(DEVICE_AUGMENT_NOT_PORTED)
 
 
 def main(argv=None):
@@ -178,7 +179,8 @@ def main(argv=None):
 
     print("=> creating data loaders...")
     root = os.path.join(args.data_root, args.data)
-    train_ds = NYUDataset(os.path.join(root, "train"), split="train", seed=args.seed)
+    train_ds = NYUDataset(os.path.join(root, "train"), split="train", seed=args.seed,
+                          device_augment=args.device_augment)
     val_ds = NYUDataset(os.path.join(root, "val"), split="val")
     return train_loop(args, model, params, train_ds, val_ds,
                       resume=(resume_tree, resume_meta) if resume_tree is not None else None)
@@ -201,8 +203,9 @@ def train_loop(args, model, params, train_ds, val_ds, resume=None, log=print,
     (``Evaluator`` + ``validate()``, the port's kernels on the card),
     track the best RMSE, write the CSVs and checkpoints.  ``resume`` is
     ``(tree, meta)`` from ``load_train_checkpoint``; ``make_images``
-    writes validate()'s comparison PNGs (they need matplotlib).  Returns
-    the best ``Result``."""
+    writes validate()'s comparison PNGs (they need matplotlib).  The
+    trainer augments on the device when ``train_ds`` emits device-augment
+    items (``--device-augment``).  Returns the best ``Result``."""
     from fastdepth_tpu_torch.checkpoint.io import save_checkpoint, save_train_checkpoint
     from fastdepth_tpu_torch.checkpoint import params_to_jax
     from fastdepth_tpu_torch.config import TrainConfig
@@ -226,7 +229,8 @@ def train_loop(args, model, params, train_ds, val_ds, resume=None, log=print,
 
     trainer = Trainer(model, params, tc, remat=args.remat,
                       compute_dtype=torch.bfloat16 if args.bf16 else None,
-                      accum_steps=args.accum_steps, device=args.device)
+                      accum_steps=args.accum_steps, device_augment=train_ds.device_augment,
+                      device=args.device)
 
     os.makedirs(args.output_dir, exist_ok=True)
     train_csv = os.path.join(args.output_dir, "train.csv")

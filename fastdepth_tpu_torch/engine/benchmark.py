@@ -233,6 +233,37 @@ def time_pipelined(fn: Callable, args=(), *, warmup: int = 3, calls: int = 30,
             "total_s": total, "calls": float(calls)}
 
 
+def throughput_sweep(model, params, *, batch_sizes: Sequence[int] = (1, 32, 128),
+                     dtype: torch.dtype = torch.float32, image_size=(224, 224),
+                     warmup: int = 3, calls: int = 30,
+                     device: Device = "cuda") -> Dict[str, Dict[str, float]]:
+    """Amortized frames/s per batch size of a model's folded straight
+    forward (``compile_forward(impl="xla")``, :func:`time_pipelined` on a
+    seeded input), keyed by the batch size as a string; each row is
+    :func:`time_pipelined`'s with ``fps = b / mean_s``.  ``params`` must
+    already be folded (``Model.fold``): the sweep would otherwise time the
+    unfolded-BN forward while claiming the folded one."""
+    from fastdepth_tpu_torch.engine.aot import compile_forward
+    from fastdepth_tpu_torch.models.fused import tree_has_bn
+
+    if tree_has_bn(params):
+        raise ValueError("throughput_sweep needs pre-folded params "
+                         "(Model.fold) — it documents the folded forward")
+    rng = np.random.RandomState(0)
+    out: Dict[str, Dict[str, float]] = {}
+    for b in batch_sizes:
+        compiled, prepared = compile_forward(
+            model, params, batch_size=b, image_size=image_size, dtype=dtype,
+            fold_bn=False,  # the caller folded
+            impl="xla", device=device)
+        x = torch.from_numpy(rng.rand(b, *image_size, 3).astype(np.float32)).to(device)
+        stats = time_pipelined(compiled, (prepared, x), warmup=warmup, calls=calls,
+                               device=device)
+        stats["fps"] = b / stats["mean_s"]
+        out[str(b)] = stats
+    return out
+
+
 # --- the least time for a kernel's work ---------------------------------
 
 # One H100 SXM's data sheet at 700 W (dense rates): device memory

@@ -22,6 +22,7 @@ import torch
 from fastdepth_tpu_torch import viz
 from fastdepth_tpu_torch import metrics as M
 from fastdepth_tpu_torch.engine.aot import _prepare, normalize
+from fastdepth_tpu_torch.engine.staging import PinnedRing
 from fastdepth_tpu_torch.models.registry import Model
 
 CSV_FIELDNAMES = [
@@ -40,6 +41,7 @@ class Evaluator:
         dtype: torch.dtype = torch.float32,
         fold_bn: bool = True,
         impl: str = "auto",
+        val_pipeline=None,
         device: Union[str, torch.device] = "cuda",
     ):
         """``params``: the tree from ``Model.load``.  ``impl``: 'auto'
@@ -48,7 +50,13 @@ class Evaluator:
         and 'xla' force the K1/K4, head-commute and straight forwards
         (engine/aot.py, which also folds in f32 before the cast to
         ``dtype``).  A CUDA ``device`` must exist: there is no CPU
-        fallback."""
+        fallback.
+
+        ``val_pipeline``: a ``data.pipeline.ValPipeline``.  The whole val
+        resize/crop chain is one (rows, cols) gather, so with raw
+        (480, 640) batches (``NYUDataset(raw_items=True)``) it runs on the
+        device inside the step, with the host gather's values; host
+        preprocessing drops to the h5 read."""
         self.model = model
         self.batch_size = batch_size
         self.dtype = dtype
@@ -56,14 +64,54 @@ class Evaluator:
         self.params, self._apply = _prepare(model, params, batch_size=batch_size,
                                             dtype=dtype, fold_bn=fold_bn, impl=impl,
                                             device=device)
+        # validate() keeps one batch in flight: two batches of (rgb, depth)
+        self._ring = PinnedRing(self.device, slots=4)
+        self._gather = None
+        if val_pipeline is not None:
+            self._gather = tuple(torch.as_tensor(np.asarray(a), dtype=torch.int64,
+                                                 device=self.device)
+                                 for a in (val_pipeline.rows, val_pipeline.cols))
+            # the exact raw dims the gather indices were computed for: on
+            # CUDA an index past a smaller (preprocessed) frame is a
+            # device-side assert, and a larger frame passes any max-index
+            # bound yet gathers with the wrong resize ratio, silently.
+            # ValPipeline.create records raw_size; fall back to the
+            # max-index bound for hand-built pipelines without it.
+            self._exact = getattr(val_pipeline, "raw_size", None) is not None
+            self._want_raw = val_pipeline.raw_size if self._exact else (
+                int(np.max(val_pipeline.rows)) + 1, int(np.max(val_pipeline.cols)) + 1)
 
     def put(self, arr: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device, non_blocking=True)
+        """``arr`` on the device, copied through page-locked memory on a
+        card (``engine/staging.PinnedRing``)."""
+        return self._ring.put(arr)
+
+    def _check_raw(self, name: str, t: torch.Tensor) -> None:
+        want = self._want_raw
+        bad = (tuple(t.shape[1:3]) != tuple(want) if self._exact
+               else (t.shape[1] < want[0] or t.shape[2] < want[1]))
+        if bad:
+            raise ValueError(
+                f"val_pipeline gather was built for "
+                f"{'exactly ' if self._exact else 'at least '}"
+                f"{want[0]}x{want[1]} raw frames, "
+                f"got {t.shape[1]}x{t.shape[2]} for {name} "
+                f"— use NYUDataset(raw_items=True) with "
+                f"matching frames, build the pipeline with "
+                f"raw_size=({t.shape[1]}, {t.shape[2]}), or "
+                f"drop val_pipeline for preprocessed items")
 
     @torch.inference_mode()
     def __call__(self, rgb: torch.Tensor, depth: torch.Tensor):
         """(pred (N, H, W, 1) f32, metrics (len(METRIC_FIELDS), N)), both on
         the device and not waited for."""
+        if self._gather is not None:
+            # both tensors are gathered: each must be a raw frame
+            for name, t in (("rgb", rgb), ("depth", depth)):
+                self._check_raw(name, t)
+            rows, cols = self._gather
+            rgb = rgb.index_select(1, rows).index_select(2, cols)
+            depth = depth.index_select(1, rows).index_select(2, cols)
         rgb = normalize(rgb, self.dtype) if rgb.dtype == torch.uint8 else rgb.to(self.dtype)
         pred = self._apply(self.params, rgb).float()
         metrics = M.evaluate_batch(pred, depth)
@@ -80,11 +128,15 @@ def validate(
     write_to_file: bool = False,
     csv_path: Optional[str] = None,
     make_images: bool = True,
+    viz_transform=None,
     log=print,
 ) -> M.Result:
     """Full-dataset evaluation with reference-format reporting
     (main.py:63-126).  ``loader`` yields (rgb, depth, count) host batches,
-    padded to a fixed size with ``count`` real rows (BatchLoader)."""
+    padded to a fixed size with ``count`` real rows (BatchLoader).
+    ``viz_transform``: applied to the raw rgb and depth of the few
+    comparison-strip images when the loader yields raw frames (device
+    preprocessing): pass the host ``ValPipeline``."""
     meter = M.AverageMeter()
     img_merge = None
     img_saved = False
@@ -140,7 +192,10 @@ def validate(
             for i in range(count):
                 gi = seen + i
                 if gi % 50 == 0 and gi < 8 * 50:
-                    row = viz.merge_into_row(np.asarray(rgb[i]), np.asarray(depth[i]), pred_np[i])
+                    r_i, d_i = np.asarray(rgb[i]), np.asarray(depth[i])
+                    if viz_transform is not None:
+                        r_i, d_i = viz_transform(r_i), viz_transform(d_i)
+                    row = viz.merge_into_row(r_i, d_i, pred_np[i])
                     img_merge = row if img_merge is None else viz.add_row(img_merge, row)
                 elif gi == 8 * 50 and img_merge is not None and not img_saved:
                     viz.save_image(img_merge, os.path.join(output_dir, f"comparison_{epoch}.png"))

@@ -102,6 +102,23 @@ def evaluate_batch(output: torch.Tensor, target: torch.Tensor) -> Dict[str, torc
     }
 
 
+def evaluate(output, target) -> Result:
+    """Single-pair convenience wrapper; accepts any shapes that reshape to
+    one (H, W) image each.  A batch is refused (it would silently be
+    treated as one tall image, skewing every mean) — use
+    :func:`evaluate_batch` for batches."""
+    output = torch.as_tensor(output)
+    target = torch.as_tensor(target, device=output.device)
+    hw = output.squeeze().shape
+    if len(hw) != 2:
+        raise ValueError(
+            f"metrics.evaluate is a single-(H, W)-pair contract, got "
+            f"output shape {tuple(output.shape)}; use evaluate_batch for "
+            "batched NHWC inputs")
+    vals = evaluate_batch(output.reshape(1, *hw, 1), target.reshape(1, *hw, 1))
+    return Result(**{k: float(v[0]) for k, v in vals.items()})
+
+
 class AverageMeter:
     """Count-weighted running average (reference metrics.py:58-95)."""
 

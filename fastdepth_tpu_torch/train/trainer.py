@@ -29,14 +29,13 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from fastdepth_tpu_torch.config import TrainConfig
+from fastdepth_tpu_torch.engine.staging import PinnedRing
 from fastdepth_tpu_torch.models import layers as L
 from fastdepth_tpu_torch.models.registry import Model
 from fastdepth_tpu_torch.train.loss import masked_l1_loss
 
 MESH_NOT_PORTED = ("data-parallel training (a mesh, --mesh-devices, --coord/--num-processes/"
                    "--process-id) is not ported yet: ROADMAP A12")
-DEVICE_AUGMENT_NOT_PORTED = ("--device-augment (data/device_aug.py, the augmentation inside "
-                             "the train step) is not ported yet: ROADMAP A10")
 
 
 def _channels_last(t: torch.Tensor) -> bool:
@@ -195,7 +194,11 @@ def make_train_step(
 ):
     """Returns ``step(state, rgb, depth, lr) -> (state, loss)``: one SGD
     step on the NHWC batch, ``state`` updated in place; ``loss`` is an f32
-    scalar on the device, not waited for.
+    scalar on the device, not waited for.  With ``device_augment`` it
+    returns ``aug_step(state, rgb_raw, depth_raw, flat, scale, tables,
+    kinds, lr)``, which runs ``data/device_aug.apply_train_augment`` on the
+    raw batch (``NYUDataset(device_augment=True)``'s items) and then the
+    same step on the augmented batch, in the masters' dtype.
 
     ``remat``: recompute the forward during the backward
     (``torch.utils.checkpoint``), activation memory for FLOPs; the cast
@@ -212,11 +215,9 @@ def make_train_step(
     bf16 on f32 masters; momentum, the optimiser's math, the BatchNorm
     moments and running statistics and the loss stay f32 (bf16 has f32's
     exponent range: no loss scaling).
-    ``mesh`` and ``device_augment`` are not ported (ROADMAP A12, A10)."""
+    ``mesh`` is not ported (ROADMAP A12)."""
     if mesh is not None:
         raise NotImplementedError(MESH_NOT_PORTED)
-    if device_augment:
-        raise NotImplementedError(DEVICE_AUGMENT_NOT_PORTED)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if compute_dtype == torch.float32:
@@ -277,7 +278,20 @@ def make_train_step(
             state.step += 1
         return state, loss
 
-    return step
+    if not device_augment:
+        return step
+
+    from fastdepth_tpu_torch.data.device_aug import apply_train_augment
+
+    out_size = tuple(model.config.output_size)
+
+    def aug_step(state: TrainState, rgb_raw, depth_raw, flat, scale, tables, kinds, lr):
+        rgb, depth = apply_train_augment(rgb_raw, depth_raw, flat, scale, tables, kinds,
+                                         out_size=out_size)
+        dtype = state.flat.params.dtype
+        return step(state, rgb.to(dtype), depth.to(dtype), lr)
+
+    return aug_step
 
 
 def train_step(model: Model, cfg: TrainConfig):
@@ -349,22 +363,28 @@ class Trainer:
             st.step.fill_(int(np.asarray(tree["step"])))
 
     def run_epoch(self, loader, epoch: int, log=print, print_freq: int = 50) -> float:
+        """One pass over ``loader``, whose batches are ``(*arrays, count)``:
+        ``(rgb, depth)`` or, with ``device_augment``, the six raw arrays.
+        The arrays reach the device through a ring of page-locked buffers
+        (``engine/staging.PinnedRing``), so the host loads the next batch
+        while the card runs this one."""
         lr = step_lr(self.cfg, epoch)
         # the loss sums on the device: a float(loss) each step would wait
         # for the device every step; the host reads it only at print_freq
         # and at the end of the epoch
         total = None
         n = 0
-        for i, (rgb, depth, count) in enumerate(loader):
-            if count != rgb.shape[0]:
+        ring = None
+        for i, (*arrays, count) in enumerate(loader):
+            if count != arrays[0].shape[0]:
                 raise ValueError(
                     f"run_epoch got a padded batch ({count} real rows in a batch of "
-                    f"{rgb.shape[0]}): the zero rows would enter the BN batch statistics "
+                    f"{arrays[0].shape[0]}): the zero rows would enter the BN batch statistics "
                     f"and couple real-row gradients to padding. Build the train loader "
                     f"with drop_last=True, pad_last=False (cli.train does).")
-            rgb, depth = (torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                          for a in (rgb, depth))
-            self.state, loss = self._step(self.state, rgb, depth, lr)
+            if ring is None:  # two batches in flight
+                ring = PinnedRing(self.device, slots=2 * len(arrays))
+            self.state, loss = self._step(self.state, *[ring.put(a) for a in arrays], lr)
             total = loss if total is None else total + loss
             n += 1
             if print_freq and (i + 1) % print_freq == 0:

@@ -101,6 +101,29 @@ def test_the_walk_covers_the_serve_slice():
         assert path in SOURCES, path
 
 
+def test_the_walk_covers_the_input_slice():
+    for path in ("fastdepth_tpu_torch/data/device_aug.py", "fastdepth_tpu_torch/engine/staging.py",
+                 "fastdepth_tpu_torch/cli/benchmark.py"):
+        assert path in SOURCES, path
+
+
+def test_benchmark_cli_help_runs_with_the_jax_package_blocked():
+    out = _run("""
+import contextlib, io
+from fastdepth_tpu_torch.cli import benchmark
+from fastdepth_tpu_torch.data import device_aug
+text = io.StringIO()
+with contextlib.redirect_stdout(text):
+    try:
+        benchmark.main(["--help"])
+    except SystemExit as e:
+        assert e.code == 0, e.code
+assert "--device-augment" in text.getvalue() and "--device-preprocess" in text.getvalue()
+print("ok")
+""")
+    assert out.strip().endswith("ok")
+
+
 def test_every_module_imports_with_the_jax_package_blocked():
     code = """
 import importlib, pkgutil

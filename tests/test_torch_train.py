@@ -460,8 +460,6 @@ def test_accum_composes_with_remat_and_bf16(rng):
 def test_unported_mesh_and_device_augment_are_refused():
     with pytest.raises(NotImplementedError, match="A12"):
         Trainer(MODEL, _init(0), TrainConfig(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        Trainer(MODEL, _init(0), TrainConfig(), device_augment=True, device="cpu")
     with pytest.raises(NotImplementedError, match="A12"):
         make_train_step(MODEL, TrainConfig(), mesh=object())
 

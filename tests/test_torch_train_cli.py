@@ -194,7 +194,6 @@ def test_load_pretrained_encoder(tmp_path, data_root, monkeypatch):
 @pytest.mark.parametrize("flags, item", [
     (["--mesh-devices", "2"], "A12"),
     (["--coord", "localhost:1234", "--num-processes", "2", "--process-id", "0"], "A12"),
-    (["--device-augment"], "A10"),
 ])
 def test_unported_flags_exit_naming_their_roadmap_item(flags, item, data_root, tmp_path):
     with pytest.raises(SystemExit, match=item):
