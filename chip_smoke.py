@@ -78,7 +78,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    device augmentation) and eval_run (b8 f32, host against device
    preprocessing), the b128 copy and augmentation against its bound, and
    engine/benchmark.throughput_sweep;
-11. probes: every tag of the probe catalogue (engine/probes.py, the
+11. mesh: data parallelism (parallel/) at world size 1 over NCCL, every
+   collective issued: the train step with the mesh against the step
+   without (b8 f32 and accum_steps 2 within the train phase's bounds, b8
+   bf16 loss within rtol 3e-3), Evaluator(mesh) against Evaluator(mesh=
+   None) (metric rows 0 apart, K1 launched 5 times and K4 once a
+   forward), the mesh's cost (train step b8 f32 and b128 bf16, eval step
+   b8 f32, in turns with the no-mesh ones; collectives a step),
+   cli.train / cli.evaluate --mesh-devices 1 against their runs without a
+   mesh, --mesh-devices 2 refused up front, and two gloo ranks on the
+   CPU (parallel/dryrun.py);
+12. probes: every tag of the probe catalogue (engine/probes.py, the
    scripts' Pallas probes) runs its kernel (K5, K6, or K3) once, with
    K5's and K6's launches counted on that run; then the launch floor
    (the least a call costs in the same timer), each kernel against its
@@ -87,11 +97,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    to it (with the CUDA kernels K6's taps and up_only yardsticks run
    as); K5's copy sweep (dma_copy) and K6's scale rows (compute_sweep),
    each checked against its plain version;
-12. tools: engine/calibrate (reduced call count) measures the card's
+13. tools: engine/calibrate (reduced call count) measures the card's
    ceilings, and cli.profile --mode prefix --batch 128 profiles the
    pruned flagship on them; the summed roofline bounds must not exceed
    the measured full forward;
-13. prints the kernels' JSON line, then the result line.
+14. prints the kernels' JSON line, then the result line.
 
 Nothing here, and nothing of the port it drives, imports JAX or the JAX
 package.
@@ -1799,6 +1809,326 @@ def input_phase(model, params, card: dict) -> dict:
     return out
 
 
+MESH_BIG_BATCH = TRAIN_BIG_BATCH  # the b128 bf16 step
+MESH_TIMED, MESH_WARMUP = 10, 3
+MESH_CLI_TRAIN, MESH_CLI_VAL = 2 * BATCH, BATCH  # cli.train: 2 steps, 1 val batch
+MESH_CLI_LR = 1e-5  # the port's f32 CLI comparisons train at a small lr
+
+
+@contextlib.contextmanager
+def _count_collectives():
+    """Counts the process-group collectives issued inside (all_reduce and
+    all_gather: the only two the port's mesh path calls)."""
+    import torch.distributed as dist
+
+    counts = {"all_reduce": 0, "all_gather": 0}
+    saved = {name: getattr(dist, name) for name in counts}
+
+    def counting(name):
+        def call(*a, **kw):
+            counts[name] += 1
+            return saved[name](*a, **kw)
+        return call
+
+    for name in counts:
+        setattr(dist, name, counting(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+def _mesh_step_check(label: str, model, params, x, d, tc, mesh, **kw) -> dict:
+    """One step with the mesh, one without (f32, same tree and batch, cuDNN
+    deterministic) and an f64 step on the card as the momentum's
+    reference: the train phase's bounds (loss rtol 1e-4; parameters and
+    running statistics 1e-4; the momentum within 4x of the no-mesh f32
+    step's own distance to the f64 one)."""
+    import copy
+
+    from fastdepth_tpu_torch.train import sgd_init
+    from fastdepth_tpu_torch.train.trainer import make_train_step
+
+    states, losses = {}, {}
+    with _deterministic():
+        for name, dtype, m in (("mesh", torch.float32, mesh), ("plain", torch.float32, None),
+                               ("f64", torch.float64, None)):
+            st = sgd_init(copy.deepcopy(params).to(device="cuda", dtype=dtype))
+            st, loss = make_train_step(model, tc, mesh=m, **kw)(
+                st, x.to(dtype), d.to(dtype), tc.lr)
+            states[name], losses[name] = _host_state(st), float(loss)
+    trainable, stats, mom = _split_keys(states["plain"])
+    a, b, ref = states["mesh"], states["plain"], states["f64"]
+    row = {"loss_mesh": losses["mesh"], "loss_plain": losses["plain"],
+           "loss_rel_diff": abs(losses["mesh"] - losses["plain"]) / abs(losses["plain"]),
+           "params_max_abs_diff": _max_diff(a, b, trainable),
+           "stats_max_abs_diff": _max_diff(a, b, stats),
+           "momentum_mesh_vs_f64": _max_diff(a, ref, mom),
+           "momentum_plain_vs_f64": _max_diff(b, ref, mom)}
+    print(f"mesh {label}: {json.dumps(row)}")
+    if not (row["loss_rel_diff"] <= 1e-4 and row["params_max_abs_diff"] <= 1e-4
+            and row["stats_max_abs_diff"] <= 1e-4
+            and row["momentum_mesh_vs_f64"] <= 4 * row["momentum_plain_vs_f64"]):
+        fail(f"mesh {label}: the step over the mesh disagrees with the step without: {row}")
+    return row
+
+
+def _event_ms(fn) -> float:
+    """Median of MESH_TIMED calls of ``fn`` after MESH_WARMUP, CUDA events
+    around each call (host launch time included)."""
+    for _ in range(MESH_WARMUP):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(MESH_TIMED):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def _mesh_times(model, params, mesh, card: dict) -> dict:
+    """The mesh's cost at world size 1, in turns (plain, mesh, mesh, plain)
+    inside this call: the train step at b8 f32 and b128 bf16, and the
+    eval step at b8 f32 (forward, metrics and the metric fetch: the
+    mesh's all-gather), each the median of 10 after 3; and the
+    collectives one step issues."""
+    from fastdepth_tpu_torch import Evaluator
+    from fastdepth_tpu_torch.config import TrainConfig
+    from fastdepth_tpu_torch.train import Trainer
+
+    import torch.distributed as dist
+
+    out = {}
+    small = torch.ones(64, device="cuda")
+
+    def hundred_all_reduces():
+        for _ in range(100):
+            dist.all_reduce(small, group=mesh.group)
+
+    # host clock around 100 calls and a sync: a collective's cost as the
+    # step pays it (launch and bookkeeping; the kernel is a copy at world 1)
+    us = []
+    for _ in range(MESH_WARMUP + MESH_TIMED):
+        t0 = time.perf_counter()
+        hundred_all_reduces()
+        torch.cuda.synchronize()
+        us.append((time.perf_counter() - t0) * 1e4)
+    out["all_reduce_64_us"] = float(np.median(us[MESH_WARMUP:]))
+    print(f"mesh: one all-reduce of 64 floats {out['all_reduce_64_us']:.1f} us on "
+          f"{card['nvidia_smi']} (median of {MESH_TIMED} runs of 100 calls)")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for batch, name, dtype in ((BATCH, "f32", None), (MESH_BIG_BATCH, "bf16", torch.bfloat16)):
+        x = torch.rand(batch, *OUTPUT_HW, 3, generator=gen, device="cuda")
+        d = torch.rand(batch, *OUTPUT_HW, 1, generator=gen, device="cuda") * 9.5 + 0.5
+        trainers = {m: Trainer(model, params, TrainConfig(lr=TRAIN_LR), compute_dtype=dtype,
+                               mesh=mesh if m == "mesh" else None,
+                               device=None if m == "mesh" else "cuda")
+                    for m in ("plain", "mesh")}
+
+        def run(m):
+            tr = trainers[m]
+            tr.state, _ = tr._step(tr.state, x, d, TRAIN_LR)
+
+        ms = {"plain": [], "mesh": []}
+        for m in ("plain", "mesh", "mesh", "plain"):
+            ms[m].append(_event_ms(lambda: run(m)))
+        with _count_collectives() as calls:
+            run("mesh")
+        torch.cuda.synchronize()
+        row = {"plain_ms": ms["plain"], "mesh_ms": ms["mesh"],
+               "mesh_over_plain": float(np.mean(ms["mesh"]) / np.mean(ms["plain"])),
+               "collectives_per_step": dict(calls)}
+        print(f"mesh train step b{batch} {name} on {card['nvidia_smi']}: {json.dumps(row)}")
+        out[f"train_b{batch}_{name}"] = row
+        del trainers
+        torch.cuda.empty_cache()
+
+    x = torch.rand(BATCH, *OUTPUT_HW, 3, generator=gen, device="cuda")
+    d = torch.rand(BATCH, *OUTPUT_HW, 1, generator=gen, device="cuda") * 9.5 + 0.5
+    evs = {m: Evaluator(model, params, batch_size=BATCH, mesh=mesh if m == "mesh" else None,
+                        device=None if m == "mesh" else "cuda") for m in ("plain", "mesh")}
+
+    def eval_step(m):
+        evs[m].fetch(evs[m](x, d)[1], dim=1)  # the fetch is the sync
+
+    ms = {"plain": [], "mesh": []}
+    for m in ("plain", "mesh", "mesh", "plain"):
+        for _ in range(MESH_WARMUP):
+            eval_step(m)
+        times = []
+        for _ in range(MESH_TIMED):
+            t0 = time.perf_counter()
+            eval_step(m)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[m].append(float(np.median(times)))
+    with _count_collectives() as calls:
+        eval_step("mesh")
+    row = {"plain_ms": ms["plain"], "mesh_ms": ms["mesh"],
+           "mesh_over_plain": float(np.mean(ms["mesh"]) / np.mean(ms["plain"])),
+           "collectives_per_step": dict(calls), "clock": "host, ends with the metric fetch"}
+    print(f"mesh eval step b{BATCH} f32 on {card['nvidia_smi']}: {json.dumps(row)}")
+    out[f"eval_b{BATCH}_f32"] = row
+    return out
+
+
+def _mesh_clis(model, params, tmp: str) -> dict:
+    """cli.train (one epoch, resumed from the committed weights) and
+    cli.evaluate over its model_best.npz, each with --mesh-devices 1 and
+    without, on seeded frames and without PNGs (parallel/dryrun's
+    seeded_frames, without_train_images: the card machine has no h5py and
+    no matplotlib); their CSVs and checkpoints compared by
+    parallel/dryrun.compare within the train step's 1e-4.  Then
+    --mesh-devices 2 must exit up front, naming the one card."""
+    from fastdepth_tpu_torch.checkpoint.io import save_train_checkpoint
+    from fastdepth_tpu_torch.cli import evaluate as eval_cli
+    from fastdepth_tpu_torch.cli import train as train_cli
+    from fastdepth_tpu_torch.config import TrainConfig
+    from fastdepth_tpu_torch.parallel import dryrun as DR
+    from fastdepth_tpu_torch.train import Trainer
+
+    root = os.path.join(tmp, "data")
+    for split, n in (("train", MESH_CLI_TRAIN), ("val", MESH_CLI_VAL)):
+        _seeded_split(os.path.join(root, "nyudepthv2"), split, n)
+    start = os.path.join(tmp, "start.npz")  # epoch -1: the CLI resumes at epoch 0
+    save_train_checkpoint(start, Trainer(model, params, TrainConfig(), device="cuda").state,
+                          model.config, epoch=-1)
+    outs = {}
+    for name, extra in (("plain", []), ("mesh1", ["--mesh-devices", "1"])):
+        out = outs[name] = os.path.join(tmp, name)
+        with DR.seeded_frames(), DR.without_train_images(), contextlib.redirect_stdout(
+                io.StringIO()):
+            train_cli.main(["--data-root", root, "--resume", start, "--epochs", "1",
+                            "--batch-size", str(BATCH), "--eval-batch-size", str(BATCH),
+                            "--workers", "4", "--print-freq", "0", "--lr", str(MESH_CLI_LR),
+                            "--output-dir", out, "--device", "cuda", *extra])
+            eval_cli.main(["--evaluate", os.path.join(out, "model_best.npz"), "--data-root",
+                           root, "--batch-size", str(BATCH), "--print-freq", "0",
+                           "--no-images", "--csv", os.path.join(out, "eval.csv"),
+                           "--device", "cuda", *extra])
+    report = DR.compare(outs["plain"], outs["mesh1"], epochs=1)["checks"]
+    print(f"mesh CLIs --mesh-devices 1 vs none (1 epoch at lr {MESH_CLI_LR}): "
+          f"{json.dumps(report)}")
+    bad = {k: v for k, v in report.items() if (v > 1e-4 if k.endswith("_rel_diff") else not v)}
+    if bad:
+        fail(f"the --mesh-devices 1 CLIs disagree with the runs without a mesh: {bad}")
+
+    refused = os.path.join(tmp, "refused")
+    try:
+        train_cli.main(["--data-root", root, "--mesh-devices", "2", "--output-dir", refused,
+                        "--device", "cuda"])
+    except SystemExit as e:
+        message = str(e)
+    else:
+        fail("cli.train --mesh-devices 2 ran on one card")
+    print(f"mesh CLI --mesh-devices 2 on one card: exits with {message!r}")
+    if not re.fullmatch(r"need 2 devices for the mesh, have 1", message) or os.path.exists(
+            refused):
+        fail(f"--mesh-devices 2 on one card: {message!r}, wrote output: "
+             f"{os.path.exists(refused)}")
+    return {"compare": report, "refusal": message}
+
+
+def mesh_phase(model, params, card: dict) -> dict:
+    """Data parallelism (parallel/) on the one card, at world size 1 over
+    NCCL: the same code as more ranks, every collective issued:
+    - the train step with the mesh against the step without (b8 f32,
+      accum_steps 2, the train phase's bounds; b8 bf16, loss rtol 3e-3);
+    - Evaluator(mesh) against Evaluator(mesh=None) over seeded val frames:
+      metric rows 0 apart (world 1 gathers a copy), K1 launched 5 times
+      and K4 once a forward;
+    - the times and collectives of _mesh_times;
+    - cli.train / cli.evaluate --mesh-devices 1 against the runs without
+      a mesh, and --mesh-devices 2 refused up front;
+    - two ranks over gloo on this machine's CPU: parallel/dryrun.py."""
+    import torch.distributed as dist
+
+    from fastdepth_tpu_torch import BatchLoader, Evaluator
+    from fastdepth_tpu_torch.config import TrainConfig
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+    from fastdepth_tpu_torch.parallel.distributed import init_group
+    from fastdepth_tpu_torch.parallel.mesh import make_mesh
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_group("cuda", 0, 1, store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        try:
+            mesh = make_mesh(1)
+            print(f"mesh: {mesh.shape} on {mesh.device}, backend {dist.get_backend()}")
+            if dist.get_backend() != "nccl" or mesh.device.type != "cuda":
+                fail(f"the card's mesh runs over {dist.get_backend()} on {mesh.device}")
+            train_ds, val_ds = _seeded_datasets(os.path.join(tmp, "nyudepthv2"))
+            rgb, depth, _ = next(iter(BatchLoader(train_ds, batch_size=BATCH, shuffle=True,
+                                                  drop_last=True, pad_last=False,
+                                                  num_workers=4)))
+            x, d = torch.from_numpy(rgb).cuda(), torch.from_numpy(depth).cuda()
+            tc = TrainConfig(lr=TRAIN_LR, weight_decay=1e-4)
+            out["step_f32"] = _mesh_step_check(f"b{BATCH} f32 step", model, params, x, d, tc,
+                                               mesh)
+            out["step_accum2"] = _mesh_step_check(f"b{BATCH} f32 accum_steps=2 step", model,
+                                                  params, x, d, tc, mesh, accum_steps=2)
+            losses = {}
+            for name, m in (("mesh", mesh), ("plain", None)):
+                from fastdepth_tpu_torch.train import Trainer
+
+                tr = Trainer(model, params, tc, compute_dtype=torch.bfloat16, mesh=m,
+                             device=None if m is not None else "cuda")
+                losses[name] = float(tr._step(tr.state, x, d, tc.lr)[1])
+            rel = abs(losses["mesh"] - losses["plain"]) / abs(losses["plain"])
+            print(f"mesh b{BATCH} bf16 step: loss {losses['mesh']:.6f} vs {losses['plain']:.6f} "
+                  f"without the mesh (rel {rel:.2e}, bound 3e-3)")
+            if not rel <= 3e-3:
+                fail(f"mesh bf16 step: loss {losses} (rel {rel})")
+            out["step_bf16_loss_rel_diff"] = rel
+
+            # evaluation: the metric rows, and the kernels' launches
+            loader = BatchLoader(val_ds, batch_size=BATCH, num_workers=4, pad_last=True)
+            ev_m = Evaluator(model, params, batch_size=BATCH, mesh=mesh)
+            ev_p = Evaluator(model, params, batch_size=BATCH, device="cuda")
+            rows_m, rows_p = [], []
+            _reset(K1, K4)
+            for rgb, depth, count in loader:
+                rows_m.append(ev_m.fetch(ev_m(ev_m.put(rgb), ev_m.put(depth))[1], dim=1))
+            torch.cuda.synchronize()
+            k1, k4 = _counts(K1, K4)
+            for rgb, depth, count in loader:
+                rows_p.append(ev_p(ev_p.put(rgb), ev_p.put(depth))[1].cpu().numpy())
+            forwards = len(rows_m)
+            # entries that differ (an inf or NaN metric equals itself here)
+            apart = sum(int((~((a == b) | (np.isnan(a) & np.isnan(b)))).sum())
+                        for a, b in zip(rows_m, rows_p))
+            print(f"mesh eval b{BATCH} f32: {forwards} batches, {apart} metric entries apart; "
+                  f"K1 {k1}, K4 {k4} launches")
+            if apart:
+                fail(f"Evaluator(mesh): {apart} metric entries differ from Evaluator(mesh=None)'s")
+            if (k1, k4) != (STAGES_PER_FORWARD * forwards, forwards):
+                fail(f"Evaluator(mesh): K1 launched {k1} and K4 {k4} times over {forwards} "
+                     f"forwards, want {STAGES_PER_FORWARD} and 1 per forward")
+            out["eval"] = {"batches": forwards, "rows_apart": apart, "k1_launches": k1,
+                           "k4_launches": k4}
+            out["times"] = _mesh_times(model, params, mesh, card)
+        finally:
+            dist.destroy_process_group()
+        out["clis"] = _mesh_clis(model, params, tmp)
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fastdepth_tpu_torch.parallel.dryrun"],
+                          capture_output=True, text=True, cwd=REPO, timeout=600)
+    seconds = time.perf_counter() - t0
+    report = proc.stdout[proc.stdout.find("{"):] if "{" in proc.stdout else ""
+    print(f"mesh dryrun (two gloo ranks on the CPU, {seconds:.1f} s): {report}")
+    if proc.returncode != 0:
+        fail(f"parallel/dryrun.py failed ({proc.returncode}): {proc.stdout[-3000:]}"
+             f"{proc.stderr[-3000:]}")
+    out["dryrun"] = json.loads(report)
+    return out
+
+
 def probe_phase() -> dict:
     """The probe catalogue on the card.  The slice's path: every tag's
     kernel once, with K5's and K6's counts set to 0 just before and read
@@ -1952,6 +2282,7 @@ def main() -> None:
     zoo_phase(card)
     train_phase(model, params)
     input_phase(model, params, card)
+    mesh_phase(model, params, card)
     kernels.update(probe_phase())
     tools_phase()
     # launches: each kernel's count on the f32 run of its path (K1: the

@@ -1,7 +1,8 @@
 """fastdepth_tpu_torch — the PyTorch/CUDA port of fastdepth_tpu.
 
 The same FastDepth models, metrics, evaluation and training as the JAX
-package beside it, on one NVIDIA GPU (written for the H100): PyTorch for the
+package beside it, on NVIDIA GPUs (written for the H100; data-parallel
+over several, one ``torch.distributed`` rank each): PyTorch for the
 plain tensor code, cuDNN for the encoder's convolutions, and a kernel
 written by hand in CUDA C++ for every kernel the JAX package wrote in
 Pallas for the TPU (``ops/cuda/``).  Module paths mirror
@@ -46,6 +47,15 @@ _EXPORTS = {
     "train_step": "fastdepth_tpu_torch.train.trainer",
     "l1_loss": "fastdepth_tpu_torch.train.loss",
     "masked_l1_loss": "fastdepth_tpu_torch.train.loss",
+    # the mesh (JAX's replicate / shard_batch / shard_activations are
+    # sharding objects: a port tensor lives on its rank's device, and
+    # put_replicated / put_sharded place it there)
+    "make_mesh": "fastdepth_tpu_torch.parallel.mesh",
+    "make_mesh_2d": "fastdepth_tpu_torch.parallel.mesh",
+    "mesh_from_cli": "fastdepth_tpu_torch.parallel.mesh",
+    "put_replicated": "fastdepth_tpu_torch.parallel.mesh",
+    "put_sharded": "fastdepth_tpu_torch.parallel.mesh",
+    "fetch_global": "fastdepth_tpu_torch.parallel.mesh",
     "NYUDataset": "fastdepth_tpu_torch.data.nyu",
     "BatchLoader": "fastdepth_tpu_torch.data.loader",
     "ValPipeline": "fastdepth_tpu_torch.data.pipeline",

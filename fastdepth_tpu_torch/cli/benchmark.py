@@ -168,14 +168,14 @@ def eval_run(dataset, model, params, args) -> dict:
         "frames": len(dataset),
         "batch_size": args.batch_size,
         "dtype": "bf16" if args.bf16 else "fp32",
-        "elapsed_s": elapsed,
-        "fps": len(dataset) / elapsed,
+        "elapsed_s": round(elapsed, 3),
+        "fps": round(len(dataset) / elapsed, 1),
         "workers": args.workers,
         "device_preprocess": bool(dataset.raw_items),
         "device": _device_name(args.device),
     }
     print(json.dumps(result) if args.json else
-          f"=> {result['frames']} frames in {elapsed:.3f}s = {result['fps']:.1f} fps "
+          f"=> {result['frames']} frames in {result['elapsed_s']}s = {result['fps']} fps "
           f"(batch {args.batch_size}, {result['dtype']}, {result['device']})")
     return result
 
@@ -218,13 +218,13 @@ def train_run(dataset, model, params, args) -> dict:
         "workers": args.workers,
         "worker_mode": args.worker_mode,
         "device_augment": bool(dataset.device_augment),
-        "elapsed_s": elapsed,
-        "fps": frames / elapsed,
-        "final_loss": float(loss),
+        "elapsed_s": round(elapsed, 3),
+        "fps": round(frames / elapsed, 1),
+        "final_loss": round(float(loss), 4),
         "device": _device_name(args.device),
     }
     print(json.dumps(result) if args.json else
-          f"=> {frames} frames in {elapsed:.3f}s = {result['fps']:.1f} "
+          f"=> {frames} frames in {result['elapsed_s']}s = {result['fps']} "
           f"train-fps (batch {args.batch_size}, {result['dtype']}, "
           f"{args.workers} workers, {result['device']})")
     return result

@@ -10,7 +10,11 @@ pickle, converted on load by the port's copy of the converter
 (unpickling a full-module checkpoint executes code: pass TRUSTED .pth
 files only).  Extras over the reference CLI: --batch-size, --bf16,
 --no-fold-bn, --impl, --device-normalize, --device-preprocess, --no-images,
---split, --csv, --device.
+--split, --csv, --device, and the JAX CLI's data parallelism:
+``--mesh-devices N`` evaluates over N ranks, one a device (``parallel/``),
+spawned here or one a process under ``--coord``; each rank runs its rows
+of every batch, and rank 0 prints and writes.  Parsed and refused:
+``--mesh-spatial`` (ROADMAP A12b), ``--impl mixed`` / ``--tuning`` (A14).
 """
 
 from __future__ import annotations
@@ -21,10 +25,14 @@ import os
 import torch
 
 from fastdepth_tpu_torch.engine.aot import IMPLS, strict_f32
+from fastdepth_tpu_torch.engine.server import TUNED_NOT_PORTED
+from fastdepth_tpu_torch.parallel import distributed as D
+from fastdepth_tpu_torch.parallel.mesh import check_cli_mesh, mesh_from_cli
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="FastDepth evaluation (PyTorch/CUDA port)")
+    D.add_distributed_args(p)
     # reference flags (utils.py:12-34)
     p.add_argument("--data", metavar="DATA", default="nyudepthv2",
                    choices=["nyudepthv2"], help="dataset name")
@@ -39,11 +47,19 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true",
                    help="run the model in bfloat16; without it f32 is true f32 (TF32 off "
                         "for cuDNN's convolutions and for matmuls)")
+    p.add_argument("--mesh-devices", default=None, type=int,
+                   help="shard batches over this many ranks, one a device (default: no "
+                        "mesh; alone: spawned on this host; with --coord: N processes)")
+    p.add_argument("--mesh-spatial", default=None, type=int, metavar="S",
+                   help="shard image height S-way: not ported yet (ROADMAP A12b)")
     p.add_argument("--no-fold-bn", action="store_true",
                    help="keep BatchNorm unfolded (exact reference numerics)")
-    p.add_argument("--impl", default="auto", choices=list(IMPLS),
+    p.add_argument("--tuning", default=None, metavar="JSON",
+                   help="with --impl mixed: a tuning record; not ported yet (ROADMAP A14)")
+    p.add_argument("--impl", default="auto", choices=[*IMPLS, "mixed"],
                    help="forward: auto = decoder levels through the fused CUDA "
-                        "kernel when the architecture allows and BN is folded")
+                        "kernel when the architecture allows and BN is folded; mixed "
+                        "is not ported yet (ROADMAP A14)")
     p.add_argument("--no-images", action="store_true", help="skip comparison PNGs")
     p.add_argument("--split", default="val", choices=["val", "holdout"],
                    help="dataset split (holdout = the two NetAdapt files, nyu.py:13-24)")
@@ -79,29 +95,47 @@ def load_params_and_model(path: str):
 
 
 def main(argv=None):
+    """Parse and check the flags, then evaluate on every rank they ask for
+    (``parallel.distributed.launch``); returns the ``Result``."""
     args = parse_args(argv)
-    if not args.bf16:
-        strict_f32()  # f32 is true f32; bf16 runs leave the flags as they are
+    if args.impl == "mixed" or args.tuning is not None:
+        raise SystemExit(TUNED_NOT_PORTED)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run the plain PyTorch versions)")
+    check_cli_mesh(args.mesh_devices, args.mesh_spatial, batch_size=args.batch_size)
     if not os.path.isfile(args.evaluate):
         raise SystemExit(f"=> no model found at '{args.evaluate}'")
-    print(f"=> loading model '{args.evaluate}'")
+    return D.launch(_main, args)
+
+
+def _main(args):
+    """One rank's run of the CLI (the whole run without a mesh)."""
+    distributed = D.process_count() > 1
+    D.validate_distributed_batches(distributed, args.mesh_devices,
+                                   **{"--batch-size": args.batch_size})
+    # under --device-preprocess each rank's rows are raw frames, resized on
+    # its device inside the step
+    mesh = mesh_from_cli(args.mesh_devices, None, batch_size=args.batch_size)
+    primary = D.is_primary()
+    log = print if primary else (lambda *a, **k: None)
+    if not args.bf16:
+        strict_f32()  # f32 is true f32; bf16 runs leave the flags as they are
+    log(f"=> loading model '{args.evaluate}'")
     params, model, meta = load_params_and_model(args.evaluate)
-    print(f"=> loaded model (epoch {meta.get('epoch', 0)})")
+    log(f"=> loaded model (epoch {meta.get('epoch', 0)})")
 
     from fastdepth_tpu_torch.data import BatchLoader, NYUDataset
     from fastdepth_tpu_torch.engine import Evaluator, validate
 
-    print("=> creating data loaders...")
+    log("=> creating data loaders...")
     valdir = os.path.join(args.data_root, args.data, "val")
     dataset = NYUDataset(valdir, split=args.split, modality=args.modality,
                          device_normalize=args.device_normalize,
                          raw_items=args.device_preprocess)
     loader = BatchLoader(dataset, batch_size=args.batch_size,
-                         num_workers=args.workers, pad_last=True)
-    print("=> data loaders created.")
+                         num_workers=args.workers, pad_last=True, **D.shard_kwargs())
+    log("=> data loaders created.")
 
     evaluator = Evaluator(
         model, params,
@@ -110,17 +144,21 @@ def main(argv=None):
         fold_bn=not args.no_fold_bn,
         impl=args.impl,
         val_pipeline=dataset.val_pipeline if args.device_preprocess else None,
-        device=args.device,
+        mesh=mesh,
+        device=None if mesh is not None else args.device,
     )
+    # comparison strips stay off over several ranks: each holds only its
+    # rows, so the strip's global image indices are not all on one rank
     return validate(
         loader, evaluator,
         epoch=meta.get("epoch", 0),
         print_freq=args.print_freq,
-        output_dir=os.path.dirname(os.path.abspath(args.evaluate)),
-        make_images=not args.no_images,
+        output_dir=os.path.dirname(os.path.abspath(args.evaluate)) if primary else None,
+        make_images=not args.no_images and not distributed,
         viz_transform=dataset.val_pipeline if args.device_preprocess else None,
-        write_to_file=args.csv is not None,
+        write_to_file=args.csv is not None and primary,
         csv_path=args.csv,
+        log=log,
     )
 
 

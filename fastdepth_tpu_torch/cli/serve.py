@@ -18,7 +18,7 @@ Client modes against a running daemon (no model load):
         --ping path/to/rgb.npy [--stream N]
     python -m fastdepth_tpu_torch.cli.serve --socket /tmp/fastdepth.sock --stats
 
-Not ported yet: ``--mesh-devices`` / ``--mesh-spatial`` (ROADMAP A12) and
+Not ported yet: ``--mesh-devices`` / ``--mesh-spatial`` (ROADMAP A12b) and
 ``--impl mixed`` / ``--tuning`` (ROADMAP A14); they are parsed under the
 JAX names and refused.
 """
@@ -69,10 +69,10 @@ def parse_args(argv=None):
                         "from --socket (frames, occupancy, p50/p99 request "
                         "latency) and print it")
     p.add_argument("--mesh-spatial", type=int, default=None, metavar="S",
-                   help="shard image height S-way: not ported yet (ROADMAP A12)")
+                   help="shard image height S-way: not ported yet (ROADMAP A12b)")
     p.add_argument("--mesh-devices", type=int, default=None, metavar="N",
                    help="shard each packed batch over N devices: not ported yet "
-                        "(ROADMAP A12)")
+                        "(ROADMAP A12b)")
     p.add_argument("--image-size", type=int, nargs=2, default=(224, 224),
                    metavar=("H", "W"))
     p.add_argument("--ping", default=None, metavar="RGB_NPY",

@@ -8,6 +8,7 @@ Usage:
     python -m fastdepth_tpu_torch.cli.train --data-root ../data [--epochs 20]
         [--pretrained-encoder imagenet.npz|model_best.pth.tar]
         [--arch mobilenet-nnconv5dw-skipadd] [--bf16] [--device-augment]
+        [--mesh-devices N [--coord HOST:PORT --num-processes N --process-id K]]
         [--device cuda|cpu]
 
 ``--arch`` takes any name of the model registry (``models.from_name``):
@@ -19,8 +20,10 @@ Writes ``train.csv``, ``test.csv``, ``model_best.npz`` and the resumable
 ``checkpoint.npz`` into --output-dir, in the JAX package's formats: a
 checkpoint of either CLI resumes in the other.  ``--device-augment``
 ships raw frames and the augmentation's parameters and augments on the
-card (``data/device_aug.py``).  The multi-process and mesh flags (ROADMAP
-A12) are parsed under the JAX names and refused.
+card (``data/device_aug.py``).  ``--mesh-devices N`` trains data-parallel
+over N ranks, one a device (``parallel/``): spawned here, or one a process
+under ``--coord`` (the JAX package's flags); every rank trains its rows of
+each global batch, and only rank 0 prints and writes files.
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import time
 import torch
 
 from fastdepth_tpu_torch.engine.aot import strict_f32
-from fastdepth_tpu_torch.train.trainer import MESH_NOT_PORTED
+from fastdepth_tpu_torch.parallel import distributed as D
+from fastdepth_tpu_torch.parallel.mesh import check_cli_mesh, mesh_from_cli
 
 
 def parse_args(argv=None):
@@ -46,15 +50,7 @@ def parse_args(argv=None):
                    help="train an explicit ModelConfig loaded from a JSON "
                         "file (per-layer channel lists — how pruned nets "
                         "are specified) instead of a registry --arch name")
-    g = p.add_argument_group("distributed", "multi-process training: not ported yet "
-                                            "(ROADMAP A12); any of these flags is refused")
-    g.add_argument("--coord", default=os.environ.get("FDTPU_COORD"), metavar="HOST:PORT")
-    g.add_argument("--num-processes", type=int, metavar="N",
-                   default=int(os.environ["FDTPU_NUM_PROCESSES"])
-                   if os.environ.get("FDTPU_NUM_PROCESSES") else None)
-    g.add_argument("--process-id", type=int, metavar="K",
-                   default=int(os.environ["FDTPU_PROCESS_ID"])
-                   if os.environ.get("FDTPU_PROCESS_ID") else None)
+    D.add_distributed_args(p)
     p.add_argument("--pretrained-encoder", default=None,
                    help="ImageNet MobileNet ckpt (torch .pth.tar or .npz)")
     p.add_argument("--epochs", type=int, default=20)
@@ -71,7 +67,8 @@ def parse_args(argv=None):
                         "the JAX CLI's PRNGKey from the same seed) and the data's "
                         "shuffles and augmentations (the same as the JAX CLI's)")
     p.add_argument("--mesh-devices", type=int, default=None,
-                   help="data-parallel training: not ported yet (ROADMAP A12)")
+                   help="data-parallel training over N ranks, one a device (alone: "
+                        "spawned on this host; with --coord: N processes)")
     p.add_argument("--remat", action="store_true",
                    help="recompute the forward in the backward (torch.utils.checkpoint): "
                         "trades FLOPs for activation memory at large batch/resolution")
@@ -119,26 +116,60 @@ def load_pretrained_encoder(path: str):
     return enc
 
 
-def _refuse_unported(args) -> None:
-    if args.mesh_devices is not None or any(
-            v is not None for v in (args.coord, args.num_processes, args.process_id)):
-        raise SystemExit(MESH_NOT_PORTED)
-
-
-def main(argv=None):
-    args = parse_args(argv)
-    _refuse_unported(args)
-    if not args.bf16:
-        strict_f32()  # f32 is true f32; bf16 runs leave the flags as they are
+def _check_args(args) -> None:
+    """Every check the flags alone decide, SystemExit before any rank
+    starts or anything loads (the JAX CLI's, and the card's presence)."""
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run the plain PyTorch versions)")
+    check_cli_mesh(args.mesh_devices, None, batch_size=args.batch_size)
+    if args.mesh_devices and args.eval_batch_size % args.mesh_devices:
+        raise SystemExit(
+            f"--eval-batch-size {args.eval_batch_size} must divide by "
+            f"--mesh-devices {args.mesh_devices}")
     if args.accum_steps < 1:
         raise SystemExit(f"--accum-steps must be >= 1, got {args.accum_steps}")
     if args.batch_size % args.accum_steps:
         raise SystemExit(
             f"--batch-size {args.batch_size} must divide by "
             f"--accum-steps {args.accum_steps} (equal microbatches)")
+    if args.mesh_devices and (args.batch_size // args.accum_steps) % args.mesh_devices:
+        raise SystemExit(
+            f"microbatch size {args.batch_size // args.accum_steps} "
+            f"(--batch-size / --accum-steps) must divide by "
+            f"--mesh-devices {args.mesh_devices}: each device scans its "
+            f"own microbatch rows")
+    if args.resume and args.pretrained_encoder:
+        raise SystemExit(
+            "--resume and --pretrained-encoder conflict: resume restores "
+            "the full checkpointed state, so the encoder load would be "
+            "discarded. Drop one of the two flags.")
+    if args.resume and args.arch_json:
+        raise SystemExit(
+            "--resume and --arch-json conflict: resume rebuilds the "
+            "model from the checkpoint's own config, so the JSON "
+            "architecture would be silently ignored. Drop one of the "
+            "two flags.")
+
+
+def main(argv=None):
+    """Parse and check the flags, then train on every rank they ask for
+    (``parallel.distributed.launch``); returns the best ``Result``."""
+    args = parse_args(argv)
+    _check_args(args)
+    return D.launch(_main, args)
+
+
+def _main(args):
+    """One rank's run of the CLI (the whole run without a mesh)."""
+    distributed = D.process_count() > 1
+    D.validate_distributed_batches(
+        distributed, args.mesh_devices,
+        **{"--batch-size": args.batch_size, "--eval-batch-size": args.eval_batch_size})
+    mesh = mesh_from_cli(args.mesh_devices, None, batch_size=args.batch_size)
+    log = print if D.is_primary() else (lambda *a, **k: None)
+    if not args.bf16:
+        strict_f32()  # f32 is true f32; bf16 runs leave the flags as they are
 
     from fastdepth_tpu_torch.checkpoint import params_from_jax
     from fastdepth_tpu_torch.checkpoint.io import load_train_checkpoint
@@ -147,18 +178,7 @@ def main(argv=None):
 
     resume_tree = resume_meta = None
     if args.resume:
-        if args.pretrained_encoder:
-            raise SystemExit(
-                "--resume and --pretrained-encoder conflict: resume restores "
-                "the full checkpointed state, so the encoder load would be "
-                "discarded. Drop one of the two flags.")
-        if args.arch_json:
-            raise SystemExit(
-                "--resume and --arch-json conflict: resume rebuilds the "
-                "model from the checkpoint's own config, so the JSON "
-                "architecture would be silently ignored. Drop one of the "
-                "two flags.")
-        print(f"=> resuming from '{args.resume}'")
+        log(f"=> resuming from '{args.resume}'")
         resume_tree, ckpt_cfg, resume_meta = load_train_checkpoint(args.resume)
         model = build(ckpt_cfg)
         params = model.load(params_from_jax(resume_tree["params"]))
@@ -169,21 +189,25 @@ def main(argv=None):
             model = build(config_from_json(args.arch_json))
         else:
             model = from_name(args.arch)
+        # seeded init: every rank derives identical params
         params = model.init(torch.Generator().manual_seed(args.seed))
         if args.pretrained_encoder:
-            print(f"=> loading pretrained encoder '{args.pretrained_encoder}'")
+            log(f"=> loading pretrained encoder '{args.pretrained_encoder}'")
             enc = params_from_jax({"encoder": load_pretrained_encoder(args.pretrained_encoder)})
             unexpected = params.load_state_dict(enc, strict=False).unexpected_keys
             if unexpected:
                 raise SystemExit(f"--pretrained-encoder: leaves the model lacks: {unexpected}")
 
-    print("=> creating data loaders...")
+    log("=> creating data loaders...")
     root = os.path.join(args.data_root, args.data)
     train_ds = NYUDataset(os.path.join(root, "train"), split="train", seed=args.seed,
                           device_augment=args.device_augment)
     val_ds = NYUDataset(os.path.join(root, "val"), split="val")
+    # comparison strips stay off over several ranks: each holds only its
+    # rows, so the strip's global image indices are not all on one rank
     return train_loop(args, model, params, train_ds, val_ds,
-                      resume=(resume_tree, resume_meta) if resume_tree is not None else None)
+                      resume=(resume_tree, resume_meta) if resume_tree is not None else None,
+                      log=log, make_images=not distributed, mesh=mesh)
 
 
 @contextlib.contextmanager
@@ -198,14 +222,17 @@ def _tf32_as_found():
 
 
 def train_loop(args, model, params, train_ds, val_ds, resume=None, log=print,
-               make_images=True):
+               make_images=True, mesh=None):
     """The epoch loop of :func:`main` over two datasets: train, validate
     (``Evaluator`` + ``validate()``, the port's kernels on the card),
     track the best RMSE, write the CSVs and checkpoints.  ``resume`` is
     ``(tree, meta)`` from ``load_train_checkpoint``; ``make_images``
     writes validate()'s comparison PNGs (they need matplotlib).  The
     trainer augments on the device when ``train_ds`` emits device-augment
-    items (``--device-augment``).  Returns the best ``Result``."""
+    items (``--device-augment``).  ``mesh``: a data mesh over the job's
+    ranks; every rank calls this, each loads its rows of every batch, and
+    only rank 0 writes files.  Returns the best ``Result`` (global: the
+    same on every rank)."""
     from fastdepth_tpu_torch.checkpoint.io import save_checkpoint, save_train_checkpoint
     from fastdepth_tpu_torch.checkpoint import params_to_jax
     from fastdepth_tpu_torch.config import TrainConfig
@@ -214,25 +241,31 @@ def train_loop(args, model, params, train_ds, val_ds, resume=None, log=print,
     from fastdepth_tpu_torch.metrics import Result
     from fastdepth_tpu_torch.train import Trainer
 
+    primary = D.is_primary()
+
     tc = TrainConfig(
         lr=args.lr, momentum=args.momentum, weight_decay=args.weight_decay,
         epochs=args.epochs, batch_size=args.batch_size,
         lr_decay_step=args.lr_decay_step, lr_decay_gamma=args.lr_decay_gamma,
         seed=args.seed,
     )
+    # each rank loads only its rows of every global batch (its share of
+    # each microbatch under --accum-steps); the same seed gives every rank
+    # the same shuffles
     train_loader = BatchLoader(train_ds, batch_size=args.batch_size, shuffle=True,
                                num_workers=args.workers, drop_last=True, pad_last=False,
-                               seed=args.seed)
+                               seed=args.seed, **D.shard_kwargs(args.accum_steps))
     val_loader = BatchLoader(val_ds, batch_size=args.eval_batch_size,
-                             num_workers=args.workers, pad_last=True)
+                             num_workers=args.workers, pad_last=True, **D.shard_kwargs())
     log(f"=> {len(train_ds)} train / {len(val_ds)} val images")
 
-    trainer = Trainer(model, params, tc, remat=args.remat,
+    trainer = Trainer(model, params, tc, mesh=mesh, remat=args.remat,
                       compute_dtype=torch.bfloat16 if args.bf16 else None,
                       accum_steps=args.accum_steps, device_augment=train_ds.device_augment,
-                      device=args.device)
+                      device=None if mesh is not None else args.device)
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    if primary:
+        os.makedirs(args.output_dir, exist_ok=True)
     train_csv = os.path.join(args.output_dir, "train.csv")
     test_csv = os.path.join(args.output_dir, "test.csv")
     best = Result().set_to_worst()
@@ -253,39 +286,46 @@ def train_loop(args, model, params, train_ds, val_ds, resume=None, log=print,
         train_loader.set_epoch(epoch)  # resume-deterministic shuffles
         loss = trainer.run_epoch(train_loader, epoch, print_freq=args.print_freq, log=log)
         log(f"=> epoch {epoch}: train loss {loss:.4f} ({time.time() - t0:.1f}s)")
-        with open(train_csv, "a", newline="") as f:
-            w = csv.writer(f)
-            if f.tell() == 0:
-                w.writerow(["epoch", "loss"])
-            w.writerow([epoch, loss])
+        if primary:
+            with open(train_csv, "a", newline="") as f:
+                w = csv.writer(f)
+                if f.tell() == 0:
+                    w.writerow(["epoch", "loss"])
+                w.writerow([epoch, loss])
 
         with _tf32_as_found():
-            evaluator = Evaluator(model, trainer.state.params,
-                                  batch_size=args.eval_batch_size, device=args.device)
+            evaluator = Evaluator(model, trainer.state.params, batch_size=args.eval_batch_size,
+                                  mesh=mesh, device=None if mesh is not None else args.device)
+            # every rank validates (the metric fetch is a collective); the
+            # primary writes
             result = validate(val_loader, evaluator, epoch=epoch, print_freq=args.print_freq,
-                              output_dir=args.output_dir, write_to_file=True,
-                              csv_path=test_csv, make_images=make_images, log=log)
-        # best-epoch tracking by RMSE (reference main.py:20-24 semantics)
+                              output_dir=args.output_dir if primary else None,
+                              write_to_file=primary, csv_path=test_csv,
+                              make_images=make_images, log=log)
+        # best-epoch tracking by RMSE (reference main.py:20-24 semantics);
+        # the result is global, so every rank tracks the same best
         if result.rmse < best.rmse:
             best = result
             best_epoch = epoch
-            save_checkpoint(
-                os.path.join(args.output_dir, "model_best.npz"),
-                params_to_jax(trainer.state.params.state_dict()), model.config, epoch=epoch,
-                best_result={"rmse": best.rmse, "delta1": best.delta1,
-                             "mae": best.mae, "absrel": best.absrel},
-            )
+            if primary:
+                save_checkpoint(
+                    os.path.join(args.output_dir, "model_best.npz"),
+                    params_to_jax(trainer.state.params.state_dict()), model.config,
+                    epoch=epoch, best_result={"rmse": best.rmse, "delta1": best.delta1,
+                                              "mae": best.mae, "absrel": best.absrel},
+                )
             log(f"=> new best (epoch {epoch}): RMSE={best.rmse:.3f}")
         # the resume file: full training state (momentum + step), plus the
         # best-so-far record so resume keeps best tracking intact
-        save_train_checkpoint(
-            os.path.join(args.output_dir, "checkpoint.npz"),
-            trainer.state, model.config, epoch=epoch,
-            best_result={"rmse": best.rmse, "delta1": best.delta1,
-                         "mae": best.mae, "absrel": best.absrel}
-            if best_epoch >= 0 else {},
-            extra={"best_epoch": best_epoch},
-        )
+        if primary:
+            save_train_checkpoint(
+                os.path.join(args.output_dir, "checkpoint.npz"),
+                trainer.state, model.config, epoch=epoch,
+                best_result={"rmse": best.rmse, "delta1": best.delta1,
+                             "mae": best.mae, "absrel": best.absrel}
+                if best_epoch >= 0 else {},
+                extra={"best_epoch": best_epoch},
+            )
     log(f"=> done; best epoch {best_epoch}: RMSE={best.rmse:.3f} "
         f"Delta1={best.delta1:.3f}")
     return best

@@ -36,6 +36,31 @@ def _process_worker_get(index: int):
     return _WORKER_DS[index]
 
 
+def shard_rows(batch_size: int, num_shards: int = 1, shard_id: int = 0,
+               microbatches: int = 1) -> np.ndarray:
+    """Positions, within a global batch of ``batch_size``, of the rows
+    shard ``shard_id`` of ``num_shards`` loads.  With ``microbatches`` = 1
+    they are contiguous: ``[shard_id * k, (shard_id + 1) * k)``, k =
+    batch_size / num_shards.  With ``microbatches`` = m (a train step's
+    ``accum_steps``) the global batch is m microbatches of mb = batch_size
+    / m rows, and the shard takes its contiguous share of EACH:
+    ``i * mb + shard_id * mb / num_shards`` onward, mb / num_shards rows,
+    for i = 0 .. m - 1, microbatch after microbatch.  Splitting a shard's
+    contiguous rows m ways instead would put other rows into each
+    microbatch (other BatchNorm moments): the JAX mesh step's microbatch
+    i is the global rows ``[i * mb, (i + 1) * mb)`` over the data axis."""
+    if batch_size % microbatches:
+        raise ValueError(f"batch_size {batch_size} must divide by microbatches {microbatches}")
+    mb = batch_size // microbatches
+    if mb % num_shards:
+        raise ValueError(
+            f"microbatch size {mb} (batch {batch_size} / accum_steps "
+            f"{microbatches}) must divide by the data-axis "
+            f"size {num_shards}: each device scans its own rows")
+    k = mb // num_shards
+    return (np.arange(microbatches)[:, None] * mb + shard_id * k + np.arange(k)).reshape(-1)
+
+
 class BatchLoader:
     """Iterates (rgb, depth) NHWC float32 batches over a dataset.
 
@@ -58,6 +83,7 @@ class BatchLoader:
         worker_mode: str = "thread",
         num_shards: int = 1,
         shard_id: int = 0,
+        microbatches: int = 1,
     ):
         """``worker_mode='process'`` runs item production in
         ``num_workers`` SPAWNED worker processes instead of threads — the
@@ -91,6 +117,10 @@ class BatchLoader:
                 f"batch_size {batch_size} must divide by num_shards "
                 f"{num_shards}: every process feeds an equal slice of "
                 "each global batch")
+        if microbatches > 1 and not drop_last:
+            raise ValueError(
+                "microbatches > 1 needs drop_last=True: every global batch must be "
+                "whole to split into equal microbatches")
         if num_shards > 1 and not (pad_last or drop_last):
             raise ValueError(
                 "num_shards > 1 needs pad_last=True (eval) or "
@@ -99,6 +129,7 @@ class BatchLoader:
                 "array assembly")
         self.num_shards = num_shards
         self.shard_id = shard_id
+        self._rows = shard_rows(batch_size, num_shards, shard_id, microbatches)
         self._local_batch = batch_size // num_shards
         self._item_shapes = None  # lazy probe for all-padding local slices
         self.dataset = dataset
@@ -199,11 +230,10 @@ class BatchLoader:
         ]
         if self.drop_last and batches and len(batches[-1]) < self.batch_size:
             batches.pop()
-        # shard each GLOBAL batch to this process's contiguous row range
-        # (identity when num_shards == 1); the global count rides along
-        k = self._local_batch
-        lo, hi = self.shard_id * k, (self.shard_id + 1) * k
-        return self._iterate([(idxs[lo:hi], len(idxs)) for idxs in batches])
+        # shard each GLOBAL batch to this process's rows (shard_rows;
+        # identity when num_shards == 1); the global count rides along
+        rows = self._rows
+        return self._iterate([(idxs[rows[rows < len(idxs)]], len(idxs)) for idxs in batches])
 
     def _iterate(self, batches) -> Iterator[Tuple[np.ndarray, np.ndarray, int]]:
         # the pool is LOCAL to this iterator: two live iterators over one

@@ -6,7 +6,10 @@ metrics averaged with AverageMeter, progress prints every ``print_freq``
 images, a comparison PNG from every 50th of the first 400 images, and
 the final report/CSV.  The model and the metrics run as one batch step on
 the device; only the 10 metric scalars per image come back to the host,
-in one stacked fetch per batch.
+in one stacked fetch per batch.  Over a data mesh (``parallel/mesh.py``)
+each rank runs its rows of every batch through the same forward, and the
+fetch all-gathers the ranks' metric stacks in rank order, so every rank
+averages the global batch.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from fastdepth_tpu_torch import metrics as M
 from fastdepth_tpu_torch.engine.aot import _prepare, normalize
 from fastdepth_tpu_torch.engine.staging import PinnedRing
 from fastdepth_tpu_torch.models.registry import Model
+from fastdepth_tpu_torch.parallel.mesh import fetch_global
 
 CSV_FIELDNAMES = [
     "rmse", "mae", "delta1", "absrel", "lg10", "mse", "delta2", "delta3",
@@ -42,14 +46,18 @@ class Evaluator:
         fold_bn: bool = True,
         impl: str = "auto",
         val_pipeline=None,
-        device: Union[str, torch.device] = "cuda",
+        mesh=None,
+        device: Union[str, torch.device, None] = None,
     ):
         """``params``: the tree from ``Model.load``.  ``impl``: 'auto'
         runs decoder levels 1-5 through K1 and the head through K4
         whenever the architecture allows and BN is folded; 'fused', 'opt'
         and 'xla' force the K1/K4, head-commute and straight forwards
         (engine/aot.py, which also folds in f32 before the cast to
-        ``dtype``).  A CUDA ``device`` must exist: there is no CPU
+        ``dtype``).  ``device``: 'cuda' unless given; under ``mesh``
+        (a data mesh), the mesh's device, and the batches are this rank's
+        rows (``batch_size`` stays the global batch, as the JAX package's
+        dispatch reads it).  A CUDA ``device`` must exist: there is no CPU
         fallback.
 
         ``val_pipeline``: a ``data.pipeline.ValPipeline``.  The whole val
@@ -57,9 +65,15 @@ class Evaluator:
         (480, 640) batches (``NYUDataset(raw_items=True)``) it runs on the
         device inside the step, with the host gather's values; host
         preprocessing drops to the h5 read."""
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+            device = mesh.device
+        device = "cuda" if device is None else device
         self.model = model
         self.batch_size = batch_size
         self.dtype = dtype
+        self.mesh = mesh
         self.device = torch.device(device)
         self.params, self._apply = _prepare(model, params, batch_size=batch_size,
                                             dtype=dtype, fold_bn=fold_bn, impl=impl,
@@ -82,9 +96,15 @@ class Evaluator:
                 int(np.max(val_pipeline.rows)) + 1, int(np.max(val_pipeline.cols)) + 1)
 
     def put(self, arr: np.ndarray) -> torch.Tensor:
-        """``arr`` on the device, copied through page-locked memory on a
-        card (``engine/staging.PinnedRing``)."""
+        """``arr`` (under a mesh: this rank's rows) on the device, copied
+        through page-locked memory on a card (``engine/staging.PinnedRing``)."""
         return self._ring.put(arr)
+
+    def fetch(self, t: torch.Tensor, dim: int = 0) -> np.ndarray:
+        """A per-row result as host numpy: under a mesh, every rank's rows
+        along ``dim`` in rank order (``parallel.mesh.fetch_global``, a
+        collective every rank calls), else this one's."""
+        return fetch_global(t, self.mesh, dim)
 
     def _check_raw(self, name: str, t: torch.Tensor) -> None:
         want = self._want_raw
@@ -133,7 +153,9 @@ def validate(
 ) -> M.Result:
     """Full-dataset evaluation with reference-format reporting
     (main.py:63-126).  ``loader`` yields (rgb, depth, count) host batches,
-    padded to a fixed size with ``count`` real rows (BatchLoader).
+    padded to a fixed size with ``count`` real rows (BatchLoader); under
+    an evaluator's mesh, this rank's rows with the global ``count``, and
+    every rank must call validate() (the metric fetch is a collective).
     ``viz_transform``: applied to the raw rgb and depth of the few
     comparison-strip images when the loader yields raw frames (device
     preprocessing): pass the host ``ValPipeline``."""
@@ -179,7 +201,7 @@ def validate(
 
     for rgb, depth, count, pred, batch_metrics, t0, data_time in one_ahead(submitted()):
         # the fetch is the sync: it returns once the batch's work is done
-        stacked = batch_metrics.cpu().numpy()  # (num_fields, N)
+        stacked = evaluator.fetch(batch_metrics, dim=1)  # (num_fields, N)
         valid = {f: stacked[i, :count] for i, f in enumerate(M.METRIC_FIELDS)}
         gpu_time = time.time() - t0
         meter.update_batch(valid, gpu_time=gpu_time / count, data_time=data_time / count)
@@ -188,7 +210,7 @@ def validate(
         if make_images and output_dir is not None:
             pred_np = None
             if any((seen + i) % 50 == 0 and (seen + i) < 8 * 50 for i in range(count)):
-                pred_np = pred.cpu().numpy()
+                pred_np = evaluator.fetch(pred)
             for i in range(count):
                 gi = seen + i
                 if gi % 50 == 0 and gi < 8 * 50:

@@ -31,7 +31,7 @@ import torch
 from fastdepth_tpu_torch.engine.aot import _prepare, normalize
 
 MESH_NOT_PORTED = ("serving over a device mesh (mesh=, --mesh-devices, --mesh-spatial) is "
-                   "not ported yet: ROADMAP A12")
+                   "not ported yet: ROADMAP A12b")
 TUNED_NOT_PORTED = ("the tuned dispatch (impl='mixed', tuning=, --impl mixed, --tuning) is "
                     "not ported yet: ROADMAP A14")
 
@@ -122,7 +122,7 @@ class InferenceServer:
         clients that never mutate a frame after submitting it.
         ``device``: 'cuda' runs the kernels (the card must exist: there
         is no CPU fallback); 'cpu' their plain versions.  ``mesh`` is
-        refused (ROADMAP A12), ``tuning`` and ``impl='mixed'`` too (A14)."""
+        refused (ROADMAP A12b), ``tuning`` and ``impl='mixed'`` too (A14)."""
         if mesh is not None:
             raise ValueError(MESH_NOT_PORTED)
         if tuning is not None or impl == "mixed":

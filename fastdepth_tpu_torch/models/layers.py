@@ -92,13 +92,28 @@ def conv_leaf(w_shape: Sequence[int], *, folded: bool, transpose: bool = False,
     return ConvBN(w, bn=BatchNorm(cout), transpose=transpose)
 
 
+class TrainStats(dict):
+    """The ``stats`` recorder of a train-mode forward over a data mesh: a
+    dict like any other, which also names the process group its BatchNorms
+    take the global batch's moments over (``ops.blocks.batch_norm_train``).
+    The trainer makes one per forward, so a forward run again under
+    ``remat`` issues the same collectives on every rank."""
+
+    def __init__(self, group=None):
+        super().__init__()
+        self.group = group
+
+
 def sub_stats(stats: Optional[StatsDict], prefix: str) -> Optional[StatsDict]:
     """A view of ``stats`` that prefixes the paths its writers record
-    (shared stats plumbing for every model family)."""
+    (shared stats plumbing for every model family); it carries
+    ``stats``'s mesh group."""
     if stats is None:
         return None
 
     class _Prefixed(dict):
+        group = getattr(stats, "group", None)
+
         def __setitem__(self, key, value):
             stats[(prefix,) + key] = value
 
@@ -116,8 +131,9 @@ def apply_conv_bn(x: torch.Tensor, p: ConvBN, *, stride: int = 1,
     says: ``(Cin, Cout / groups, k, k)`` against the leaf's Cout (its
     BatchNorm's or bias's width), so a depthwise ``(C, 1, k, k)`` leaf
     runs C groups.  With ``train`` the BatchNorm normalises by the
-    batch's moments and its new running statistics go to
-    ``stats[path + ('bn',)]``."""
+    batch's moments (the global batch's when ``stats`` is a
+    :class:`TrainStats` with a group) and its new running statistics go
+    to ``stats[path + ('bn',)]``."""
     if p.transpose:
         cout = (p.b if p.bn is None else p.bn.mean).shape[0]
         y = B.conv2d_transpose(x, p.w, stride=stride, padding=padding or 0,
@@ -128,7 +144,7 @@ def apply_conv_bn(x: torch.Tensor, p: ConvBN, *, stride: int = 1,
         y = conv(x, p.w, stride=stride, padding=padding, bias=p.b)
     if p.bn is not None:
         if train:
-            y, new_bn = B.batch_norm_train(y, p.bn)
+            y, new_bn = B.batch_norm_train(y, p.bn, group=getattr(stats, "group", None))
             if stats is not None:
                 stats[path + ("bn",)] = new_bn
         else:

@@ -71,24 +71,124 @@ def batch_norm(x: torch.Tensor, bn, *, eps: float = BN_EPS) -> torch.Tensor:
     return x * _per_channel(inv) + _per_channel(bn.bias - bn.mean * inv)
 
 
-def batch_norm_train(x: torch.Tensor, bn, *, eps: float = BN_EPS,
-                     momentum: float = 0.1) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def batch_norm_train(x: torch.Tensor, bn, *, eps: float = BN_EPS, momentum: float = 0.1,
+                     group=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Training-mode BatchNorm over (N, H, W); returns the output and the
     new running statistics ``{'mean', 'var'}`` (torch's convention: new =
     (1 - m) * old + m * batch, the variance unbiased), which the caller
-    merges: ``bn``'s buffers are never written here (``F.batch_norm``
-    updates copies of them), so a forward run twice
-    (``torch.utils.checkpoint``) or a skipped step leaves them as they
-    were.
+    merges: ``bn``'s buffers are never written here, so a forward run
+    twice (``torch.utils.checkpoint``) or a skipped step leaves them as
+    they were.
 
-    One ``F.batch_norm`` call (cuDNN's on the card): a bf16 ``x`` with
-    ``bn``'s f32 parameters takes PyTorch's mixed-precision path, which
-    accumulates the moments in f32 and returns bf16.  It needs more than
-    one value a channel (N * H * W > 1), as torch's BatchNorm2d does."""
-    mean, var = bn.mean.clone(), bn.var.clone()
-    y = F.batch_norm(x, mean, var, bn.scale, bn.bias, training=True, momentum=momentum,
-                     eps=eps)
+    Without ``group``: one ``F.batch_norm`` call (cuDNN's on the card); a
+    bf16 ``x`` with ``bn``'s f32 parameters takes PyTorch's
+    mixed-precision path, which accumulates the moments in f32 and
+    returns bf16.  It needs more than one value a channel (N * H * W > 1),
+    as torch's BatchNorm2d does.
+
+    With ``group`` (a data mesh's process group, every rank holding an
+    equal share of the batch): the moments of the GLOBAL batch, as the
+    JAX package's mesh step takes them (:class:`_GlobalBatchNorm`), in
+    at least f32 (f64 stays f64), the unbiased factor from the global
+    count."""
+    if group is None:
+        mean, var = bn.mean.clone(), bn.var.clone()
+        y = F.batch_norm(x, mean, var, bn.scale, bn.bias, training=True, momentum=momentum,
+                         eps=eps)
+        return y, {"mean": mean, "var": var}
+    y, mean, var = _GlobalBatchNorm.apply(x, bn.scale, bn.bias, bn.mean, bn.var, group, eps,
+                                          momentum)
     return y, {"mean": mean, "var": var}
+
+
+_CHANNELS = (0, 2, 3)  # the dims a channel's moments reduce over (NCHW)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training-mode BatchNorm whose moments are the global batch's over
+    ``group``, with two collectives: forward, an all-gather of each
+    rank's own moments, merged exactly (a mean of means; the variances'
+    mean plus the means' variance), so no large sum cancels; backward,
+    one all-reduce of the two per-channel sums the input gradient needs.
+    The scale's and bias's gradients stay this rank's share: the
+    trainer's all-reduce of the flat gradient sums them.  Returns (y,
+    new running mean, new running variance: torch's update, the variance
+    unbiased by the global count); the running statistics passed in are
+    not written, and the new ones take no gradient.
+
+    On the card each side is PyTorch's fused kernels for this
+    (``torch.batch_norm_stats`` / ``_gather_stats_with_counts`` /
+    ``_elemt`` and their backward pair, what ``nn.SyncBatchNorm`` runs):
+    the step is host-bound at small batches, and the same arithmetic as
+    plain ops launches three times the kernels.  Those kernels have no
+    CPU version, so on the CPU the same steps run as plain ops, in at
+    least f32 (f64 stays f64)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, running_mean, running_var, group, eps, momentum):
+        import torch.distributed as dist
+
+        world = dist.get_world_size(group)
+        count = x.numel() // x.shape[1]
+        n = count * world
+        new_mean, new_var = running_mean.clone(), running_var.clone()
+        if x.is_cuda:
+            mean_r, invstd_r = torch.batch_norm_stats(x, eps)
+            local = torch.cat([mean_r, invstd_r, mean_r.new_full((1,), count)])
+        else:
+            var_r, mean_r = torch.var_mean(x.to(torch.promote_types(x.dtype, torch.float32)),
+                                           dim=_CHANNELS, correction=0)
+            local = torch.cat([mean_r, var_r])
+        parts = [torch.empty_like(local) for _ in range(world)]
+        dist.all_gather(parts, local, group=group)
+        ranks = torch.stack(parts)  # (world, 2C [+ 1])
+        c = x.shape[1]
+        if x.is_cuda:
+            # updates the running statistics it is given, in their dtype
+            counts = ranks[:, 2 * c]
+            mean, invstd = torch.batch_norm_gather_stats_with_counts(
+                x, ranks[:, :c], ranks[:, c:2 * c], new_mean, new_var, momentum, eps, counts)
+            y = torch.batch_norm_elemt(x, scale, bias, mean, invstd, eps)
+            ctx.counts = counts.to(torch.int32)
+        else:
+            var_means, mean = torch.var_mean(ranks[:, :c], dim=0, correction=0)
+            var = ranks[:, c:].mean(0) + var_means
+            invstd = torch.rsqrt(var + eps)
+            y = F.batch_norm(x, mean, var, scale, bias, training=False, eps=eps)
+            new_mean.mul_(1 - momentum).add_(momentum * mean)
+            new_var.mul_(1 - momentum).add_(momentum * var * n / max(n - 1, 1))
+        ctx.save_for_backward(x, scale, mean, invstd)
+        ctx.group, ctx.n = group, n
+        ctx.mark_non_differentiable(new_mean, new_var)
+        return y, new_mean, new_var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        import torch.distributed as dist
+
+        x, scale, mean, invstd = ctx.saved_tensors
+        if x.is_cuda:
+            dy = dy.contiguous(memory_format=torch.channels_last
+                               if x.is_contiguous(memory_format=torch.channels_last)
+                               else torch.contiguous_format)
+            sum_dy, sum_dy_xmu, dscale, dbias = torch.batch_norm_backward_reduce(
+                dy, x, mean, invstd, scale, True, True, True)
+            total = torch.cat([sum_dy, sum_dy_xmu])
+            dist.all_reduce(total, group=ctx.group)
+            c = x.shape[1]
+            dx = torch.batch_norm_backward_elemt(dy, x, mean, invstd, scale, total[:c],
+                                                 total[c:], ctx.counts)
+            return dx, dscale, dbias, None, None, None, None, None
+        xmu = x.to(mean.dtype) - _per_channel(mean)
+        dy = dy.to(mean.dtype)
+        local = torch.stack([dy.sum(dim=_CHANNELS), (dy * xmu).sum(dim=_CHANNELS)])
+        total = local.clone()
+        dist.all_reduce(total, group=ctx.group)
+        k = invstd * invstd * total[1] / ctx.n
+        dx = (dy - _per_channel(total[0] / ctx.n) - xmu * _per_channel(k)) * _per_channel(
+            scale.to(mean.dtype) * invstd)
+        return (dx.to(x.dtype), (local[1] * invstd).to(scale.dtype), local[0].to(scale.dtype),
+                None, None, None, None, None)
 
 
 def fold_bn(w: torch.Tensor, bn, *, eps: float = BN_EPS,

@@ -1,6 +1,5 @@
-"""Training: SGD with momentum and weight decay, train-mode BatchNorm —
-counterpart of ``fastdepth_tpu/train/trainer.py``, without its mesh
-(data-parallel training is ROADMAP A12).
+"""Training: SGD with momentum and weight decay, train-mode BatchNorm, data
+parallelism — counterpart of ``fastdepth_tpu/train/trainer.py``.
 
 The reference release has no train loop (its main.py implements only
 --evaluate); this rebuilds the FastDepth training recipe (BASELINE.json
@@ -14,6 +13,20 @@ gradients, the SGD update over one flat buffer of every trainable leaf,
 then the merge of the BatchNorm running statistics.  The JAX train step
 runs no Pallas kernel (K1-K4 have no backward), so this one runs none of
 the port's kernels either; they serve the validation between epochs.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``) is one rank per device,
+each stepping on its rows of the global batch.  The JAX mesh step equals
+the single-device step on the whole batch, because XLA reduces the
+BatchNorm moments and the masked-L1 denominator over the global array;
+so does this one, by explicit collectives: global BatchNorm moments
+(``ops.blocks.batch_norm_train(group=)``), the global valid-pixel count,
+then ONE all-reduce (SUM) of the flat gradient buffer, with the loss in
+its last element, per step.  Not DistributedDataParallel: it averages
+gradients, a factor of the world size off under the global loss, and
+would bucket a second time beside the flat buffer.  Every rank then
+applies the same update to the same state, so replicas stay bit-equal,
+and a non-finite value on any rank reaches every rank through the sum, so
+all skip the step alike.
 """
 
 from __future__ import annotations
@@ -24,6 +37,7 @@ from typing import Callable, Dict, List, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
@@ -32,10 +46,15 @@ from fastdepth_tpu_torch.config import TrainConfig
 from fastdepth_tpu_torch.engine.staging import PinnedRing
 from fastdepth_tpu_torch.models import layers as L
 from fastdepth_tpu_torch.models.registry import Model
+from fastdepth_tpu_torch.parallel.mesh import SPACE_AXIS
 from fastdepth_tpu_torch.train.loss import masked_l1_loss
 
-MESH_NOT_PORTED = ("data-parallel training (a mesh, --mesh-devices, --coord/--num-processes/"
-                   "--process-id) is not ported yet: ROADMAP A12")
+SPACE_TRAIN_REFUSED = (
+    "training does not support a 'space' mesh axis: "
+    "depthwise-conv weight gradients diverge under SPMD "
+    "spatial partitioning (docs/probe_r3_sp_grad.json). "
+    "Use a 1-D 'data' mesh for training; 'space' is for "
+    "inference/eval (Evaluator, serving).")
 
 
 def _channels_last(t: torch.Tensor) -> bool:
@@ -215,18 +234,29 @@ def make_train_step(
     bf16 on f32 masters; momentum, the optimiser's math, the BatchNorm
     moments and running statistics and the loss stay f32 (bf16 has f32's
     exponent range: no loss scaling).
-    ``mesh`` is not ported (ROADMAP A12)."""
-    if mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
+    ``mesh``: a data mesh (``parallel.mesh.make_mesh``); ``rgb`` and
+    ``depth`` are then this rank's rows of the global batch, and the
+    step's loss and update are the global batch's (module docstring).
+    With ``accum_steps`` the rows must be laid out as
+    ``data.loader.shard_rows`` lays them: this rank's share of each
+    microbatch, microbatch after microbatch, so that microbatch ``i`` is
+    the global rows ``[i * mb, (i + 1) * mb)``, as in the JAX mesh step.
+    A step built without a mesh refuses to run inside a process group of
+    more than one rank: each rank would silently train its own replica.
+    ``loss_fn`` takes ``group=`` under a mesh (``train.loss``)."""
+    if mesh is not None and SPACE_AXIS in mesh.axis_names:
+        raise ValueError(SPACE_TRAIN_REFUSED)
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
     if compute_dtype == torch.float32:
         compute_dtype = None
+    group = None if mesh is None else mesh.group
 
     def forward(params, rgb):
         # the statistics leave as outputs: under remat the forward runs
-        # again in the backward, and what that second run records is dropped
-        stats: Dict = {}
+        # again in the backward (its BatchNorms all-reducing again, on
+        # every rank alike), and what that second run records is dropped
+        stats = L.TrainStats(group)
         if compute_dtype is None:
             pred = model.apply(params, rgb, train=True, stats=stats)
         else:
@@ -242,11 +272,18 @@ def make_train_step(
                 pred, stats = forward(params, rgb)
             # the loss is always f32: the targets are f32 and the masked
             # reduction must not accumulate in bf16
-            loss = loss_fn(pred.float(), depth)
+            loss = (loss_fn(pred.float(), depth) if group is None
+                    else loss_fn(pred.float(), depth, group=group))
             grads = torch.autograd.grad(loss, leaves)
         return loss.detach(), stats, _flat(grads)
 
     def step(state: TrainState, rgb: torch.Tensor, depth: torch.Tensor, lr):
+        if mesh is None and dist.is_initialized() and dist.get_world_size() > 1:
+            raise ValueError(
+                f"a train step built without a mesh inside a process group of "
+                f"{dist.get_world_size()} ranks: each rank would train its own replica "
+                "on its rows. Build it with make_train_step(mesh=make_mesh()) / "
+                "Trainer(mesh=...)")
         flat = state.flat
         n = rgb.shape[0]
         if n % accum_steps:
@@ -268,6 +305,11 @@ def make_train_step(
             flat.merge(stats_i)
         if accum_steps > 1:
             grads, loss = grads / accum_steps, loss / accum_steps
+        if group is not None:
+            # the global gradient and loss: every rank's shares, summed
+            buf = torch.cat([grads, loss.reshape(1).to(grads.dtype)])
+            dist.all_reduce(buf, group=group)
+            grads, loss = buf[:-1], buf[-1].to(loss.dtype)
         with torch.no_grad():
             finite = torch.isfinite(loss) & torch.isfinite(grads).all()
             p_new, m_new = sgd_update(flat.params, flat.momentum, grads, lr, cfg, finite,
@@ -308,8 +350,9 @@ def step_lr(cfg: TrainConfig, epoch: int) -> float:
 
 
 class Trainer:
-    """Runs the training loop on one device: a copy of ``params`` on
-    ``device`` as the f32 masters, the step, and the epoch loop."""
+    """Runs the training loop on one device, or on this rank's device of a
+    data mesh: a copy of ``params`` there as the f32 masters, the step,
+    and the epoch loop."""
 
     def __init__(
         self,
@@ -322,15 +365,22 @@ class Trainer:
         compute_dtype: torch.dtype = None,
         accum_steps: int = 1,
         device_augment: bool = False,
-        device: Union[str, torch.device] = "cuda",
+        device: Union[str, torch.device, None] = None,
     ):
-        """A CUDA ``device`` must exist: there is no CPU fallback.  In f32
-        (``compute_dtype`` None or float32) f32 is true f32:
-        ``engine.aot.strict_f32`` turns TF32 off, process-wide; bf16 leaves
-        the flags as it finds them.  ``params`` is copied, never moved."""
+        """``device``: 'cuda' unless given; under ``mesh``, the mesh's
+        device (another one is refused).  A CUDA ``device`` must exist:
+        there is no CPU fallback.  In f32 (``compute_dtype`` None or
+        float32) f32 is true f32: ``engine.aot.strict_f32`` turns TF32 off,
+        process-wide; bf16 leaves the flags as it finds them.  ``params``
+        is copied, never moved; under a mesh every rank must pass the same
+        values.  A mesh with a ``space`` axis is refused
+        (:func:`make_train_step`), with the JAX package's reason."""
         if mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
-        self.device = torch.device(device)
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
+        self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {self.device} requested but no CUDA device is available")
         if compute_dtype in (None, torch.float32):
@@ -342,7 +392,7 @@ class Trainer:
         self.state = sgd_init(copy.deepcopy(params).to(self.device))
         self._step = make_train_step(model, cfg, loss_fn, remat=remat,
                                      compute_dtype=compute_dtype, accum_steps=accum_steps,
-                                     device_augment=device_augment)
+                                     mesh=mesh, device_augment=device_augment)
 
     def restore(self, tree) -> None:
         """Resume from a saved training state (the tree
@@ -367,7 +417,9 @@ class Trainer:
         ``(rgb, depth)`` or, with ``device_augment``, the six raw arrays.
         The arrays reach the device through a ring of page-locked buffers
         (``engine/staging.PinnedRing``), so the host loads the next batch
-        while the card runs this one."""
+        while the card runs this one.  Under a mesh the arrays are this
+        rank's rows and ``count`` is the global batch's; the returned loss
+        is the global one."""
         lr = step_lr(self.cfg, epoch)
         # the loss sums on the device: a float(loss) each step would wait
         # for the device every step; the host reads it only at print_freq
@@ -375,11 +427,13 @@ class Trainer:
         total = None
         n = 0
         ring = None
+        ranks = 1 if self.mesh is None else self.mesh.size
         for i, (*arrays, count) in enumerate(loader):
-            if count != arrays[0].shape[0]:
+            if count != arrays[0].shape[0] * ranks:
                 raise ValueError(
-                    f"run_epoch got a padded batch ({count} real rows in a batch of "
-                    f"{arrays[0].shape[0]}): the zero rows would enter the BN batch statistics "
+                    f"run_epoch got a padded batch ({count} real rows in a global batch of "
+                    f"{arrays[0].shape[0] * ranks}): the zero rows would enter the BN batch "
+                    f"statistics "
                     f"and couple real-row gradients to padding. Build the train loader "
                     f"with drop_last=True, pad_last=False (cli.train does).")
             if ring is None:  # two batches in flight

@@ -235,6 +235,11 @@ def test_benchmark_cli_runs_each_mode_with_the_jax_keys(tiny_npz, flags, capsys)
     eval_keys, train_keys = _jax_result_keys()
     assert (train_keys if "--train" in flags else eval_keys) <= set(result)
     assert result["frames"] == 8 and result["fps"] > 0 and result["device"] == "cpu"
+    # the JAX CLI's rounding (fastdepth_tpu/cli/benchmark.py): seconds to 3
+    # places, frames/s to 1, the loss to 4
+    places = {"elapsed_s": 3, "fps": 1, **({"final_loss": 4} if "--train" in flags else {})}
+    for key, n in places.items():
+        assert result[key] == round(result[key], n), (key, result[key])
     if "--train" in flags:
         assert result["device_augment"] == ("--device-augment" in flags)
         assert np.isfinite(result["final_loss"])

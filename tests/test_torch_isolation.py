@@ -107,6 +107,13 @@ def test_the_walk_covers_the_input_slice():
         assert path in SOURCES, path
 
 
+def test_the_walk_covers_the_parallel_slice():
+    for path in ("fastdepth_tpu_torch/parallel/__init__.py",
+                 "fastdepth_tpu_torch/parallel/distributed.py",
+                 "fastdepth_tpu_torch/parallel/mesh.py", "fastdepth_tpu_torch/parallel/dryrun.py"):
+        assert path in SOURCES, path
+
+
 def test_benchmark_cli_help_runs_with_the_jax_package_blocked():
     out = _run("""
 import contextlib, io
@@ -129,7 +136,8 @@ def test_every_module_imports_with_the_jax_package_blocked():
 import importlib, pkgutil
 import fastdepth_tpu_torch as fd
 names = ["fastdepth_tpu_torch"]
-for sub in ("cli", "engine", "models", "checkpoint", "data", "ops", "ops.cuda", "train"):
+for sub in ("cli", "engine", "models", "checkpoint", "data", "ops", "ops.cuda", "parallel",
+            "train"):
     pkg = importlib.import_module("fastdepth_tpu_torch." + sub)
     names.append(pkg.__name__)
     names += [pkg.__name__ + "." + m.name for m in pkgutil.iter_modules(pkg.__path__)]

@@ -3,7 +3,7 @@
 
 - every case of ``tests/test_server.py`` that needs no mesh, pointed at
   the port (``device='cpu'``); the four mesh cases become the port's
-  refusals, which name ROADMAP A12;
+  refusals, which name ROADMAP A12b;
 - the port's server against the JAX package's on the same numpy tree
   (f32, uint8 in, f16 out, chain);
 - the wire protocol both ways: the JAX package's clients against the
@@ -325,9 +325,9 @@ def _daemon(argv):
 
 def test_serve_cli_daemon_launch_spatial_mesh(ckpt, tmp_path):
     """The JAX CLI's (data=2, space=4) mesh daemon launch: the port parses
-    the flags and refuses them, naming ROADMAP A12, before it loads
+    the flags and refuses them, naming ROADMAP A12b, before it loads
     anything or binds the socket."""
-    with pytest.raises(SystemExit, match="A12"):
+    with pytest.raises(SystemExit, match="A12b"):
         serve_cli.main(["--evaluate", ckpt, "--socket", str(tmp_path / "fd.sock"),
                         "--batch-size", "2", "--image-size", str(HW), str(HW),
                         "--stats-every", "0", "--mesh-devices", "2", "--mesh-spatial", "4",
@@ -336,8 +336,8 @@ def test_serve_cli_daemon_launch_spatial_mesh(ckpt, tmp_path):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--mesh-devices", "2"], "A12"),
-    (["--mesh-spatial", "4"], "A12"),
+    (["--mesh-devices", "2"], "A12b"),
+    (["--mesh-spatial", "4"], "A12b"),
     (["--impl", "mixed"], "A14"),
     (["--tuning", "tuning/h100.json"], "A14"),
 ])
@@ -455,8 +455,8 @@ def test_server_chain_mode_matches_direct_forward(rng, tiny):
 ], ids=["chain_rejects_data_mesh", "mesh_sharded", "mesh_spatial"])
 def test_server_mesh_is_refused(kw, tiny):
     """The JAX server's three mesh cases: the port refuses any mesh,
-    naming ROADMAP A12, before it prepares anything."""
-    with pytest.raises(ValueError, match="A12"):
+    naming ROADMAP A12b, before it prepares anything."""
+    with pytest.raises(ValueError, match="A12b"):
         _server(tiny, mesh=object(), **kw)
 
 

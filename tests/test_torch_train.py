@@ -457,13 +457,6 @@ def test_accum_composes_with_remat_and_bf16(rng):
 
 # --- the port's own surface ---------------------------------------------------
 
-def test_unported_mesh_and_device_augment_are_refused():
-    with pytest.raises(NotImplementedError, match="A12"):
-        Trainer(MODEL, _init(0), TrainConfig(), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        make_train_step(MODEL, TrainConfig(), mesh=object())
-
-
 def test_trainer_refuses_cuda_without_a_card_and_copies_its_params():
     params = _init(0)
     if not torch.cuda.is_available():

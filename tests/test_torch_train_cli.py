@@ -191,15 +191,6 @@ def test_load_pretrained_encoder(tmp_path, data_root, monkeypatch):
         np.testing.assert_array_equal(trained[k], v, err_msg=k)
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["--mesh-devices", "2"], "A12"),
-    (["--coord", "localhost:1234", "--num-processes", "2", "--process-id", "0"], "A12"),
-])
-def test_unported_flags_exit_naming_their_roadmap_item(flags, item, data_root, tmp_path):
-    with pytest.raises(SystemExit, match=item):
-        train_cli.main(_argv(data_root, tmp_path / "out", "--device", "cpu", *flags))
-
-
 @pytest.mark.parametrize("flags, message", [
     (["--pretrained-encoder", "enc.npz"], "--resume and --pretrained-encoder conflict"),
     (["--arch-json", "a.json"], "--resume and --arch-json conflict"),
