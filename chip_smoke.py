@@ -88,7 +88,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    cli.train / cli.evaluate --mesh-devices 1 against their runs without a
    mesh, --mesh-devices 2 refused up front, and two gloo ranks on the
    CPU (parallel/dryrun.py);
-12. probes: every tag of the probe catalogue (engine/probes.py, the
+12. space: the space mesh axis and serving over a mesh (parallel/
+   spatial.py): K1's row-window mode against its plain version at every
+   (tile, window) that S = 2, 4, 8 give at 224x224 on the pruned
+   flagship's five levels (b8, f32 and bf16), the whole-image window bit
+   for bit the call without one, rank 1's window times beside the whole
+   level's, each rank's MAC share under the partition's replicated
+   levels, and K1's whole-image five-level f32 b8 time within 5% of its
+   time before the window; world-1 make_mesh(1, 'space') and make_mesh_2d(1, 1) over NCCL
+   (Evaluator metric rows 0 apart from no mesh, K1 5 and K4 1 launches a
+   forward, the eval step b8 f32 with and without them, a mesh
+   InferenceServer's answers 0 apart from the server without one and the
+   frames/s of both); the space dryrun over gloo ranks on the CPU
+   (parallel/dryrun.py --space: two ranks at S = 2 on the trained
+   flagship at 224x224 b1, four on a 2 x 2 mesh through the Evaluator);
+13. probes: every tag of the probe catalogue (engine/probes.py, the
    scripts' Pallas probes) runs its kernel (K5, K6, or K3) once, with
    K5's and K6's launches counted on that run; then the launch floor
    (the least a call costs in the same timer), each kernel against its
@@ -97,11 +111,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    to it (with the CUDA kernels K6's taps and up_only yardsticks run
    as); K5's copy sweep (dma_copy) and K6's scale rows (compute_sweep),
    each checked against its plain version;
-13. tools: engine/calibrate (reduced call count) measures the card's
+14. tools: engine/calibrate (reduced call count) measures the card's
    ceilings, and cli.profile --mode prefix --batch 128 profiles the
    pruned flagship on them; the summed roofline bounds must not exceed
    the measured full forward;
-14. prints the kernels' JSON line, then the result line.
+15. prints the kernels' JSON line, then the result line.
 
 Nothing here, and nothing of the port it drives, imports JAX or the JAX
 package.
@@ -111,6 +125,7 @@ from __future__ import annotations
 
 import contextlib
 import cProfile
+import ctypes
 import io
 import json
 import os
@@ -1619,9 +1634,9 @@ def input_phase(model, params, card: dict) -> dict:
                     seen[key].append(x.clone())
                     return forward(p, x)
 
-                def metrics(pred, target, key=key):
+                def metrics(pred, target, *group, key=key):
                     seen[key].append(target.clone())
-                    return batch_metrics(pred, target)
+                    return batch_metrics(pred, target, *group)
 
                 ev._apply, E.M.evaluate_batch = record, metrics
                 try:
@@ -2129,6 +2144,436 @@ def mesh_phase(model, params, card: dict) -> dict:
     return out
 
 
+SPACE_SHARDS = (2, 4, 8)  # the space axis sizes whose K1 windows are checked at 224^2
+# K1's whole-image five-level f32 b8 device time before the row window
+# came (NVIDIA H100 80GB HBM3, 700 W): the unsharded call may not slow
+K1_BEFORE_WINDOW_MS = 0.1734
+SPACE_SERVE_FRAMES, SPACE_SERVE_PASSES = 64, 5
+
+
+def _k1_level_operands(n, h, c, cout, skip, dtype, seed=0):
+    """A level's operands on the card: x and skip whole, channels_last;
+    the weights in K1's layout."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, cl=False):
+        t = (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+        return t.contiguous(memory_format=torch.channels_last) if cl else t
+
+    x = rnd(n, c, h, h, cl=True)
+    w = (rnd(25, c, scale=0.2), rnd(c, scale=0.1), rnd(c, cout, scale=c ** -0.5),
+         rnd(cout, scale=0.1))
+    return x, w, (rnd(n, cout, 2 * h, 2 * h, cl=True) if skip else None)
+
+
+def _k1_tile(x, r0, r1):
+    """Image rows [r0, r1) of ``x``, zero outside the image (a rank's tile
+    after the halo exchange)."""
+    n, c, h, w = x.shape
+    t = torch.zeros((n, c, r1 - r0, w), dtype=x.dtype, device=x.device)
+    lo, hi = max(r0, 0), min(r1, h)
+    t[:, :, lo - r0:hi - r0] = x[:, :, lo:hi]
+    return t.contiguous(memory_format=torch.channels_last)
+
+
+class _Guarded:
+    """``nbytes`` of device memory mapped between two reserved, unmapped
+    ranges of virtual addresses (CUDA's virtual memory management API),
+    so that any access past either end faults: an operand placed at the
+    head or the tail of the mapping shows a kernel that reads outside its
+    rows.  ``place`` copies a channels_last tensor there."""
+
+    class _Prop(ctypes.Structure):
+        _fields_ = [("type", ctypes.c_int), ("handle_types", ctypes.c_int),
+                    ("location", ctypes.c_int * 2), ("win32", ctypes.c_void_p),
+                    ("flags", ctypes.c_ubyte * 8)]
+
+    class _Access(ctypes.Structure):
+        _fields_ = [("location", ctypes.c_int * 2), ("flags", ctypes.c_int)]
+
+    def __init__(self, nbytes: int):
+        cu = self.cu = ctypes.CDLL("libcuda.so.1")
+        prop = self._Prop(1, 0, (ctypes.c_int * 2)(1, torch.cuda.current_device()))
+        gran = ctypes.c_size_t()
+        self._ok("cuMemGetAllocationGranularity",
+                 cu.cuMemGetAllocationGranularity(ctypes.byref(gran), ctypes.byref(prop), 0))
+        self.gran = gran.value
+        self.size = -(-nbytes // self.gran) * self.gran
+        self.va = ctypes.c_uint64()
+        self._ok("cuMemAddressReserve", cu.cuMemAddressReserve(
+            ctypes.byref(self.va), ctypes.c_size_t(self.size + 2 * self.gran),
+            ctypes.c_size_t(0), ctypes.c_uint64(0), ctypes.c_uint64(0)))
+        self.handle = ctypes.c_uint64()
+        self._ok("cuMemCreate", cu.cuMemCreate(ctypes.byref(self.handle),
+                                               ctypes.c_size_t(self.size), ctypes.byref(prop),
+                                               ctypes.c_uint64(0)))
+        self.base = self.va.value + self.gran
+        self._ok("cuMemMap", cu.cuMemMap(ctypes.c_uint64(self.base), ctypes.c_size_t(self.size),
+                                         ctypes.c_size_t(0), self.handle, ctypes.c_uint64(0)))
+        access = self._Access((ctypes.c_int * 2)(1, torch.cuda.current_device()), 3)
+        self._ok("cuMemSetAccess", cu.cuMemSetAccess(ctypes.c_uint64(self.base),
+                                                     ctypes.c_size_t(self.size),
+                                                     ctypes.byref(access), ctypes.c_size_t(1)))
+        base = self.base
+
+        class _Buf:
+            __cuda_array_interface__ = {"shape": (self.size,), "typestr": "|u1",
+                                        "data": (base, False), "version": 2}
+
+        self.buf = torch.as_tensor(_Buf(), device="cuda")
+        if self.buf.data_ptr() != self.base:
+            fail("guarded region: torch did not wrap the mapping in place")
+
+    @staticmethod
+    def _ok(name: str, rc: int) -> None:
+        if rc != 0:
+            fail(f"guarded region: {name} returned CUresult {rc}")
+
+    def place(self, t: torch.Tensor, at: str) -> torch.Tensor:
+        """A channels_last copy of ``t`` (N, C, H, W) whose bytes start the
+        mapping (``at`` "head") or end it ("tail")."""
+        n, c, h, w = t.shape
+        nbytes = t.numel() * t.element_size()
+        off = 0 if at == "head" else self.size - nbytes
+        v = self.buf[off:off + nbytes].view(t.dtype).view(n, h, w, c).permute(0, 3, 1, 2)
+        v.copy_(t)
+        return v
+
+    def close(self) -> None:
+        torch.cuda.synchronize()
+        self.buf = None
+        cu = self.cu
+        self._ok("cuMemUnmap", cu.cuMemUnmap(ctypes.c_uint64(self.base),
+                                             ctypes.c_size_t(self.size)))
+        self._ok("cuMemRelease", cu.cuMemRelease(self.handle))
+        self._ok("cuMemAddressFree", cu.cuMemAddressFree(
+            self.va, ctypes.c_size_t(self.size + 2 * self.gran)))
+
+
+def _k1_guarded(guards, tile, w, sk, window) -> None:
+    """K1's window call with x and the skip at the head and at the tail
+    of the guarded mappings ``guards``: it must not fault, and its result
+    must be bit for bit the same call's in ordinary memory.  The halo
+    loads of a tile's last row block reach past the rows the window
+    duplicates; this shows they stay inside the tile."""
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+
+    gx, gs = guards
+    with torch.inference_mode():
+        want = K1.fused_decoder_stage(tile, *w, sk, window=window)
+        for at in ("head", "tail"):
+            got = K1.fused_decoder_stage(gx.place(tile, at), *w,
+                                         None if sk is None else gs.place(sk, at),
+                                         window=window)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"K1 window {window} with its operands at the {at} of a guarded "
+                     "mapping differs from the same call in ordinary memory")
+
+
+def k1_window_checks(kernels: dict, card: dict) -> dict:
+    """K1's row-window mode at every (tile, window) that S = 2, 4, 8 give
+    at 224^2 on the pruned flagship's five levels, b8, f32 and bf16: each
+    window against its plain version on the same inputs (the kernel
+    bounds: f32 1e-4 * max(1, max|plain|), bf16 2^-7 * max|plain|); the
+    whole-image window bit for bit the call without one; the device time
+    (L2 cold) of rank 1's window at each (S, level, dtype) beside the
+    whole level's and the window's bound; every window again with its
+    operands at the edges of guarded mappings (_k1_guarded); K1's
+    whole-image five-level f32 b8 time, both as this phase measures it
+    and as the kernel phase does, within 5% of its time before the
+    window (K1_BEFORE_WINDOW_MS)."""
+    from fastdepth_tpu_torch.cli.bench_decoder import LEVELS
+    from fastdepth_tpu_torch.engine import benchmark as B
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.parallel.spatial import k1_tiles
+
+    levels = [lv for lv in LEVELS if lv[0].startswith("pruned")]
+    out = {"windows_checked": 0, "max_err_over_tol": 0.0, "rows": []}
+    # every tile and skip window fits in the largest whole map
+    most = max(4 * BATCH * h * h * max(c, 4 * cout) for _, h, c, cout, _ in levels)
+    guards = (_Guarded(most), _Guarded(most))
+    whole_ms = {}
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        elem = torch.finfo(dtype).bits // 8
+        for level, h, c, cout, skip in levels:
+            x, w, sk = _k1_level_operands(BATCH, h, c, cout, skip, dtype)
+            with torch.inference_mode():
+                want = K1.fused_decoder_stage(x, *w, sk)
+                got = K1.fused_decoder_stage(x, *w, sk, window=(0, h, 0, 2 * h))
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"K1 {name} {level}: the whole-image window is not bit for bit the call "
+                     "without one")
+            act = elem * BATCH * h * h * (c + (2 if skip else 1) * 4 * cout)
+            sets = [(x2, *w, s2) for x2, _, s2 in (
+                _k1_level_operands(BATCH, h, c, cout, skip, dtype, seed=1 + i)
+                for i in range(B.cold_copies(act)))]
+            whole_ms[(name, level)] = B.time_graph(K1.fused_decoder_stage, sets) * 1e3
+            for n_space in SPACE_SHARDS:
+                for rank, ((r0, r1), window) in enumerate(k1_tiles(h, n_space)):
+                    o0, o1 = window[2:]
+                    tile = _k1_tile(x, r0, r1)
+                    sk_w = (sk[:, :, o0:o1].contiguous(memory_format=torch.channels_last)
+                            if skip else None)
+
+                    def call(t, *a, window=window):
+                        return K1.fused_decoder_stage(t, *a, window=window)
+
+                    def plain(t, *a, window=window):
+                        return K1.fused_decoder_stage_reference(t, *a, window=window)
+
+                    if rank != 1:
+                        with torch.inference_mode():
+                            g, p = call(tile, *w, sk_w), plain(tile, *w, sk_w)
+                        torch.cuda.synchronize()
+                        err, tol = float((g.float() - p.float()).abs().max()), B.tolerance(p)
+                        ok = err <= tol and bool(torch.isfinite(g.float()).all())
+                    else:
+                        bytes_w = elem * BATCH * ((r1 - r0) * h * c
+                                                  + (o1 - o0) * 2 * h * cout * (2 if skip else 1))
+                        cold = [(_k1_tile(s[0], r0, r1), *w,
+                                 s[5][:, :, o0:o1].contiguous(memory_format=torch.channels_last)
+                                 if skip else None) for s in sets[:B.cold_copies(bytes_w)]]
+                        r = B.compare_and_time(call, plain, [(tile, *w, sk_w)] + cold,
+                                               counter=K1)
+                        err, tol, ok = r["max_abs_err"], r["tol"], r["ok"]
+                        rows = (o1 + 1) // 2 - o0 // 2
+                        nbytes, core, tensor = B.stage_work(
+                            BATCH, rows, h, c, cout, skip, elem, tensor_cores=name == "bf16")
+                        bound, by = B.bound_us(nbytes, core, tensor)
+                        row = {"dtype": name, "level": level, "S": n_space, "tile_rows": r1 - r0,
+                               "window": list(window), "ms": r["us"] / 1e3,
+                               "plain_ms": r["plain_us"] / 1e3, "bound_ms": bound / 1e3,
+                               "bound_by": by, "whole_ms": whole_ms[(name, level)],
+                               "share_of_whole": r["us"] / 1e3 / whole_ms[(name, level)],
+                               "max_abs_err": err, "tol": tol}
+                        out["rows"].append(row)
+                        print(f"K1 window {name} b{BATCH} {level} S={n_space} rank 1: tile "
+                              f"{r1 - r0} rows, window {window}: max|diff| {err:.3e} (bound "
+                              f"{tol:.3e}), device {row['ms']:.4f} ms = "
+                              f"{row['share_of_whole']:.2f} of the whole level's "
+                              f"{row['whole_ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, bound "
+                              f"{row['bound_ms']:.4f} ms ({by})")
+                    if not ok:
+                        fail(f"K1 window {name} {level} S={n_space} rank {rank} {window}: "
+                             f"max|diff| {err} > {tol}")
+                    _k1_guarded(guards, tile, w, sk_w, window)
+                    out["windows_checked"] += 1
+                    out["max_err_over_tol"] = max(out["max_err_over_tol"], err / tol)
+    for g in guards:
+        g.close()
+    out["guarded"] = {"placements": 2 * out["windows_checked"], "mapping_bytes": most,
+                      "guard_bytes": guards[0].gran}
+    whole = sum(v for (name, _), v in whole_ms.items() if name == "f32")
+    worst = max(whole, kernels["K1"]["ms"])
+    out["whole_f32_b8_ms"] = {"space_phase": whole, "kernel_phase": kernels["K1"]["ms"],
+                              "before_window": K1_BEFORE_WINDOW_MS,
+                              "ratio": worst / K1_BEFORE_WINDOW_MS}
+    half = [r for r in out["rows"] if r["S"] == 2 and r["dtype"] == "f32"]
+    out["s2_window_share_f32"] = sum(r["ms"] for r in half) / sum(
+        r["whole_ms"] for r in half)
+    print(f"K1 windows: {out['windows_checked']} (tile, window) shapes checked, worst "
+          f"max|diff| / bound {out['max_err_over_tol']:.3f}; whole-image five levels f32 "
+          f"b{BATCH}: {whole:.4f} ms here, {kernels['K1']['ms']:.4f} ms in the kernel phase, "
+          f"before the window {K1_BEFORE_WINDOW_MS} ms (the slower / before = "
+          f"{out['whole_f32_b8_ms']['ratio']:.3f}); {out['guarded']['placements']} guarded "
+          f"placements ({most} mapped bytes between unmapped {guards[0].gran}-byte ranges) "
+          f"bit for bit, none faulted; S=2 rank-1 windows over the whole levels, f32: {out['s2_window_share_f32']:.3f}; "
+          f"{card['nvidia_smi']}")
+    if worst > 1.05 * K1_BEFORE_WINDOW_MS:
+        fail(f"K1's whole-image five levels take {whole:.4f} ms here and "
+             f"{kernels['K1']['ms']:.4f} ms in the kernel phase: one is more than 5% over "
+             f"their {K1_BEFORE_WINDOW_MS} ms before the window")
+    return out
+
+
+def _space_eval_times(model, params, meshes: dict, card: dict) -> dict:
+    """The eval step b8 f32 (forward, metrics, the metric fetch) without a
+    mesh and over each world-1 space mesh, in turns (plain, meshes,
+    meshes reversed, plain), host clock ending in the fetch, median of
+    MESH_TIMED after MESH_WARMUP."""
+    from fastdepth_tpu_torch import Evaluator
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.rand(BATCH, *OUTPUT_HW, 3, generator=gen, device="cuda")
+    d = torch.rand(BATCH, *OUTPUT_HW, 1, generator=gen, device="cuda") * 9.5 + 0.5
+    evs = {"plain": Evaluator(model, params, batch_size=BATCH, device="cuda")}
+    evs.update({k: Evaluator(model, params, batch_size=BATCH, mesh=m) for k, m in meshes.items()})
+    ms = {k: [] for k in evs}
+    order = ["plain", *meshes, *reversed(list(meshes)), "plain"]
+    for k in order:
+        for _ in range(MESH_WARMUP):
+            evs[k].fetch(evs[k](x, d)[1], dim=1)
+        times = []
+        for _ in range(MESH_TIMED):
+            t0 = time.perf_counter()
+            evs[k].fetch(evs[k](x, d)[1], dim=1)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[k].append(float(np.median(times)))
+    row = {f"{k}_ms": v for k, v in ms.items()}
+    row.update({f"{k}_over_plain": float(np.mean(ms[k]) / np.mean(ms["plain"])) for k in meshes})
+    print(f"space eval step b{BATCH} f32 on {card['nvidia_smi']} (host clock, ends with the "
+          f"metric fetch): {json.dumps(row)}")
+    return row
+
+
+def _space_serve(model, params, meshes: dict, card: dict) -> dict:
+    """A world-1 mesh InferenceServer over each mesh against the server
+    without one: the same SPACE_SERVE_FRAMES seeded frames submitted at
+    once (batch 8), every answer 0 apart; frames/s of each, the median of
+    SPACE_SERVE_PASSES passes a turn, in turns (plain, meshes, meshes
+    reversed, plain), K1 5 and K4 1 launches a forward over each turn's
+    passes."""
+    from fastdepth_tpu_torch.engine.server import InferenceServer
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+
+    rng = np.random.RandomState(13)
+    frames = [rng.rand(*OUTPUT_HW, 3).astype(np.float32) for _ in range(SPACE_SERVE_FRAMES)]
+    servers = {"plain": InferenceServer(model, params, batch_size=BATCH, copy_inputs=False,
+                                        device="cuda")}
+    servers.update({k: InferenceServer(model, params, batch_size=BATCH, copy_inputs=False,
+                                       mesh=m) for k, m in meshes.items()})
+    out = {}
+    try:
+        answers, fps = {}, {k: [] for k in servers}
+        for k in ["plain", *meshes, *reversed(list(meshes)), "plain"]:
+            srv = servers[k]
+            srv(frames[0])  # warm-up
+            b0 = srv.stats()["batches"]
+            _reset(K1, K4)
+            passes = []
+            for _ in range(SPACE_SERVE_PASSES):
+                t0 = time.perf_counter()
+                got = [f.result(timeout=120) for f in [srv.submit(fr) for fr in frames]]
+                passes.append(len(frames) / (time.perf_counter() - t0))
+                answers.setdefault(k, got)
+            fps[k].append(float(np.median(passes)))
+            forwards = srv.stats()["batches"] - b0
+            k1, k4 = _counts(K1, K4)
+            if (k1, k4) != (STAGES_PER_FORWARD * forwards, forwards):
+                fail(f"space server {k}: K1 {k1}, K4 {k4} launches over {forwards} forwards")
+        for k in meshes:
+            apart = sum(int((a != b).sum()) for a, b in zip(answers[k], answers["plain"]))
+            out[k] = {"values_apart": apart, "fps": fps[k]}
+            if apart:
+                fail(f"space server {k}: {apart} values differ from the server without a mesh")
+        out["plain"] = {"fps": fps["plain"]}
+    finally:
+        for srv in servers.values():
+            srv.close()
+    print(f"space servers b{BATCH} f32, {SPACE_SERVE_FRAMES} frames submitted at once, median "
+          f"of {SPACE_SERVE_PASSES} passes a turn, on "
+          f"{card['nvidia_smi']}: {json.dumps(out)}")
+    return out
+
+
+def replicated_work(cfg) -> dict:
+    """What the partition's replicated levels cost (parallel/spatial.py):
+    the share of the forward's MACs at 224^2 (engine/roofline.layer_bounds,
+    one row a conv level) that each rank of S = 2, 4, 8 computes, against
+    the 1 / S of an even split.  A replicated level runs whole on every
+    rank; a sharded one 1 / S of it (its halo rows are read, not
+    computed)."""
+    from fastdepth_tpu_torch.config import MOBILENET_STRIDES
+    from fastdepth_tpu_torch.engine.roofline import layer_bounds
+    from fastdepth_tpu_torch.parallel.spatial import Partition
+
+    # each row's output rows: the stem, 13 blocks, 5 decoder levels (their
+    # convs, before the upsample), the head
+    rows = [OUTPUT_HW[0] // 2]
+    for stride in MOBILENET_STRIDES:
+        rows.append(rows[-1] // stride)
+    rows += [rows[-1] << i for i in range(6)]
+    macs = [r[1] for r in layer_bounds(cfg, OUTPUT_HW[0])]
+    out = {}
+    for n_space in SPACE_SHARDS:
+        part = Partition(n_space, 0)
+        rank = sum(m / (n_space if part.sharded(h) else 1) for m, h in zip(macs, rows))
+        out[n_space] = {"rank_share": rank / sum(macs), "even_share": 1 / n_space,
+                        "replicated_rows": sorted({h for h in rows if not part.sharded(h)})}
+    print(f"space partition at {OUTPUT_HW[0]}^2: each rank's share of the forward's "
+          f"{sum(macs)} MACs: {json.dumps(out)}")
+    return out
+
+
+def space_phase(model, params, kernels: dict, card: dict) -> dict:
+    """The space axis (parallel/spatial.py) and serving over a mesh on the
+    one card:
+    - what the replicated levels cost each rank (replicated_work);
+    - K1's row-window mode (k1_window_checks);
+    - world-1 make_mesh(1, 'space') and make_mesh_2d(1, 1) over NCCL:
+      Evaluator metric rows 0 apart from no mesh with K1 launched 5 times
+      and K4 once a forward, the eval step b8 f32 with and without the
+      meshes in turns, and a mesh InferenceServer on each (answers 0 apart
+      from the server without a mesh, frames/s of both);
+    - the space dryrun over gloo ranks on this machine's CPU
+      (``parallel/dryrun.py --space``: S = 2 forward of the trained
+      flagship at 224^2 b1, atol 1e-4; the 2 x 2 Evaluator's metric rows,
+      rtol 1e-5 and the deltas within 2 pixels)."""
+    import torch.distributed as dist
+
+    from fastdepth_tpu_torch import BatchLoader, Evaluator
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+    from fastdepth_tpu_torch.parallel.distributed import init_group
+    from fastdepth_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+
+    t0 = time.perf_counter()
+    out = {"replicated_work": replicated_work(model.config),
+           "k1_windows": k1_window_checks(kernels, card)}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_group("cuda", 0, 1, store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        try:
+            meshes = {"space1": make_mesh(1, "space"), "mesh2d_1x1": make_mesh_2d(1, 1)}
+            for k, m in meshes.items():
+                print(f"space mesh {k}: {m.shape} on {m.device}, backend {dist.get_backend()}")
+                if dist.get_backend() != "nccl" or m.device.type != "cuda":
+                    fail(f"the card's space mesh runs over {dist.get_backend()} on {m.device}")
+            _, val_ds = _seeded_datasets(os.path.join(tmp, "nyudepthv2"))
+            loader = BatchLoader(val_ds, batch_size=BATCH, num_workers=4, pad_last=True)
+            ev_p = Evaluator(model, params, batch_size=BATCH, device="cuda")
+            rows_p = [ev_p(ev_p.put(r), ev_p.put(d))[1].cpu().numpy() for r, d, _ in loader]
+            out["eval"] = {}
+            for k, m in meshes.items():
+                ev_m = Evaluator(model, params, batch_size=BATCH, mesh=m)
+                _reset(K1, K4)
+                rows_m = [ev_m.fetch(ev_m(ev_m.put(r), ev_m.put(d))[1], dim=1)
+                          for r, d, _ in loader]
+                torch.cuda.synchronize()
+                k1, k4 = _counts(K1, K4)
+                forwards = len(rows_m)
+                apart = sum(int((~((a == b) | (np.isnan(a) & np.isnan(b)))).sum())
+                            for a, b in zip(rows_m, rows_p))
+                print(f"space eval {k} b{BATCH} f32: {forwards} batches, {apart} metric entries "
+                      f"apart from no mesh; K1 {k1}, K4 {k4} launches")
+                if apart:
+                    fail(f"Evaluator({k}): {apart} metric entries differ from no mesh's")
+                if (k1, k4) != (STAGES_PER_FORWARD * forwards, forwards):
+                    fail(f"Evaluator({k}): K1 launched {k1} and K4 {k4} times over {forwards} "
+                         f"forwards, want {STAGES_PER_FORWARD} and 1 per forward")
+                out["eval"][k] = {"batches": forwards, "rows_apart": apart, "k1_launches": k1,
+                                  "k4_launches": k4}
+            out["eval_times"] = _space_eval_times(model, params, meshes, card)
+            out["serve"] = _space_serve(model, params, meshes, card)
+        finally:
+            dist.destroy_process_group()
+
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fastdepth_tpu_torch.parallel.dryrun",
+                           "--space"], capture_output=True, text=True, cwd=REPO, timeout=600)
+    report = proc.stdout[proc.stdout.find("{"):] if "{" in proc.stdout else ""
+    print(f"space dryrun (gloo ranks on the CPU, {time.perf_counter() - t1:.1f} s): {report}")
+    if proc.returncode != 0:
+        fail(f"parallel/dryrun.py --space failed ({proc.returncode}): {proc.stdout[-3000:]}"
+             f"{proc.stderr[-3000:]}")
+    out["dryrun"] = json.loads(report)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"space phase: {out['seconds']:.1f} s")
+    return out
+
+
 def probe_phase() -> dict:
     """The probe catalogue on the card.  The slice's path: every tag's
     kernel once, with K5's and K6's counts set to 0 just before and read
@@ -2283,6 +2728,7 @@ def main() -> None:
     train_phase(model, params)
     input_phase(model, params, card)
     mesh_phase(model, params, card)
+    space_phase(model, params, kernels, card)
     kernels.update(probe_phase())
     tools_phase()
     # launches: each kernel's count on the f32 run of its path (K1: the

@@ -10,11 +10,13 @@ pickle, converted on load by the port's copy of the converter
 (unpickling a full-module checkpoint executes code: pass TRUSTED .pth
 files only).  Extras over the reference CLI: --batch-size, --bf16,
 --no-fold-bn, --impl, --device-normalize, --device-preprocess, --no-images,
---split, --csv, --device, and the JAX CLI's data parallelism:
-``--mesh-devices N`` evaluates over N ranks, one a device (``parallel/``),
-spawned here or one a process under ``--coord``; each rank runs its rows
-of every batch, and rank 0 prints and writes.  Parsed and refused:
-``--mesh-spatial`` (ROADMAP A12b), ``--impl mixed`` / ``--tuning`` (A14).
+--split, --csv, --device, and the JAX CLI's mesh: ``--mesh-devices N``
+evaluates over N ranks, one a device (``parallel/``), spawned here or one
+a process under ``--coord``; each rank runs its rows of every batch, and
+rank 0 prints and writes.  ``--mesh-spatial S`` also shards the image
+height S-way (``N x S`` ranks; the MobileNet + NNConv family): each rank
+runs its rows of every image through the height-sharded forward.  Parsed
+and refused: ``--impl mixed`` / ``--tuning`` (ROADMAP A14).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import os
 
 import torch
 
+from fastdepth_tpu_torch.data.nyu import OUTPUT_SIZE
 from fastdepth_tpu_torch.engine.aot import IMPLS, strict_f32
 from fastdepth_tpu_torch.engine.server import TUNED_NOT_PORTED
 from fastdepth_tpu_torch.parallel import distributed as D
@@ -51,7 +54,9 @@ def parse_args(argv=None):
                    help="shard batches over this many ranks, one a device (default: no "
                         "mesh; alone: spawned on this host; with --coord: N processes)")
     p.add_argument("--mesh-spatial", default=None, type=int, metavar="S",
-                   help="shard image height S-way: not ported yet (ROADMAP A12b)")
+                   help="additionally shard image HEIGHT S-way (total ranks = "
+                        "mesh-devices x S; each rank exchanges its convs' halo rows "
+                        "with its neighbours, parallel/spatial.py)")
     p.add_argument("--no-fold-bn", action="store_true",
                    help="keep BatchNorm unfolded (exact reference numerics)")
     p.add_argument("--tuning", default=None, metavar="JSON",
@@ -103,7 +108,8 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run the plain PyTorch versions)")
-    check_cli_mesh(args.mesh_devices, args.mesh_spatial, batch_size=args.batch_size)
+    check_cli_mesh(args.mesh_devices, args.mesh_spatial, image_height=OUTPUT_SIZE[0],
+                   batch_size=args.batch_size)
     if not os.path.isfile(args.evaluate):
         raise SystemExit(f"=> no model found at '{args.evaluate}'")
     return D.launch(_main, args)
@@ -112,11 +118,13 @@ def main(argv=None):
 def _main(args):
     """One rank's run of the CLI (the whole run without a mesh)."""
     distributed = D.process_count() > 1
-    D.validate_distributed_batches(distributed, args.mesh_devices,
+    D.validate_distributed_batches(distributed, args.mesh_devices, args.mesh_spatial,
                                    **{"--batch-size": args.batch_size})
     # under --device-preprocess each rank's rows are raw frames, resized on
-    # its device inside the step
-    mesh = mesh_from_cli(args.mesh_devices, None, batch_size=args.batch_size)
+    # its device inside the step (under --mesh-spatial: whole raw frames,
+    # each rank gathering its rows of the 224-row output)
+    mesh = mesh_from_cli(args.mesh_devices, args.mesh_spatial, image_height=OUTPUT_SIZE[0],
+                         batch_size=args.batch_size)
     primary = D.is_primary()
     log = print if primary else (lambda *a, **k: None)
     if not args.bf16:
@@ -134,7 +142,7 @@ def _main(args):
                          device_normalize=args.device_normalize,
                          raw_items=args.device_preprocess)
     loader = BatchLoader(dataset, batch_size=args.batch_size,
-                         num_workers=args.workers, pad_last=True, **D.shard_kwargs())
+                         num_workers=args.workers, pad_last=True, **D.shard_kwargs(mesh=mesh))
     log("=> data loaders created.")
 
     evaluator = Evaluator(

@@ -18,19 +18,35 @@ Client modes against a running daemon (no model load):
         --ping path/to/rgb.npy [--stream N]
     python -m fastdepth_tpu_torch.cli.serve --socket /tmp/fastdepth.sock --stats
 
-Not ported yet: ``--mesh-devices`` / ``--mesh-spatial`` (ROADMAP A12b) and
-``--impl mixed`` / ``--tuning`` (ROADMAP A14); they are parsed under the
-JAX names and refused.
+Over a mesh, ``--mesh-devices N`` (each packed batch's rows) and
+``--mesh-spatial S`` (the image height; the MobileNet + NNConv family)
+start ``N x S`` ranks on this host (``parallel.distributed.launch``, one
+a device); rank 0 binds the socket and serves, the others follow its
+batches (``engine/server.py``).  A SIGINT to this process stops rank 0,
+which stops the others.
+
+Not ported yet: ``--impl mixed`` / ``--tuning`` (ROADMAP A14); they are
+parsed under the JAX names and refused.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
+import signal
+import threading
 
 import torch
 
 from fastdepth_tpu_torch.engine.aot import IMPLS, strict_f32
-from fastdepth_tpu_torch.engine.server import MESH_NOT_PORTED, TUNED_NOT_PORTED
+from fastdepth_tpu_torch.engine.server import TUNED_NOT_PORTED
+from fastdepth_tpu_torch.parallel import distributed as D
+from fastdepth_tpu_torch.parallel.mesh import check_cli_mesh, mesh_from_cli
+
+# seconds a mesh daemon's collective may wait: rank 0 sends an idle
+# heartbeat every engine.server.HEARTBEAT_S, so only a rank that is gone
+# lets one wait this long
+MESH_GROUP_TIMEOUT_S = 60.0
 
 
 def parse_args(argv=None):
@@ -69,10 +85,11 @@ def parse_args(argv=None):
                         "from --socket (frames, occupancy, p50/p99 request "
                         "latency) and print it")
     p.add_argument("--mesh-spatial", type=int, default=None, metavar="S",
-                   help="shard image height S-way: not ported yet (ROADMAP A12b)")
+                   help="additionally shard image HEIGHT S-way (total ranks = "
+                        "mesh-devices x S; S must divide the image height)")
     p.add_argument("--mesh-devices", type=int, default=None, metavar="N",
-                   help="shard each packed batch over N devices: not ported yet "
-                        "(ROADMAP A12b)")
+                   help="shard each packed batch over an N-rank data-parallel "
+                        "mesh (params replicate; one rank a device)")
     p.add_argument("--image-size", type=int, nargs=2, default=(224, 224),
                    metavar=("H", "W"))
     p.add_argument("--ping", default=None, metavar="RGB_NPY",
@@ -98,8 +115,6 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if args.mesh_devices is not None or args.mesh_spatial is not None:
-        raise SystemExit(MESH_NOT_PORTED)
     if args.impl == "mixed" or args.tuning is not None:
         raise SystemExit(TUNED_NOT_PORTED)
 
@@ -157,11 +172,27 @@ def main(argv=None, *, _ready=None, _stop=None):
     if not args.evaluate:
         raise SystemExit("--evaluate is required (or use --ping for client mode)")
     _refuse_unported(args)
-    if not args.bf16:
-        strict_f32()  # f32 is true f32; bf16 runs leave the flags as they are
+    # the mesh flags' checks before any rank starts or any checkpoint loads
+    check_cli_mesh(args.mesh_devices, args.mesh_spatial, image_height=args.image_size[0],
+                   batch_size=args.batch_size)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run the plain PyTorch versions)")
+    if D.mesh_world(args) is None:
+        return _serve(args, ready=_ready, stop=_stop)
+    # a spawned rank cannot set this process's events: _stop reaches rank
+    # 0 as a SIGINT (launch), and ready is the socket file appearing
+    one = D.mesh_world(args) == 1
+    fn = functools.partial(_serve, ready=_ready, stop=_stop) if one else _serve
+    return D.launch(fn, args, timeout=MESH_GROUP_TIMEOUT_S, stop=None if one else _stop)
+
+
+def _serve(args, ready=None, stop=None):
+    """One rank's daemon (the whole daemon without a mesh): load, build the
+    server; rank 0 serves until ``stop`` (or a SIGINT, or a failed rank),
+    the others follow it until it closes.  A failed mesh rank exits
+    non-zero."""
+    import numpy as np
 
     from fastdepth_tpu_torch.cli.evaluate import load_params_and_model
     from fastdepth_tpu_torch.engine.server import (
@@ -171,7 +202,19 @@ def main(argv=None, *, _ready=None, _stop=None):
         serve_unix_socket,
     )
 
-    print(f"=> loading model '{args.evaluate}'")
+    if not args.bf16:
+        strict_f32()  # f32 is true f32; bf16 runs leave the flags as they are
+    mesh = mesh_from_cli(args.mesh_devices, args.mesh_spatial,
+                         image_height=args.image_size[0], batch_size=args.batch_size)
+    primary = D.is_primary()
+    main_thread = threading.current_thread() is threading.main_thread()
+    if mesh is not None and main_thread:
+        # a terminal's Ctrl-C reaches every rank: rank 0 shuts the mesh
+        # down, the followers wait for its stop header
+        stop = stop or threading.Event()
+        signal.signal(signal.SIGINT, (lambda *_: stop.set()) if primary else signal.SIG_IGN)
+    if primary:
+        print(f"=> loading model '{args.evaluate}'")
     params, model, _ = load_params_and_model(args.evaluate)
     server = InferenceServer(
         model, params,
@@ -186,10 +229,18 @@ def main(argv=None, *, _ready=None, _stop=None):
         # (np.load over the wire bytes) and never touch it after
         # submit() — the defensive copy would be pure overhead here
         copy_inputs=False,
-        device=args.device,
+        mesh=mesh,
+        device=None if mesh is not None else args.device,
     )
+    if not primary:
+        server.close()  # follows rank 0's batches until its stop header
+        if server.failed.is_set():
+            raise SystemExit(f"serving mesh: {server.fatal_error}")
+        return 0
+    if mesh is not None:
+        stop = stop or threading.Event()
+        threading.Thread(target=lambda: (server.failed.wait(), stop.set()), daemon=True).start()
     if args.stats_every > 0:
-        import threading
         import time
 
         def stats_loop():
@@ -207,17 +258,20 @@ def main(argv=None, *, _ready=None, _stop=None):
     addr = parse_address(args.socket)
     try:
         if addr[0] == "tcp":
-            serve_tcp(server, addr[1], addr[2], ready=_ready, stop=_stop)
+            serve_tcp(server, addr[1], addr[2], ready=ready, stop=stop)
         else:
             # socket-file cleanup belongs to serve_unix_socket alone: it
             # unlinks only a socket it BOUND — an unlink here would also
             # fire when startup was refused because a live daemon owns
             # the path, silently unreachable-ing that daemon
-            serve_unix_socket(server, args.socket, ready=_ready, stop=_stop)
+            serve_unix_socket(server, args.socket, ready=ready, stop=stop)
     except KeyboardInterrupt:
         print("\n=> shutting down")
     finally:
         server.close()
+    if server.failed.is_set():
+        raise SystemExit(f"serving mesh: a rank failed ({server.fatal_error}); "
+                         "the daemon is down")
     return 0
 
 

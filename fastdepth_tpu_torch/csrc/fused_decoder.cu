@@ -81,6 +81,25 @@
 // parent and change alternating), with f32 unchanged, and passing the
 // epilogue's pointers restrict-qualified did not bring it back.  A
 // change to the pieces below is a change to stage_tile.cuh's too.
+//
+// The row window.  Under a height-sharded mesh a rank holds only some
+// rows of each map (parallel/spatial.py), so a launch may take a tile of
+// the input and give a window of the output: x holds rows r0 .. r0 + H -
+// 1 of an image of Hg rows (its halo rows included), rows outside
+// [0, Hg) read as zero without a load, and the launch writes only rows
+// o0 .. o1 - 1 of the 2Hg-row upsampled map (the skip holds those rows
+// only).  The blocks tile the input rows o0 / 2 .. (o1 + 1) / 2 - 1 that
+// those output rows duplicate; a window that starts or ends on an odd
+// row writes one of its first or last pixel row's two copies.  The last
+// row tile may reach past those rows, and its halo past the rows x
+// holds: a load reads only rows below min(Hg, r0 + H), and the rows it
+// skips feed only outputs the epilogue drops.  The
+// window is a template flag: the whole image (r0 = 0, H = Hg, o0 = 0,
+// o1 = 2Hg) runs the kernel's instantiation without a window, whose code
+// is the kernel's before the window came, so that the unsharded forward
+// pays nothing for it.
+
+#include <algorithm>
 
 #include "stage_tile.cuh"
 
@@ -104,7 +123,11 @@ constexpr int kMaxSmem = 232448;  // 227 KB, the most a block may have on Hopper
 // buffers of its own, and the epilogue sums the groups' partial products
 // in group order (deterministic, no atomics).
 struct Geom {
-  int H, W, C, Cout;
+  int H, W, C, Cout;  // H: the rows x holds an image
+  int r0, Hg;         // x's first row in the image, the image's rows
+  int hlim;           // past the rows a load may read: min(Hg, r0 + H)
+  int c0, c1;         // the input rows the blocks tile: c0 .. c1 - 1
+  int o0, Ho;         // the output window's first row and its rows
   int th, tw;     // pixel tile: th rows x tw columns (P = th * tw), powers of two
   int th_log2, tw_log2;
   int tiles_w;    // tiles per tile row of an image
@@ -179,8 +202,10 @@ __device__ __forceinline__ void depthwise(const T* halo, int row_len, const T* s
 }
 
 // At most 128 registers a thread, so that two blocks of 256 threads share
-// an SM: with one block a level's barriers leave the SM idle.
-template <typename T, int KC>
+// an SM: with one block a level's barriers leave the SM idle.  kWin: the
+// launch has a row window (its own instantiation, so that the launch
+// without one keeps its instructions).
+template <typename T, int KC, bool kWin>
 __global__ void __launch_bounds__(256, 2)
     k1_kernel(const T* __restrict__ x, const T* __restrict__ dw_w, const T* __restrict__ dw_b,
               const T* __restrict__ pw_w, const T* __restrict__ pw_b,
@@ -214,7 +239,10 @@ __global__ void __launch_bounds__(256, 2)
   auto div_hw = [&](int q) { return static_cast<int>(__umulhi(q, hw_magic)); };
   const int n = blockIdx.x / g.tiles;
   const int tile = blockIdx.x % g.tiles;
-  const int h0 = (tile / g.tiles_w) * g.th;
+  const int h0 = (kWin ? g.c0 : 0) + (tile / g.tiles_w) * g.th;
+  const int hlim = kWin ? g.hlim : g.H;  // past the rows x holds in the image
+  const int hx0 = kWin ? g.r0 : 0;   // the image row of x's first row
+  const int hend = kWin ? g.c1 : g.H;  // past the rows the blocks compute
   const int w0 = (tile % g.tiles_w) * g.tw;
   const int co0 = blockIdx.y * nc;
   const T* xn = x + static_cast<size_t>(n) * g.H * g.W * g.C;
@@ -235,9 +263,9 @@ __global__ void __launch_bounds__(256, 2)
         const int qw = q - qh * hw;
         const int h = h0 - 2 + qh;
         const int w = w0 - 2 + qw;
-        const bool ok = c < g.C && h >= 0 && h < g.H && w >= 0 && w < g.W;
+        const bool ok = c < g.C && h >= 0 && h < hlim && w >= 0 && w < g.W;
         cp_async16(sh + qh * L.row + qw * KC + (i % kVecs) * V,
-                   ok ? xn + (static_cast<size_t>(h) * g.W + w) * g.C + c : x, ok);
+                   ok ? xn + (static_cast<size_t>(h - hx0) * g.W + w) * g.C + c : x, ok);
       }
       for (int i = gtid; i < 26 * kVecs; i += tb) {
         const int t = i / kVecs;
@@ -254,9 +282,9 @@ __global__ void __launch_bounds__(256, 2)
         const int qw = q - qh * hw;
         const int h = h0 - 2 + qh;
         const int w = w0 - 2 + qw;
-        const bool ok = c < g.C && h >= 0 && h < g.H && w >= 0 && w < g.W;
+        const bool ok = c < g.C && h >= 0 && h < hlim && w >= 0 && w < g.W;
         sh[qh * L.row + qw * KC + i % KC] =
-            ok ? xn[(static_cast<size_t>(h) * g.W + w) * g.C + c] : zero;
+            ok ? xn[(static_cast<size_t>(h - hx0) * g.W + w) * g.C + c] : zero;
       }
       for (int i = gtid; i < 26 * KC; i += tb) {
         const int t = i / KC;
@@ -449,7 +477,7 @@ __global__ void __launch_bounds__(256, 2)
       const int co = co0 + gi * V;
       const int h = h0 + (p >> g.tw_log2);
       const int w = w0 + (p & (g.tw - 1));
-      if (h >= g.H || w >= g.W) continue;
+      if (h >= hend || w >= g.W) continue;
       float v[V];
 #pragma unroll
       for (int j = 0; j < V; ++j) v[j] = s_out[p * os + gi * V + j];
@@ -458,9 +486,14 @@ __global__ void __launch_bounds__(256, 2)
         for (int j = 0; j < V; ++j) v[j] += s_out[q * gstride + p * os + gi * V + j];
 #pragma unroll
       for (int j = 0; j < V; ++j) v[j] = fmaxf(v[j] + to_float(pw_b[co + j]), 0.f);
-      const size_t o0 = ((n * H2 + 2 * h) * W2 + 2 * w + dx) * g.Cout + co;
+      // the window's row of the pixel's top copy (its own row without one)
+      const int oy = kWin ? 2 * h - g.o0 : 2 * h;
+      const size_t o0 = kWin ? ((static_cast<size_t>(n) * g.Ho + oy) * W2 + 2 * w + dx) * g.Cout + co
+                             : ((n * H2 + 2 * h) * W2 + 2 * w + dx) * g.Cout + co;
 #pragma unroll
       for (int dy = 0; dy < 2; ++dy) {
+        // unsigned: a window starting on an odd row has no top copy (oy -1)
+        if (kWin && static_cast<unsigned>(oy + dy) >= static_cast<unsigned>(g.Ho)) continue;
         const size_t o = o0 + dy * row2;
         float r[V];
         if (skip != nullptr) {
@@ -480,29 +513,33 @@ __global__ void __launch_bounds__(256, 2)
       const int ci = i - p * cvalid;
       const int h = h0 + (p >> g.tw_log2);
       const int w = w0 + (p & (g.tw - 1));
-      if (h >= g.H || w >= g.W) continue;
+      if (h >= hend || w >= g.W) continue;
       float v = s_out[p * os + ci];
       for (int q = 1; q < g.ks; ++q) v += s_out[q * gstride + p * os + ci];
       v = fmaxf(v + to_float(pw_b[co0 + ci]), 0.f);
 #pragma unroll
-      for (int dy = 0; dy < 2; ++dy)
+      for (int dy = 0; dy < 2; ++dy) {
+        const int oy = kWin ? 2 * h + dy - g.o0 : 2 * h + dy;
+        if (kWin && static_cast<unsigned>(oy) >= static_cast<unsigned>(g.Ho)) continue;
+        const size_t rows = kWin ? static_cast<size_t>(n) * g.Ho : n * H2;
 #pragma unroll
         for (int dx = 0; dx < 2; ++dx) {
-          const size_t o = ((n * H2 + 2 * h + dy) * W2 + 2 * w + dx) * g.Cout + co0 + ci;
+          const size_t o = ((rows + oy) * W2 + 2 * w + dx) * g.Cout + co0 + ci;
           out[o] = from_float<T>(skip != nullptr ? v + to_float(skip[o]) : v);
         }
+      }
     }
   }
 }
 
-template <typename T, int KC>
+template <typename T, int KC, bool kWin>
 cudaError_t launch(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
                    const void* pw_b, const void* skip, void* out, int N, const Geom& g,
                    int threads, cudaStream_t stream) {
   constexpr int V = 16 / static_cast<int>(sizeof(T));
   const int smem = Layout<T, KC>(g.th, g.tw, g.nc, g.ks).total;
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  auto kernel = k1_kernel<T, KC>;
+  auto kernel = k1_kernel<T, KC, kWin>;
   static int smem_allowed = 48 * 1024;  // per instantiation: raise the cap once
   if (smem > smem_allowed) {
     const cudaError_t err =
@@ -524,21 +561,45 @@ cudaError_t launch(const void* x, const void* dw_w, const void* dw_b, const void
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
+// The launch of one instantiation, by dtype and C chunk.
+template <bool kWin>
+int dispatch(const void* x, const void* dw_w, const void* dw_b, const void* pw_w,
+             const void* pw_b, const void* skip, void* out, int N, const Geom& g, int threads,
+             int kc, bool bf16, cudaStream_t s) {
+  if (!bf16) {
+    switch (kc) {
+      case 8: return static_cast<int>(launch<float, 8, kWin>(x, dw_w, dw_b, pw_w, pw_b, skip, out, N, g, threads, s));
+      case 16: return static_cast<int>(launch<float, 16, kWin>(x, dw_w, dw_b, pw_w, pw_b, skip, out, N, g, threads, s));
+      case 32: return static_cast<int>(launch<float, 32, kWin>(x, dw_w, dw_b, pw_w, pw_b, skip, out, N, g, threads, s));
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (kc) {
+    case 16: return static_cast<int>(launch<__nv_bfloat16, 16, kWin>(x, dw_w, dw_b, pw_w, pw_b, skip, out, N, g, threads, s));
+    case 32: return static_cast<int>(launch<__nv_bfloat16, 32, kWin>(x, dw_w, dw_b, pw_w, pw_b, skip, out, N, g, threads, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
-// x (N,H,W,C); dw_w (25,C); dw_b (C); pw_w (C,Cout); pw_b (Cout);
-// skip (N,2H,2W,Cout) or null; out (N,2H,2W,Cout); all dense, one dtype:
-// dtype 0 = float32, 1 = bfloat16.  The launch geometry (threads per
-// group, the th x tw pixel tile, the Cout tile nc, the C chunk kc and the
-// ks groups splitting C) comes from the wrapper's launch_geometry; a
-// geometry the kernel does not take returns cudaErrorInvalidValue.
-// Launches on `stream` and returns the launch's cudaError_t (0 =
-// success); it neither allocates nor syncs.
+// x (N,H,W,C) holds rows r0 .. r0 + H - 1 of an image of Hg rows (rows
+// outside [0, Hg) read as zero); dw_w (25,C); dw_b (C); pw_w (C,Cout);
+// pw_b (Cout); skip (N,o1-o0,2W,Cout) or null and out (N,o1-o0,2W,Cout)
+// hold rows o0 .. o1 - 1 of the 2Hg-row output; all dense, one dtype:
+// dtype 0 = float32, 1 = bfloat16.  The whole image is r0 = 0, Hg = H,
+// o0 = 0, o1 = 2H.  The launch geometry (threads per group, the th x tw
+// pixel tile, the Cout tile nc, the C chunk kc and the ks groups
+// splitting C) comes from the wrapper's launch_geometry and tiles the
+// (o1 + 1) / 2 - o0 / 2 input rows the window duplicates; a geometry the
+// kernel does not take, or a window whose rows x does not hold, returns
+// cudaErrorInvalidValue.  Launches on `stream` and returns the launch's
+// cudaError_t (0 = success); it neither allocates nor syncs.
 extern "C" int fd_fused_decoder_stage(const void* x, const void* dw_w, const void* dw_b,
                                       const void* pw_w, const void* pw_b, const void* skip,
                                       void* out, int N, int H, int W, int C, int Cout,
                                       int threads, int th, int tw, int nc, int kc, int ks,
-                                      int dtype, void* stream) {
+                                      int r0, int Hg, int o0, int o1, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf16 = dtype == 1;
   const int p = th * tw;
@@ -550,34 +611,37 @@ extern "C" int fd_fused_decoder_stage(const void* x, const void* dw_w, const voi
                   threads * ks <= 256 && (tw == 4 || tw == 8 || tw == 16 || tw == 32) &&
                   pow2(th) && pow2(nc) && nc >= lanes && nc <= 256 && nc / lanes <= units &&
                   p == units / (nc / lanes) * rows;
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  // the window lies in the 2Hg-row map, and x holds every image row it
+  // reads: two around the rows it duplicates
+  const int c0 = o0 / 2;
+  const int c1 = (o1 + 1) / 2;
+  const bool window = Hg > 0 && 0 <= o0 && o0 < o1 && o1 <= 2 * Hg &&
+                      r0 <= std::max(c0 - 2, 0) && std::min(c1 + 2, Hg) <= r0 + H;
+  if (!ok || !window) return static_cast<int>(cudaErrorInvalidValue);
   Geom g;
   g.H = H;
   g.W = W;
   g.C = C;
   g.Cout = Cout;
+  g.r0 = r0;
+  g.Hg = Hg;
+  g.hlim = std::min(Hg, r0 + H);
+  g.c0 = c0;
+  g.c1 = c1;
+  g.o0 = o0;
+  g.Ho = o1 - o0;
   g.th = th;
   g.tw = tw;
   g.th_log2 = __builtin_ctz(th);
   g.tw_log2 = __builtin_ctz(tw);
   g.tiles_w = fd_ceil_div(W, tw);
-  g.tiles = fd_ceil_div(H, th) * g.tiles_w;
+  g.tiles = fd_ceil_div(c1 - c0, th) * g.tiles_w;
   g.nc = nc;
   g.nc_log2 = __builtin_ctz(nc);
   g.ks = ks;
   if (static_cast<long long>(N) * g.tiles > 0x7fffffffLL || fd_ceil_div(Cout, nc) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (!bf16) {
-    switch (kc) {
-      case 8: return static_cast<int>(launch<float, 8>(x, dw_w, dw_b, pw_w, pw_b, skip, out, N, g, threads, s));
-      case 16: return static_cast<int>(launch<float, 16>(x, dw_w, dw_b, pw_w, pw_b, skip, out, N, g, threads, s));
-      case 32: return static_cast<int>(launch<float, 32>(x, dw_w, dw_b, pw_w, pw_b, skip, out, N, g, threads, s));
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
-  }
-  switch (kc) {
-    case 16: return static_cast<int>(launch<__nv_bfloat16, 16>(x, dw_w, dw_b, pw_w, pw_b, skip, out, N, g, threads, s));
-    case 32: return static_cast<int>(launch<__nv_bfloat16, 32>(x, dw_w, dw_b, pw_w, pw_b, skip, out, N, g, threads, s));
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const bool win = !(r0 == 0 && H == Hg && o0 == 0 && o1 == 2 * Hg);
+  return win ? dispatch<true>(x, dw_w, dw_b, pw_w, pw_b, skip, out, N, g, threads, kc, bf16, s)
+             : dispatch<false>(x, dw_w, dw_b, pw_w, pw_b, skip, out, N, g, threads, kc, bf16, s);
 }

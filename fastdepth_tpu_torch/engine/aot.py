@@ -19,6 +19,7 @@ import torch
 
 from fastdepth_tpu_torch.models import fused as F
 from fastdepth_tpu_torch.models.registry import Model
+from fastdepth_tpu_torch.parallel import spatial as S
 
 IMPLS = ("auto", "fused", "opt", "xla")
 
@@ -43,8 +44,11 @@ def normalize(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.to(dtype) / torch.full((), 255.0, dtype=dtype, device=x.device)
 
 
-def _pick_apply(model: Model, params, impl: str, batch_size: int = 2):
-    """The forward ``fn(params, x)`` an impl name selects.
+def _pick_apply(model: Model, params, impl: str, batch_size: int = 2, space=None):
+    """The forward ``fn(params, x)`` an impl name selects.  ``space`` (a
+    ``parallel.spatial.Partition``) makes it height-sharded: 'fused',
+    'opt' and 'xla' all take it, on the MobileNet + NNConv family only
+    (the rest of the zoo is refused here, naming ROADMAP A12c).
 
     'fused' runs decoder levels 1-5 through K1 and the head through K4;
     'opt' the plain-PyTorch head-commute forward; 'xla' the straight
@@ -61,6 +65,8 @@ def _pick_apply(model: Model, params, impl: str, batch_size: int = 2):
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     cfg = model.config
+    if space is not None:
+        S.check_model(cfg)
     folded = not F.tree_has_bn(params)
     if impl in ("opt", "fused") and not folded:
         raise ValueError(
@@ -70,16 +76,19 @@ def _pick_apply(model: Model, params, impl: str, batch_size: int = 2):
         raise ValueError(
             "impl='fused' runs K1, which covers the MobileNet nnconv5dw "
             f"skip-add family only; got decoder={cfg.decoder!r} skip={cfg.skip!r}")
+    kw = {} if space is None else {"space": space}
     if impl == "fused" or (impl == "auto" and folded and F.supports_fused(cfg)):
-        return lambda p, x: F.apply_fastdepth_fused(p, x, cfg)
+        return lambda p, x: F.apply_fastdepth_fused(p, x, cfg, **kw)
     if impl == "opt" or (impl == "auto" and folded and batch_size > 1
                          and F.supports_opt(cfg)):
-        return lambda p, x: F.apply_fastdepth_opt(p, x, cfg)
+        return lambda p, x: F.apply_fastdepth_opt(p, x, cfg, **kw)
+    if space is not None:
+        return lambda p, x: model.apply(p, x, space=space)
     return model.apply
 
 
 def _prepare(model: Model, params, *, batch_size: int, dtype: torch.dtype, fold_bn: bool,
-             impl: str, device: Union[str, torch.device]):
+             impl: str, device: Union[str, torch.device], space=None):
     """The preamble :class:`Evaluator` and :func:`compile_forward` share:
     fold (in f32, before the cast), cast to ``dtype``, move to
     ``device``, pick the forward.  Returns (params, apply).  The caller's
@@ -96,7 +105,7 @@ def _prepare(model: Model, params, *, batch_size: int, dtype: torch.dtype, fold_
     params = (model.fold(params) if fold_bn or not F.tree_has_bn(params)
               else copy.deepcopy(params))
     params = params.to(device=device, dtype=dtype)
-    return params, _pick_apply(model, params, impl, batch_size)
+    return params, _pick_apply(model, params, impl, batch_size, space)
 
 
 def compile_forward(

@@ -9,7 +9,10 @@ the device; only the 10 metric scalars per image come back to the host,
 in one stacked fetch per batch.  Over a data mesh (``parallel/mesh.py``)
 each rank runs its rows of every batch through the same forward, and the
 fetch all-gathers the ranks' metric stacks in rank order, so every rank
-averages the global batch.
+averages the global batch.  Over a ``space`` axis each rank also holds
+its rows of every image: the forward is height-sharded
+(``parallel/spatial.py``) and the per-image metric sums are all-reduced
+over the space group before the divide (``metrics.evaluate_batch``).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from fastdepth_tpu_torch import metrics as M
 from fastdepth_tpu_torch.engine.aot import _prepare, normalize
 from fastdepth_tpu_torch.engine.staging import PinnedRing
 from fastdepth_tpu_torch.models.registry import Model
-from fastdepth_tpu_torch.parallel.mesh import fetch_global
+from fastdepth_tpu_torch.parallel.mesh import fetch_global, take_rows
 
 CSV_FIELDNAMES = [
     "rmse", "mae", "delta1", "absrel", "lg10", "mse", "delta2", "delta3",
@@ -55,16 +58,19 @@ class Evaluator:
         and 'xla' force the K1/K4, head-commute and straight forwards
         (engine/aot.py, which also folds in f32 before the cast to
         ``dtype``).  ``device``: 'cuda' unless given; under ``mesh``
-        (a data mesh), the mesh's device, and the batches are this rank's
-        rows (``batch_size`` stays the global batch, as the JAX package's
-        dispatch reads it).  A CUDA ``device`` must exist: there is no CPU
+        (a ``data``, ``space`` or 2-D mesh), the mesh's device, and the
+        batches are this rank's rows (``batch_size`` stays the global
+        batch, as the JAX package's dispatch reads it); :meth:`put` takes
+        the rank's rows of the height under a ``space`` axis.  A CUDA ``device`` must exist: there is no CPU
         fallback.
 
         ``val_pipeline``: a ``data.pipeline.ValPipeline``.  The whole val
         resize/crop chain is one (rows, cols) gather, so with raw
         (480, 640) batches (``NYUDataset(raw_items=True)``) it runs on the
         device inside the step, with the host gather's values; host
-        preprocessing drops to the h5 read."""
+        preprocessing drops to the h5 read.  Under a ``space`` axis each
+        rank takes whole raw frames and gathers its rows of the index
+        map."""
         if mesh is not None:
             if device is not None and torch.device(device) != mesh.device:
                 raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
@@ -75,16 +81,19 @@ class Evaluator:
         self.dtype = dtype
         self.mesh = mesh
         self.device = torch.device(device)
+        self._space = None if mesh is None else mesh.partition()
         self.params, self._apply = _prepare(model, params, batch_size=batch_size,
                                             dtype=dtype, fold_bn=fold_bn, impl=impl,
-                                            device=device)
+                                            device=device, space=self._space)
         # validate() keeps one batch in flight: two batches of (rgb, depth)
         self._ring = PinnedRing(self.device, slots=4)
         self._gather = None
         if val_pipeline is not None:
-            self._gather = tuple(torch.as_tensor(np.asarray(a), dtype=torch.int64,
-                                                 device=self.device)
-                                 for a in (val_pipeline.rows, val_pipeline.cols))
+            rows, cols = (torch.as_tensor(np.asarray(a), dtype=torch.int64)
+                          for a in (val_pipeline.rows, val_pipeline.cols))
+            if self._space is not None:
+                rows = take_rows(rows, self._space, 0)
+            self._gather = (rows.to(self.device), cols.to(self.device))
             # the exact raw dims the gather indices were computed for: on
             # CUDA an index past a smaller (preprocessed) frame is a
             # device-side assert, and a larger frame passes any max-index
@@ -97,14 +106,20 @@ class Evaluator:
 
     def put(self, arr: np.ndarray) -> torch.Tensor:
         """``arr`` (under a mesh: this rank's rows) on the device, copied
-        through page-locked memory on a card (``engine/staging.PinnedRing``)."""
+        through page-locked memory on a card (``engine/staging.PinnedRing``).
+        Under a ``space`` axis the rank's rows of the height (NHWC dim 1)
+        go, or the whole raw frame with a ``val_pipeline``."""
+        if self._space is not None and self._gather is None:
+            arr = take_rows(torch.from_numpy(np.asarray(arr)), self._space, 1).numpy()
         return self._ring.put(arr)
 
-    def fetch(self, t: torch.Tensor, dim: int = 0) -> np.ndarray:
+    def fetch(self, t: torch.Tensor, dim: int = 0, space_dim=None) -> np.ndarray:
         """A per-row result as host numpy: under a mesh, every rank's rows
         along ``dim`` in rank order (``parallel.mesh.fetch_global``, a
-        collective every rank calls), else this one's."""
-        return fetch_global(t, self.mesh, dim)
+        collective every rank calls), else this one's; ``space_dim``: the
+        result's height dim, gathered over a ``space`` axis first (the
+        prediction's 1; the metric stack has none)."""
+        return fetch_global(t, self.mesh, dim, space_dim)
 
     def _check_raw(self, name: str, t: torch.Tensor) -> None:
         want = self._want_raw
@@ -134,7 +149,8 @@ class Evaluator:
             depth = depth.index_select(1, rows).index_select(2, cols)
         rgb = normalize(rgb, self.dtype) if rgb.dtype == torch.uint8 else rgb.to(self.dtype)
         pred = self._apply(self.params, rgb).float()
-        metrics = M.evaluate_batch(pred, depth)
+        metrics = M.evaluate_batch(pred, depth,
+                                   None if self._space is None else self.mesh.space_group)
         return pred, torch.stack([metrics[f] for f in M.METRIC_FIELDS])
 
 
@@ -210,7 +226,7 @@ def validate(
         if make_images and output_dir is not None:
             pred_np = None
             if any((seen + i) % 50 == 0 and (seen + i) < 8 * 50 for i in range(count)):
-                pred_np = evaluator.fetch(pred)
+                pred_np = evaluator.fetch(pred, space_dim=1)
             for i in range(count):
                 gi = seen + i
                 if gi % 50 == 0 and gi < 8 * 50:

@@ -14,11 +14,25 @@ The wire protocol (length-prefixed ``.npy`` frames over unix and TCP
 sockets, the zero-length stats op) is the JAX package's, byte for byte:
 clients and servers of either package talk to each other.  This module
 keeps its own copy of that numpy-only half.
+
+Over a mesh (``mesh=``, ``parallel/mesh.py``: ``data``, ``space`` or
+both) every rank constructs the server.  Rank 0 is the front end: the
+queue, the drainer, the socket.  For each packed batch it broadcasts a
+small header (go and the real-frame count), then the batch; every rank
+computes its ``(data, space)`` block (its rows of the batch, its rows of
+the height through the height-sharded forward), and the blocks are
+gathered back to rank 0.  The other ranks run a follower loop that
+answers those broadcasts until rank 0's ``close()`` sends a stop header;
+while idle rank 0 sends a heartbeat header every :data:`HEARTBEAT_S`, so
+a group timeout longer than that only fires when a rank is gone, and a
+failed collective brings the server down (``failed``) instead of
+hanging it.  Every rank issues the same collectives in the same order.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import queue
 import threading
 import time
@@ -27,11 +41,21 @@ from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fastdepth_tpu_torch.engine.aot import _prepare, normalize
+from fastdepth_tpu_torch.parallel.mesh import DATA_AXIS, SPACE_AXIS, block_of
 
-MESH_NOT_PORTED = ("serving over a device mesh (mesh=, --mesh-devices, --mesh-spatial) is "
-                   "not ported yet: ROADMAP A12b")
+# the mesh server's headers: [command, real frames]
+_STOP, _BATCH, _BEAT = 0, 1, 2
+# seconds between rank 0's idle heartbeats to the follower ranks
+HEARTBEAT_S = 5.0
+CHAIN_DATA_REFUSED = (
+    "chain mode executes the window SEQUENTIALLY in-graph "
+    "(batch-1 forwards under lax.map) — a 'data' mesh axis "
+    "would shard the scan axis.  Use chain with no mesh or "
+    "a 'space'-only mesh (spatial partitioning cuts each "
+    "frame's latency; the window is the amortization).")
 TUNED_NOT_PORTED = ("the tuned dispatch (impl='mixed', tuning=, --impl mixed, --tuning) is "
                     "not ported yet: ROADMAP A14")
 
@@ -103,7 +127,7 @@ class InferenceServer:
         chain: bool = False,
         copy_inputs: bool = True,
         close_timeout: float = 60.0,
-        device: Union[str, torch.device] = "cuda",
+        device: Union[str, torch.device, None] = None,
     ):
         """``params``: the tree from ``Model.load``.  It is folded (in
         f32, before the cast to ``dtype``) and the forward picked as for
@@ -120,13 +144,38 @@ class InferenceServer:
         drainer's stream, one wait per window.  ``copy_inputs=False``
         skips submit()'s defensive frame copy — only for in-process
         clients that never mutate a frame after submitting it.
-        ``device``: 'cuda' runs the kernels (the card must exist: there
-        is no CPU fallback); 'cpu' their plain versions.  ``mesh`` is
-        refused (ROADMAP A12b), ``tuning`` and ``impl='mixed'`` too (A14)."""
-        if mesh is not None:
-            raise ValueError(MESH_NOT_PORTED)
+        ``device``: 'cuda' (the default) runs the kernels (the card must
+        exist: there is no CPU fallback); 'cpu' their plain versions.
+        ``mesh``: serve over the mesh (module docstring), on its device;
+        ``batch_size`` divides by its ``data`` axis, the image height by
+        its ``space`` axis, and ``chain`` takes no ``data`` axis larger
+        than 1 (the JAX server's checks).  Every rank constructs the
+        server; on rank 0 it serves, on the others it follows until rank
+        0 closes (a follower's :meth:`close` blocks until then).  ``tuning`` and ``impl='mixed'`` are
+        refused (ROADMAP A14)."""
         if tuning is not None or impl == "mixed":
             raise ValueError(TUNED_NOT_PORTED)
+        space = None
+        if mesh is not None:
+            n_data = mesh.shape.get(DATA_AXIS, 1)
+            if batch_size % n_data:
+                raise ValueError(
+                    f"batch_size {batch_size} must divide by the mesh's "
+                    f"{n_data}-way '{DATA_AXIS}' axis")
+            n_space = mesh.shape.get(SPACE_AXIS, 1)
+            if image_size[0] % n_space:
+                raise ValueError(
+                    f"image height {image_size[0]} must divide by the "
+                    f"mesh's {n_space}-way '{SPACE_AXIS}' axis")
+            if chain and n_data > 1:
+                raise ValueError(CHAIN_DATA_REFUSED)
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+            device, space = mesh.device, mesh.partition()
+        self.mesh = mesh
+        self.failed = threading.Event()  # a mesh collective failed: the server is down
+        self.fatal_error: Optional[BaseException] = None
+        self._leader = mesh is None or dist.get_rank() == 0
         self._copy_inputs = bool(copy_inputs)
         self.input_dtype = np.dtype(input_dtype)
         if self.input_dtype not in (np.dtype(np.float32), np.dtype(np.uint8)):
@@ -136,12 +185,12 @@ class InferenceServer:
             raise ValueError(
                 f"output_dtype must be float32 or float16, got {output_dtype}")
         self.chain = bool(chain)
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
         # chain == batch-1 compute: the forward is picked for batch 1
         self.params, apply = _prepare(model, params,
                                       batch_size=1 if self.chain else batch_size,
                                       dtype=dtype, fold_bn=fold_bn, impl=impl,
-                                      device=self.device)
+                                      device=self.device, space=space)
         out_dtype = torch.float16 if self.output_dtype == np.float16 else torch.float32
         uint8_in = self.input_dtype == np.uint8
 
@@ -157,8 +206,10 @@ class InferenceServer:
         # pending batches (at most pipeline_depth after each dispatch) and
         # the one being packed each hold a slot
         in_dtype = torch.uint8 if uint8_in else torch.float32
+        self._in_shape, self._in_dtype = (batch_size, h, w, 3), in_dtype
         self._slots = [_Slot((batch_size, h, w, 3), in_dtype, (batch_size, h, w, 1), out_dtype,
-                             self.device) for _ in range(max(pipeline_depth, 0) + 1)]
+                             self.device) for _ in range(max(pipeline_depth, 0) + 1)
+                       ] if self._leader else []
         self._stream = None
         if self.device.type == "cuda":
             from fastdepth_tpu_torch.ops.cuda import _build
@@ -181,7 +232,8 @@ class InferenceServer:
         # True while the drainer holds dispatched-but-unresolved work;
         # single writer (drainer), read heuristically by close()
         self._busy = False
-        self._thread = threading.Thread(target=self._drain, daemon=True)
+        self._thread = threading.Thread(target=self._drain if self._leader else self._follow,
+                                        daemon=True)
         self._thread.start()
 
     # ---- client side ----
@@ -204,6 +256,8 @@ class InferenceServer:
                 f"(server input_dtype), got {rgb.dtype}")
         if rgb.shape != (h, w, 3):
             raise ValueError(f"expected ({h}, {w}, 3) HWC rgb, got {rgb.shape}")
+        if not self._leader:
+            raise RuntimeError("submit() on a follower rank: rank 0 serves the mesh")
         if self._copy_inputs:
             rgb = np.array(rgb, copy=True)
         if self._stop.is_set():
@@ -270,13 +324,77 @@ class InferenceServer:
         the padded tail is never read), the copy back, then the slot's
         event.  Nothing here waits for the device."""
         x = slot.host_in.to(self.device, non_blocking=True)  # the CPU: no copy
-        if self.chain:
+        if self.mesh is not None:
+            self._header(_BATCH, n)
+            dist.broadcast(x, 0)
+            out = self._mesh_step(x, n)
+            slot.host_out[:out.shape[0]].copy_(out, non_blocking=True)
+        elif self.chain:
             out = torch.cat([self._forward(x[i:i + 1]) for i in range(n)])
             slot.host_out[:n].copy_(out, non_blocking=True)
         else:
             slot.host_out.copy_(self._forward(x), non_blocking=True)
         if slot.done is not None:
             slot.done.record()
+
+    def _header(self, command: int, n: int = 0) -> torch.Tensor:
+        """Broadcast (rank 0) or receive a ``[command, frames]`` header."""
+        # filled on the device: a copy from the host would wait for the
+        # stream's earlier batches and end the drainer's pipelining
+        header = torch.full((2,), n, dtype=torch.int64, device=self.device)
+        header[:1].fill_(command)
+        dist.broadcast(header, 0)
+        self._last_collective = time.monotonic()
+        return header
+
+    def _mesh_step(self, x: torch.Tensor, n: int) -> Optional[torch.Tensor]:
+        """Every rank's share of one packed batch ``x`` (the whole batch,
+        on every rank): its ``(data, space)`` block through the forward
+        (``n`` batch-1 forwards in chain mode), the blocks gathered to
+        rank 0, which returns the assembled prediction (the others None)."""
+        block = block_of(x, self.mesh)
+        if self.chain:
+            out = torch.cat([self._forward(block[i:i + 1]) for i in range(n)])
+        else:
+            out = self._forward(block)
+        out = out.contiguous()
+        parts = ([torch.empty_like(out) for _ in range(dist.get_world_size())]
+                 if self._leader else None)
+        dist.gather(out, parts, dst=0)
+        if not self._leader:
+            return None
+        # rank d * S + s holds batch block d, height block s
+        n_space = self.mesh.space_size
+        rows = [torch.cat(parts[d * n_space:(d + 1) * n_space], 1)
+                for d in range(len(parts) // n_space)]
+        return torch.cat(rows, 0)
+
+    def _follow(self):
+        """A follower rank's loop: answer rank 0's headers (a batch: its
+        broadcast, this rank's block, the gather) until the stop header.
+        A failed collective ends it and sets ``failed``."""
+        ctx = (torch.cuda.stream(torch.cuda.Stream(self.device))
+               if self.device.type == "cuda" else contextlib.nullcontext())
+        try:
+            with torch.inference_mode(), ctx:
+                while True:
+                    command, n = self._header(_STOP).tolist()
+                    if command == _STOP:
+                        return
+                    if command == _BATCH:
+                        x = torch.empty(self._in_shape, dtype=self._in_dtype,
+                                        device=self.device)
+                        dist.broadcast(x, 0)
+                        self._mesh_step(x, n)
+        except Exception as e:  # the leader or a peer is gone
+            self._fatal(e)
+
+    def _fatal(self, exc: BaseException) -> None:
+        """A mesh collective failed: the group cannot go on, so the server
+        stops (``failed`` set; the serve CLI exits on it)."""
+        self.fatal_error = exc
+        self.failed.set()
+        self._stop.set()
 
     def _drain(self):
         """The drainer thread: inference mode, autocast state, the current
@@ -285,9 +403,14 @@ class InferenceServer:
         with torch.inference_mode():
             if self._stream is None:
                 self._loop()
-                return
-            with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
-                self._loop()
+            else:
+                with torch.cuda.device(self.device), torch.cuda.stream(self._stream):
+                    self._loop()
+            if self.mesh is not None and not self.failed.is_set():
+                try:
+                    self._header(_STOP)  # the followers' loops end
+                except Exception as e:
+                    self._fatal(e)
 
     def _loop(self):
         """Pack + dispatch loop, pipelined ``pipeline_depth`` batches deep.
@@ -320,6 +443,7 @@ class InferenceServer:
             for (_, fut, _), pred in zip(items, preds):
                 _resolve_future(fut, value=pred)
 
+        self._last_collective = time.monotonic()
         while not self._stop.is_set():
             try:
                 if not pending:
@@ -328,6 +452,12 @@ class InferenceServer:
             except queue.Empty:
                 while pending:
                     resolve(pending.popleft())
+                if (self.mesh is not None
+                        and time.monotonic() - self._last_collective > HEARTBEAT_S):
+                    try:
+                        self._header(_BEAT)
+                    except Exception as e:
+                        self._fatal(e)
                 continue
             if first is None:
                 break
@@ -352,6 +482,8 @@ class InferenceServer:
             try:
                 self._run(slot, len(items))
             except Exception as e:
+                if self.mesh is not None:  # a collective may have failed: stop
+                    self._fatal(e)
                 if self._stream is not None:
                     try:  # let an enqueued copy finish before the slot is reused
                         self._stream.synchronize()
@@ -375,6 +507,9 @@ class InferenceServer:
         self._busy = False
 
     def close(self):
+        if not self._leader:
+            self._thread.join()  # the follower loop ends at rank 0's stop header
+            return
         self._stop.set()
         try:
             # never block: on a FULL queue the drainer has already seen

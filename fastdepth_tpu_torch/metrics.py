@@ -12,7 +12,12 @@ Reproduced precisely — do not "fix" these for parity's sake:
 
 :func:`evaluate_batch` computes all 10 metrics for a whole batch on the
 device in one pass of masked sums (no boolean indexing), so only 10
-scalars per image leave the device.
+scalars per image leave the device.  It is two steps: each image's
+masked sums and valid-pixel count (:func:`metric_sums`), then the
+divide and, for the RMSEs, the square root (:func:`finish`).  Under a
+height-sharded mesh each rank holds some rows of every image, so the
+sums and counts are all-reduced over the space group between the two
+steps, as JAX's partitioner closed them.
 """
 
 from __future__ import annotations
@@ -57,17 +62,21 @@ class Result:
         return dataclasses.asdict(self)
 
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+# the per-image masked sums of metric_sums, in order, then the count
+SUM_FIELDS = ("sq_err", "abs_err", "lg10", "absrel", "delta1", "delta2", "delta3",
+              "inv_sq_err", "inv_abs_err")
+
+
+def _masked_sum(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     dims = tuple(range(1, x.dim()))
-    return torch.where(mask, x, 0.0).sum(dim=dims) / mask.sum(dim=dims)
+    return torch.where(mask, x, 0.0).sum(dim=dims)
 
 
-def evaluate_batch(output: torch.Tensor, target: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """All metrics for an (N, H, W, 1) batch, per image, on its device.
-
-    Returns a dict of (N,)-vectors in float32, matching the reference's
-    ``Result.evaluate`` per image: union mask, millimeter scaling, each
-    mean over that image's valid pixels only."""
+def metric_sums(output: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """The first step of :func:`evaluate_batch`: for an (N, H, W, 1)
+    batch, each image's masked sums (:data:`SUM_FIELDS`, f32) and its
+    valid-pixel count, stacked ``(len(SUM_FIELDS) + 1, N)``: union mask,
+    millimeter scaling, as the reference's ``Result.evaluate``."""
     output = output.float()
     target = target.float()
     mask = (target > 0) | (output > 0)
@@ -75,31 +84,52 @@ def evaluate_batch(output: torch.Tensor, target: torch.Tensor) -> Dict[str, torc
     tgt_mm = 1e3 * target
 
     abs_diff = (out_mm - tgt_mm).abs()
-    mse = _masked_mean(abs_diff * abs_diff, mask)
-    mae = _masked_mean(abs_diff, mask)
     # log10 / ratios are only evaluated on masked pixels; `where` keeps the
     # computation NaN-free for excluded pixels (the reference's boolean
     # indexing never sees them)
     safe_out = torch.where(mask, out_mm, 1.0)
     safe_tgt = torch.where(mask, tgt_mm, 1.0)
-    lg10 = _masked_mean((torch.log10(safe_out) - torch.log10(safe_tgt)).abs(), mask)
-    absrel = _masked_mean(abs_diff / safe_tgt, mask)
-
     max_ratio = torch.maximum(safe_out / safe_tgt, safe_tgt / safe_out)
-    deltas = {f"delta{k}": _masked_mean((max_ratio < 1.25 ** k).float(), mask)
-              for k in (1, 2, 3)}
-
     inv_diff = (1.0 / safe_out - 1.0 / safe_tgt).abs()
+    sums = [abs_diff * abs_diff, abs_diff,
+            (torch.log10(safe_out) - torch.log10(safe_tgt)).abs(), abs_diff / safe_tgt,
+            *((max_ratio < 1.25 ** k).float() for k in (1, 2, 3)),
+            inv_diff * inv_diff, inv_diff]
+    count = mask.sum(dim=tuple(range(1, mask.dim()))).float()
+    return torch.stack([_masked_sum(x, mask) for x in sums] + [count])
+
+
+def finish(sums: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The second step of :func:`evaluate_batch`: each mean its sum over
+    the image's count, the square root of the squared errors' means."""
+    s = dict(zip(SUM_FIELDS, sums[:-1] / sums[-1]))
     return {
-        "irmse": torch.sqrt(_masked_mean(inv_diff * inv_diff, mask)),
-        "imae": _masked_mean(inv_diff, mask),
-        "mse": mse,
-        "rmse": torch.sqrt(mse),
-        "mae": mae,
-        "absrel": absrel,
-        "lg10": lg10,
-        **deltas,
+        "irmse": torch.sqrt(s["inv_sq_err"]),
+        "imae": s["inv_abs_err"],
+        "mse": s["sq_err"],
+        "rmse": torch.sqrt(s["sq_err"]),
+        "mae": s["abs_err"],
+        "absrel": s["absrel"],
+        "lg10": s["lg10"],
+        **{f"delta{k}": s[f"delta{k}"] for k in (1, 2, 3)},
     }
+
+
+def evaluate_batch(output: torch.Tensor, target: torch.Tensor,
+                   group=None) -> Dict[str, torch.Tensor]:
+    """All metrics for an (N, H, W, 1) batch, per image, on its device.
+
+    Returns a dict of (N,)-vectors in float32, matching the reference's
+    ``Result.evaluate`` per image: union mask, millimeter scaling, each
+    mean over that image's valid pixels only.  ``group``: the batch holds
+    this rank's rows of every image, and the sums and counts are
+    all-reduced over the group (a space axis's) before the divide."""
+    sums = metric_sums(output, target)
+    if group is not None:
+        import torch.distributed as dist
+
+        dist.all_reduce(sums, group=group)
+    return finish(sums)
 
 
 def evaluate(output, target) -> Result:

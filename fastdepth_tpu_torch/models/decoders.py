@@ -29,6 +29,7 @@ from torch import nn
 from fastdepth_tpu_torch.config import DECODER_NAMES, UNPRUNED_DECODER_CHANNELS
 from fastdepth_tpu_torch.models import layers as L
 from fastdepth_tpu_torch.ops import blocks as B
+from fastdepth_tpu_torch.parallel import spatial as S
 
 
 def parse_decoder_name(name: str) -> Tuple[str, int, bool]:
@@ -93,22 +94,28 @@ def make_decoder(name: str, in_channels: int = 1024,
     return params
 
 
-def _apply_conv_stage(x, p, *, train=False, stats=None, path=()):
+def _apply_conv_stage(x, p, *, train=False, stats=None, path=(), space=None):
     """conv, or depthwise + pointwise, each with BN + ReLU (reference
     models.py:52-75); the kernel size comes from the weights."""
     if "dw" in p:
         x = L.apply_conv_bn(x, p["dw"], depthwise=True, train=train, stats=stats,
-                            path=path + ("dw",))
-        return L.apply_conv_bn(x, p["pw"], train=train, stats=stats, path=path + ("pw",))
-    return L.apply_conv_bn(x, p["conv"], train=train, stats=stats, path=path + ("conv",))
+                            path=path + ("dw",), space=space)
+        return L.apply_conv_bn(x, p["pw"], train=train, stats=stats, path=path + ("pw",),
+                               space=space)
+    return L.apply_conv_bn(x, p["conv"], train=train, stats=stats, path=path + ("conv",),
+                           space=space)
 
 
 def apply_decoder(params: nn.ModuleDict, name: str, x: torch.Tensor, *, train: bool = False,
-                  stats: Optional[L.StatsDict] = None) -> torch.Tensor:
+                  stats: Optional[L.StatsDict] = None,
+                  space: Optional[S.Level] = None) -> torch.Tensor:
     """The decoder on channels_last NCHW features; ``train`` / ``stats``
     as in ``layers.apply_conv_bn``, paths relative to the decoder
-    (``('stage2', 'dw', 'bn')``)."""
+    (``('stage2', 'dw', 'bn')``).  ``space``: the features' level in a
+    height-sharded forward (the nnconv decoders only, ROADMAP A12c)."""
     kind, k, dw = parse_decoder_name(name)
+    if space is not None and kind != "nnconv":
+        raise ValueError(S.SPACE_ZOO_NOT_PORTED.format(what=f"the {name} decoder"))
     if kind == "shuffle":
         for i in range(1, 5):
             x = _apply_conv_stage(B.pixel_shuffle(x, 2), params[f"conv{i}"], train=train,
@@ -141,10 +148,10 @@ def apply_decoder(params: nn.ModuleDict, name: str, x: torch.Tensor, *, train: b
                                  path=path + ("branch2_conv",))
             x = B.relu(b1 + b2)
         elif kind == "nnconv":
-            x = B.upsample_nearest2x(_apply_conv_stage(x, p, train=train, stats=stats,
-                                                       path=path))
+            x, space = S.upsample(_apply_conv_stage(x, p, train=train, stats=stats, path=path,
+                                                    space=space), space)
         else:  # blconv
             x = B.upsample_bilinear2x(_apply_conv_stage(x, p, train=train, stats=stats,
                                                         path=path))
     return L.apply_conv_bn(x, params["final"]["pw"], train=train, stats=stats,
-                           path=("final", "pw"))
+                           path=("final", "pw"), space=space)

@@ -21,6 +21,7 @@ from fastdepth_tpu_torch.models import decoders as D
 from fastdepth_tpu_torch.models import layers as L
 from fastdepth_tpu_torch.models import mobilenet as MN
 from fastdepth_tpu_torch.ops import blocks as B
+from fastdepth_tpu_torch.parallel import spatial as S
 
 SKIP_TAPS = (1, 3, 5)  # encoder block indices feeding skips (models.py:714-719)
 SKIP_AFTER = {2: 5, 3: 3, 4: 1}  # decoder stage -> encoder tap added after it
@@ -58,27 +59,35 @@ def make_fastdepth(cfg: ModelConfig, *, folded: bool = False) -> nn.ModuleDict:
 
 
 def apply_fastdepth(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig, *,
-                    train: bool = False, stats: Optional[L.StatsDict] = None) -> torch.Tensor:
+                    train: bool = False, stats: Optional[L.StatsDict] = None,
+                    space: Optional[S.Partition] = None) -> torch.Tensor:
     """NHWC forward: (N, 224, 224, 3) -> (N, 224, 224, 1).  With ``train``
     every BatchNorm normalises by the batch's moments and records its new
     running statistics into ``stats`` under the JAX package's paths
     (``('encoder', 'conv3', 'dw', 'bn')``, ``('decoder', 'decode_conv2',
-    'pw', 'bn')``)."""
+    'pw', 'bn')``).  ``space``: the forward is height-sharded over that
+    partition; ``x`` and the result hold this rank's rows of the image
+    (:func:`parallel.spatial.input_level`)."""
+    lv = S.input_level(space, x, cfg)
     feats, tapped = MN.apply_encoder(
         params["encoder"], B.from_nhwc(x), relu6=cfg.encoder_relu6,
-        taps=SKIP_TAPS if cfg.skip else (), train=train, stats=L.sub_stats(stats, "encoder"))
+        taps=SKIP_TAPS if cfg.skip else (), train=train, stats=L.sub_stats(stats, "encoder"),
+        space=lv)
     y = feats
+    lv = MN.output_level(lv)
     dec = params["decoder"]
     for i in range(1, 6):
         p = dec[f"decode_conv{i}"]
         path = ("decoder", f"decode_conv{i}")
         if cfg.decoder_depthwise:
             y = L.apply_conv_bn(y, p["dw"], depthwise=True, train=train, stats=stats,
-                                path=path + ("dw",))
-            y = L.apply_conv_bn(y, p["pw"], train=train, stats=stats, path=path + ("pw",))
+                                path=path + ("dw",), space=lv)
+            y = L.apply_conv_bn(y, p["pw"], train=train, stats=stats, path=path + ("pw",),
+                                space=lv)
         else:
-            y = L.apply_conv_bn(y, p["conv"], train=train, stats=stats, path=path + ("conv",))
-        y = B.upsample_nearest2x(y)
+            y = L.apply_conv_bn(y, p["conv"], train=train, stats=stats, path=path + ("conv",),
+                                space=lv)
+        y, lv = S.upsample(y, lv)
         # skip fusion AFTER the upsample (models.py:720-729)
         if cfg.skip and i in SKIP_AFTER:
             t = tapped[SKIP_AFTER[i]]
@@ -98,11 +107,14 @@ def make_mobilenet_decoder(cfg: ModelConfig, *, folded: bool = False) -> nn.Modu
 
 
 def apply_mobilenet_decoder(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig, *,
-                            train: bool = False,
-                            stats: Optional[L.StatsDict] = None) -> torch.Tensor:
+                            train: bool = False, stats: Optional[L.StatsDict] = None,
+                            space: Optional[S.Partition] = None) -> torch.Tensor:
     """NHWC forward of the plain MobileNet + registry decoder; statistics
-    under ``('encoder', ...)`` and ``('decoder', 'stage1', ...)``."""
+    under ``('encoder', ...)`` and ``('decoder', 'stage1', ...)``.
+    ``space`` as in :func:`apply_fastdepth` (the nnconv decoders only)."""
+    lv = S.input_level(space, x, cfg)
     feats, _ = MN.apply_encoder(params["encoder"], B.from_nhwc(x), relu6=cfg.encoder_relu6,
-                                train=train, stats=L.sub_stats(stats, "encoder"))
+                                train=train, stats=L.sub_stats(stats, "encoder"), space=lv)
     return B.to_nhwc(D.apply_decoder(params["decoder"], cfg.decoder, feats, train=train,
-                                     stats=L.sub_stats(stats, "decoder")))
+                                     stats=L.sub_stats(stats, "decoder"),
+                                     space=MN.output_level(lv)))

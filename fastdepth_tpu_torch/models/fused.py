@@ -13,6 +13,12 @@ counterpart of ``fastdepth_tpu/models/fused.py``.
   before the final nearest x2 (exact: the head is a per-pixel affine +
   ReLU).
 
+``space=`` (a ``parallel.spatial.Partition``) runs the fused and the opt
+forward height-sharded: every conv of the encoder and the decoder with
+its halo rows exchanged (``parallel/spatial.py``), each decoder level as
+one launch of K1 in its row-window mode on this rank's rows, the head
+through K4 on the local rows.
+
 All need BN-folded params (``Model.fold``); the fused forwards also read
 the kernel weight layouts that ``Model.fold`` derives
 (:func:`attach_kernel_weights`).
@@ -33,6 +39,7 @@ from fastdepth_tpu_torch.ops.cuda.fused_decoder import fused_decoder_stage, kern
 from fastdepth_tpu_torch.ops.cuda.fused_decoder_hwbc import fused_decoder_stage_hwbc
 from fastdepth_tpu_torch.ops.cuda.fused_decoder_v3 import fused_decoder_stage_v3
 from fastdepth_tpu_torch.ops.cuda.head import pointwise_head
+from fastdepth_tpu_torch.parallel import spatial as S
 
 # images per block of each decoder level, as the JAX forwards set them
 # (fastdepth_tpu/models/fused.py, apply_fastdepth_fused_v2 / _v3)
@@ -79,9 +86,10 @@ def attach_kernel_weights(params: nn.ModuleDict) -> None:
     head.register_buffer("k4_w", head["pw"].w.reshape(-1).contiguous(), persistent=False)
 
 
-def _fused_forward(params, x, cfg, stage):
+def _fused_forward(params, x, cfg, stage, space=None):
     """Guard + encoder pass, decoder levels 1-5 through
-    ``stage(i, y, p, skip)``, then the head through K4 (NHWC in and out)."""
+    ``stage(i, y, p, skip, level)`` (``level`` that of ``y`` under
+    ``space``, else None), then the head through K4 (NHWC in and out)."""
     if not supports_fused(cfg):
         raise ValueError(
             "fused path supports the MobileNet nnconv5dw skip-add family; "
@@ -90,28 +98,41 @@ def _fused_forward(params, x, cfg, stage):
     if not hasattr(dec["decode_conv6"], "k4_w"):
         raise ValueError("the fused path needs params from Model.fold "
                          "(folded BN and the kernels' weight layouts)")
+    lv = S.input_level(space, x, cfg)
     y, tapped = MN.apply_encoder(params["encoder"], B.from_nhwc(x),
-                                 relu6=cfg.encoder_relu6, taps=SKIP_TAPS)
+                                 relu6=cfg.encoder_relu6, taps=SKIP_TAPS, space=lv)
+    lv = MN.output_level(lv)
     for i in range(1, 6):
         skip = tapped[SKIP_AFTER[i]] if i in SKIP_AFTER else None
-        y = stage(i, y, dec[f"decode_conv{i}"], skip)
+        y = stage(i, y, dec[f"decode_conv{i}"], skip, lv)
+        lv = lv and lv.up()
     head = dec["decode_conv6"]
     return B.to_nhwc(pointwise_head(y, head.k4_w, head["pw"].b))
 
 
-def apply_fastdepth_fused(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_fastdepth_fused(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig, *,
+                          space: Optional[S.Partition] = None) -> torch.Tensor:
     """NHWC forward with decoder levels 1-5 through K1 and the head
     through K4 (their plain versions for CPU tensors).  Params must come
-    from ``Model.fold``."""
-    return _fused_forward(params, x, cfg, lambda i, y, p, skip: fused_decoder_stage(
-        y, p.k1_dw, p["dw"].b, p.k1_pw, p["pw"].b, skip=skip))
+    from ``Model.fold``.  ``space``: height-sharded (module docstring);
+    each level's K1 takes this rank's tile and row window
+    (``parallel.spatial.k1_window``)."""
+
+    def stage(i, y, p, skip, level):
+        window = None
+        if level is not None:
+            y, window = S.k1_window(y, level)
+        return fused_decoder_stage(y, p.k1_dw, p["dw"].b, p.k1_pw, p["pw"].b, skip=skip,
+                                   window=window)
+
+    return _fused_forward(params, x, cfg, stage, space)
 
 
 def apply_fastdepth_fused_v2(params: nn.ModuleDict, x: torch.Tensor,
                              cfg: ModelConfig) -> torch.Tensor:
     """:func:`apply_fastdepth_fused` with the levels through K2, at
     :data:`V2_BLOCK_BATCHES` images per block."""
-    return _fused_forward(params, x, cfg, lambda i, y, p, skip: fused_decoder_stage_hwbc(
+    return _fused_forward(params, x, cfg, lambda i, y, p, skip, _: fused_decoder_stage_hwbc(
         y, p.k1_dw, p["dw"].b, p.k1_pw, p["pw"].b, skip=skip,
         block_batch=V2_BLOCK_BATCHES[i]))
 
@@ -122,23 +143,33 @@ def apply_fastdepth_fused_v3(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelC
     ``block_batches`` (level -> images per work item; by default
     :data:`V3_BLOCK_BATCHES`)."""
     bbs = block_batches or V3_BLOCK_BATCHES
-    return _fused_forward(params, x, cfg, lambda i, y, p, skip: fused_decoder_stage_v3(
+    return _fused_forward(params, x, cfg, lambda i, y, p, skip, _: fused_decoder_stage_v3(
         y, p.k1_dw, p["dw"].b, p.k1_pw, p["pw"].b, skip=skip, block_batch=bbs[i]))
 
 
-def apply_fastdepth_opt(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def apply_fastdepth_opt(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig, *,
+                        space: Optional[S.Partition] = None) -> torch.Tensor:
     """Plain-PyTorch forward with the head-commute rewrite: the 1x1 head
     (per-pixel affine + ReLU) commutes with nearest duplication, so it
     runs BEFORE the final x2 upsample, on a quarter of the pixels.  Valid
     for the NNConv family (nearest upsample), skip models and plain
-    MobileNet + nnconv decoders alike, with folded params."""
+    MobileNet + nnconv decoders alike, with folded params.  ``space``:
+    height-sharded (module docstring)."""
     if not supports_opt(cfg):
         raise ValueError(
             "opt path supports MobileNet encoders with nnconv decoders; "
             f"got encoder={cfg.encoder!r} decoder={cfg.decoder!r}")
+    lv = S.input_level(space, x, cfg)
+
+    def conv(y, w, b, depthwise=False):
+        if lv is None:
+            return (B.depthwise_conv2d if depthwise else B.conv2d)(y, w, bias=b)
+        return S.conv2d(y, w, b, level=lv, groups=y.shape[1] if depthwise else 1)
+
     feats, tapped = MN.apply_encoder(params["encoder"], B.from_nhwc(x),
                                      relu6=cfg.encoder_relu6,
-                                     taps=SKIP_TAPS if cfg.skip else ())
+                                     taps=SKIP_TAPS if cfg.skip else (), space=lv)
+    lv = MN.output_level(lv)
     dec = params["decoder"]
     # the skip models name the stages decode_conv1..6 (reference
     # models.py:683-698), the plain ones stage1..5 + final (models/decoders.py)
@@ -147,16 +178,16 @@ def apply_fastdepth_opt(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig
     for i in range(1, 6):
         p = dec[f"decode_conv{i}" if skip_naming else f"stage{i}"]
         if cfg.decoder_depthwise:
-            y = B.relu(B.depthwise_conv2d(y, p["dw"].w, bias=p["dw"].b))
-            y = B.relu(B.conv2d(y, p["pw"].w, bias=p["pw"].b))
+            y = B.relu(conv(y, p["dw"].w, p["dw"].b, depthwise=True))
+            y = B.relu(conv(y, p["pw"].w, p["pw"].b))
         else:
-            y = B.relu(B.conv2d(y, p["conv"].w, bias=p["conv"].b))
+            y = B.relu(conv(y, p["conv"].w, p["conv"].b))
         if i == 5:
             break  # the head commutes with the final upsample
-        y = B.upsample_nearest2x(y)
+        y, lv = S.upsample(y, lv)
         if cfg.skip and i in SKIP_AFTER:
             t = tapped[SKIP_AFTER[i]]
             y = y + t if cfg.skip == "add" else torch.cat([y, t], dim=1)
     head = dec["decode_conv6" if skip_naming else "final"]["pw"]
     y = B.relu(B.conv2d(y, head.w, bias=head.b))
-    return B.to_nhwc(B.upsample_nearest2x(y))
+    return B.to_nhwc(S.upsample(y, lv)[0])

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from fastdepth_tpu_torch.ops import blocks as B
+from fastdepth_tpu_torch.parallel import spatial as S
 
 
 StatsDict = MutableMapping[Tuple[str, ...], Dict[str, torch.Tensor]]
@@ -124,7 +125,7 @@ def apply_conv_bn(x: torch.Tensor, p: ConvBN, *, stride: int = 1,
                   act: Optional[Callable] = B.relu, depthwise: bool = False,
                   padding: Optional[int] = None, output_padding: int = 0,
                   train: bool = False, stats: Optional[StatsDict] = None,
-                  path: Tuple[str, ...] = ()) -> torch.Tensor:
+                  path: Tuple[str, ...] = (), space: Optional[S.Level] = None) -> torch.Tensor:
     """conv (+ bias) -> [BN] -> [act].  A transposed leaf (``p.transpose``)
     runs a transposed conv (``padding`` None means 0 there,
     ``output_padding`` as ``ConvTranspose2d``'s), grouped as its weight
@@ -133,8 +134,17 @@ def apply_conv_bn(x: torch.Tensor, p: ConvBN, *, stride: int = 1,
     runs C groups.  With ``train`` the BatchNorm normalises by the
     batch's moments (the global batch's when ``stats`` is a
     :class:`TrainStats` with a group) and its new running statistics go
-    to ``stats[path + ('bn',)]``."""
-    if p.transpose:
+    to ``stats[path + ('bn',)]``.  ``space``: ``x`` holds this rank's rows
+    of that level of a height-sharded forward (inference only), and the
+    conv is ``parallel.spatial.conv2d``: its halo rows exchanged, the
+    result this rank's rows of the output level."""
+    if space is not None:
+        if p.transpose or train:
+            raise ValueError("a height-sharded conv runs dense and depthwise convs for "
+                             "inference only")
+        y = S.conv2d(x, p.w, p.b, level=space, stride=stride, padding=padding,
+                     groups=x.shape[1] if depthwise else 1)
+    elif p.transpose:
         cout = (p.b if p.bn is None else p.bn.mean).shape[0]
         y = B.conv2d_transpose(x, p.w, stride=stride, padding=padding or 0,
                                output_padding=output_padding, groups=cout // p.w.shape[1],

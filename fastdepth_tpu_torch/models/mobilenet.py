@@ -16,6 +16,7 @@ from fastdepth_tpu_torch.config import MOBILENET_STRIDES, MOBILENET_V1_CHANNELS
 from fastdepth_tpu_torch.models import layers as L
 from fastdepth_tpu_torch.ops import blocks as B
 from fastdepth_tpu_torch.ops import init as I
+from fastdepth_tpu_torch.parallel import spatial as S
 
 
 def make_encoder(channels: Sequence[int] = MOBILENET_V1_CHANNELS,
@@ -37,27 +38,42 @@ def make_encoder(channels: Sequence[int] = MOBILENET_V1_CHANNELS,
 
 def apply_encoder(params: nn.ModuleDict, x: torch.Tensor, *, relu6: bool = True,
                   taps: Tuple[int, ...] = (), train: bool = False,
-                  stats: Optional[L.StatsDict] = None
+                  stats: Optional[L.StatsDict] = None, space: Optional[S.Level] = None
                   ) -> Tuple[torch.Tensor, Dict[int, torch.Tensor]]:
     """Run the encoder on channels_last NCHW; returns (features,
     {block_index: tap_activation}) (reference models.py:710-719 taps
     i == 1, 3, 5).  ``train``/``stats``: see ``layers.apply_conv_bn``; the
-    paths are ``('conv0', 'bn')`` and ``('convK', 'dw'|'pw', 'bn')``."""
+    paths are ``('conv0', 'bn')`` and ``('convK', 'dw'|'pw', 'bn')``.
+    ``space``: the level of ``x`` in a height-sharded forward; every
+    activation, the taps too, is then this rank's rows of its level
+    (``parallel/spatial.py``)."""
     act = B.relu6 if relu6 else B.relu
     tapped: Dict[int, torch.Tensor] = {}
     x = L.apply_conv_bn(x, params["conv0"], stride=2, act=act, train=train, stats=stats,
-                        path=("conv0",))
+                        path=("conv0",), space=space)
+    space = space and space.down()
     if 0 in taps:
         tapped[0] = x
     for i in range(1, 14):
         p = params[f"conv{i}"]
-        x = L.apply_conv_bn(x, p["dw"], stride=MOBILENET_STRIDES[i - 1], act=act,
-                            depthwise=True, train=train, stats=stats, path=(f"conv{i}", "dw"))
+        stride = MOBILENET_STRIDES[i - 1]
+        x = L.apply_conv_bn(x, p["dw"], stride=stride, act=act, depthwise=True, train=train,
+                            stats=stats, path=(f"conv{i}", "dw"), space=space)
+        space = space and space.down(stride=stride)
         x = L.apply_conv_bn(x, p["pw"], act=act, train=train, stats=stats,
-                            path=(f"conv{i}", "pw"))
+                            path=(f"conv{i}", "pw"), space=space)
         if i in taps:
             tapped[i] = x
     return x, tapped
+
+
+def output_level(level: Optional[S.Level]) -> Optional[S.Level]:
+    """The encoder's output level of a height-sharded forward whose input
+    has ``level`` (None stays None): the stem's and the blocks' strides."""
+    if level is not None:
+        for stride in (2, *MOBILENET_STRIDES):
+            level = level.down(stride=stride)
+    return level
 
 
 def make_classifier(features: int = 1024, classes: int = 1000) -> nn.ModuleDict:

@@ -28,6 +28,7 @@ from fastdepth_tpu_torch.models import fused as F
 from fastdepth_tpu_torch.models import layers as L
 from fastdepth_tpu_torch.models import resnet as RN
 from fastdepth_tpu_torch.ops import init as I
+from fastdepth_tpu_torch.parallel import spatial as S
 
 
 def _channels_last(params: nn.ModuleDict) -> nn.ModuleDict:
@@ -77,12 +78,19 @@ class Model:
         return _channels_last(params).to(device)
 
     def apply(self, params: nn.ModuleDict, x: torch.Tensor, *, train: bool = False,
-              stats: Optional[L.StatsDict] = None) -> torch.Tensor:
+              stats: Optional[L.StatsDict] = None, space=None) -> torch.Tensor:
         """The straight NHWC forward of the config's family; ``train`` and
         ``stats`` as in ``layers.apply_conv_bn`` (train-mode BatchNorm,
         running statistics recorded into ``stats`` under the JAX
-        package's paths)."""
-        return _family(self.config)[1](params, x, self.config, train=train, stats=stats)
+        package's paths).  ``space`` (a ``parallel.spatial.Partition``):
+        height-sharded, ``x`` and the result this rank's rows; the
+        MobileNet + NNConv family only (the rest of the zoo is refused,
+        ROADMAP A12c)."""
+        fn = _family(self.config)[1]
+        if space is None:
+            return fn(params, x, self.config, train=train, stats=stats)
+        S.check_model(self.config)
+        return fn(params, x, self.config, train=train, stats=stats, space=space)
 
     def fold(self, params: nn.ModuleDict) -> nn.ModuleDict:
         """A copy with every BatchNorm folded and, where K1 covers the

@@ -20,6 +20,15 @@ transpose.  Weights come in K1's own layout, ``dw_w (25, C)`` and
 ``pw_w (C, Cout)``; :func:`kernel_weights` derives it from the OIHW
 weights once, when the model is folded.
 
+Row window: under a height-sharded mesh (``parallel/spatial.py``) a rank
+holds some rows of each map.  ``window=(r0, H, o0, o1)`` says that ``x``
+holds rows ``r0 .. r0 + x.shape[2] - 1`` of an image of ``H`` rows (its
+halo rows included; rows outside ``[0, H)`` count as zero, whatever the
+tile holds there) and asks for rows ``o0 .. o1 - 1`` of the ``2H``-row
+output; the skip and the result hold those rows only.  The kernel tiles
+only the input rows the window duplicates, so a window costs its share
+of the level and no padded copy of the skip.
+
 Dispatch: a CPU tensor takes :func:`fused_decoder_stage_reference`, the
 plain PyTorch version of the same math; a CUDA tensor launches K1 or
 raises.  ``LAUNCHES`` counts the launches of K1 and nothing else.
@@ -220,24 +229,57 @@ def kernel_weights(dw_w: torch.Tensor, pw_w: torch.Tensor) -> Tuple[torch.Tensor
             pw_w.reshape(Cout, C).t().contiguous())
 
 
-def fused_decoder_stage_reference(x, dw_w, dw_b, pw_w, pw_b, skip=None):
-    """Plain PyTorch version of K1 (same arguments): computed in f32 and
-    cast back to ``x``'s dtype, like the TPU kernel."""
+def window_rows(window, rows: int) -> Tuple[int, int]:
+    """Check a row window ``(r0, H, o0, o1)`` against a tile of ``rows``
+    rows; returns ``(c0, c1)``, the input rows the output rows ``o0 ..
+    o1 - 1`` duplicate.  The tile must hold every image row they read:
+    two around ``c0 .. c1 - 1``, clipped to the image."""
+    r0, h, o0, o1 = window
+    if not 0 <= o0 < o1 <= 2 * h:
+        raise ValueError(f"row window: output rows [{o0}, {o1}) are not inside the "
+                         f"{2 * h}-row map")
+    c0, c1 = o0 // 2, (o1 + 1) // 2
+    if not (r0 <= max(c0 - 2, 0) and min(c1 + 2, h) <= r0 + rows):
+        raise ValueError(f"row window: output rows [{o0}, {o1}) read image rows "
+                         f"[{max(c0 - 2, 0)}, {min(c1 + 2, h)}); the tile holds "
+                         f"[{r0}, {r0 + rows})")
+    return c0, c1
+
+
+def fused_decoder_stage_reference(x, dw_w, dw_b, pw_w, pw_b, skip=None, window=None):
+    """Plain PyTorch version of K1 (same arguments): computed in f32 (f64
+    stays f64) and cast back to ``x``'s dtype, like the TPU kernel.  With
+    ``window`` (module docstring) it is the stage of the zero-extended
+    tile sliced to rows ``o0 .. o1 - 1``, computed on the rows those need
+    alone: the tile's image rows ``c0 - 2 .. c1 + 1``, zero outside the
+    image, with no padding along the height; the whole image's window is
+    the call without one."""
     C, Cout = pw_w.shape
-    f32 = torch.float32
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    pad, crop = 2, None
+    if window is not None and tuple(window) != (0, x.shape[2], 0, 2 * x.shape[2]):
+        r0, h, o0, o1 = window
+        c0, c1 = window_rows(window, x.shape[2])
+        ext = x.new_zeros((x.shape[0], C, c1 - c0 + 4, x.shape[3]))
+        lo, hi = max(c0 - 2, 0, r0), min(c1 + 2, h, r0 + x.shape[2])
+        ext[:, :, lo - (c0 - 2):hi - (c0 - 2)] = x[:, :, lo - r0:hi - r0]
+        x, pad, crop = ext, (0, 2), (o0 - 2 * c0, o1 - 2 * c0)
     y = F.conv2d(x.to(f32), dw_w.to(f32).t().reshape(C, 1, 5, 5),
-                 dw_b.to(f32), padding=2, groups=C)
+                 dw_b.to(f32), padding=pad, groups=C)
     y = F.conv2d(torch.relu(y), pw_w.to(f32).t().reshape(Cout, C, 1, 1),
                  pw_b.to(f32))
     y = F.interpolate(torch.relu(y), scale_factor=2, mode="nearest")
+    if crop is not None:
+        y = y[:, :, crop[0]:crop[1]]
     if skip is not None:
         y = y + skip.to(f32)
     return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
 
 
-def check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, label="K1"):
+def check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, label, out_rows):
     """Validate a stage's operands for kernel ``label`` (K1-K3 take the
-    same ones); returns (N, C, H, W, Cout)."""
+    same ones); ``out_rows``: the rows of the output and the skip (2H for
+    the whole image).  Returns (N, C, H, W, Cout)."""
     if x.dim() != 4:
         raise ValueError(f"x must be (N, C, H, W), got {tuple(x.shape)}")
     N, C, H, W = x.shape
@@ -246,7 +288,7 @@ def check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, label="K1"):
     Cout = pw_w.shape[1]
     want = {"dw_w": (dw_w, (25, C)), "dw_b": (dw_b, (C,)), "pw_b": (pw_b, (Cout,))}
     if skip is not None:
-        want["skip"] = (skip, (N, Cout, 2 * H, 2 * W))
+        want["skip"] = (skip, (N, Cout, out_rows, 2 * W))
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
@@ -289,16 +331,16 @@ def use_plain_version(label, x):
     return False
 
 
-def launch_stage(entry, label, x, dw_w, dw_b, pw_w, pw_b, skip, extra=()):
-    """Allocate a stage's output and launch the C entry ``entry`` of K1-K3
-    (seven pointers, N, H, W, C, Cout, the ``extra`` ints, dtype, stream)
-    on the current stream; raise on a non-zero CUDA error."""
+def launch_stage(entry, label, x, dw_w, dw_b, pw_w, pw_b, skip, out_rows, extra=()):
+    """Allocate a stage's output of ``out_rows`` rows and launch the C entry ``entry`` of K1-K3 (seven pointers, N, H, W, C,
+    Cout, the ``extra`` ints, dtype, stream) on the current stream; raise
+    on a non-zero CUDA error."""
     N, C, H, W = x.shape
     Cout = pw_w.shape[1]
     fn = _build.function(entry, [ctypes.c_void_p] * 7 + [ctypes.c_int] * (6 + len(extra))
                          + [ctypes.c_void_p])
-    out = torch.empty((N, Cout, 2 * H, 2 * W), dtype=x.dtype, device=x.device,
-                      memory_format=torch.channels_last)
+    out = torch.empty((N, Cout, out_rows, 2 * W),
+                      dtype=x.dtype, device=x.device, memory_format=torch.channels_last)
     with torch.cuda.device(x.device):
         err = fn(
             x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(),
@@ -313,22 +355,31 @@ def launch_stage(entry, label, x, dw_w, dw_b, pw_w, pw_b, skip, extra=()):
 
 def fused_decoder_stage(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
                         pw_w: torch.Tensor, pw_b: torch.Tensor,
-                        skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        skip: Optional[torch.Tensor] = None,
+                        window: Optional[Tuple[int, int, int, int]] = None) -> torch.Tensor:
     """One fused decoder level.
 
     x ``(N, C, H, W)`` and skip ``(N, Cout, 2H, 2W)`` channels_last;
     dw_w ``(25, C)``, dw_b ``(C,)``, pw_w ``(C, Cout)``, pw_b ``(Cout,)``
     (:func:`kernel_weights`).  Returns ``(N, Cout, 2H, 2W)``
-    channels_last in ``x``'s dtype.  On the CPU this is the plain
-    version; on a CUDA tensor it launches K1 or raises."""
+    channels_last in ``x``'s dtype.  With ``window=(r0, Hg, o0, o1)``
+    (module docstring) x is a tile of an image of Hg rows, and skip and
+    the result hold rows ``o0 .. o1 - 1`` of its ``2Hg``-row output.  On
+    the CPU this is the plain version; on a CUDA tensor it launches K1 or
+    raises."""
     global LAUNCHES
-    N, C, H, W, Cout = check_stage(x, dw_w, dw_b, pw_w, pw_b, skip)
+    rows = x.shape[-2]
+    window = (0, rows, 0, 2 * rows) if window is None else tuple(int(v) for v in window)
+    N, C, H, W, Cout = check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, "K1",
+                                   window[3] - window[2])
+    c0, c1 = window_rows(window, H)
     if use_plain_version("K1", x):
-        return fused_decoder_stage_reference(x, dw_w, dw_b, pw_w, pw_b, skip)
-    g = launch_geometry(N, H, W, C, Cout, x.dtype)
+        return fused_decoder_stage_reference(x, dw_w, dw_b, pw_w, pw_b, skip, window)
+    g = launch_geometry(N, c1 - c0, W, C, Cout, x.dtype)
     if g.grid[0] >= 2 ** 31 or g.grid[1] > _MAX_GRID_YZ:
         raise ValueError(f"K1's grid {g.grid} is too large for one launch")
     out = launch_stage("fd_fused_decoder_stage", "K1", x, dw_w, dw_b, pw_w, pw_b, skip,
-                       extra=(g.threads, g.tile_h, g.tile_w, g.cout_tile, g.chunk, g.groups))
+                       window[3] - window[2], extra=(g.threads, g.tile_h, g.tile_w,
+                                                     g.cout_tile, g.chunk, g.groups, *window))
     LAUNCHES += 1
     return out

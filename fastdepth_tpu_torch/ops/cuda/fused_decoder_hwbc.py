@@ -74,7 +74,7 @@ def fused_decoder_stage_hwbc(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Te
     the CPU this is the plain version; on a CUDA tensor it launches K2 or
     raises."""
     global LAUNCHES
-    N, C, H, W, Cout = check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, "K2")
+    N, C, H, W, Cout = check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, "K2", 2 * x.shape[-2])
     kernel_block_batch(block_batch, N)
     if use_plain_version("K2", x):
         return fused_decoder_stage_reference(x, dw_w, dw_b, pw_w, pw_b, skip)
@@ -82,6 +82,6 @@ def fused_decoder_stage_hwbc(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Te
     if g.grid[0] >= 2 ** 31 or g.grid[1] > 65535:
         raise ValueError(f"K2's grid {g.grid} is too large for one launch")
     out = launch_stage("fd_fused_decoder_stage_hwbc", "K2", x, dw_w, dw_b, pw_w, pw_b, skip,
-                       extra=launch_args(g))
+                       2 * H, extra=launch_args(g))
     LAUNCHES += 1
     return out

@@ -67,7 +67,7 @@ def fused_decoder_stage_v3(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tens
     :func:`fused_decoder.fused_decoder_stage`.  On the CPU this is the
     plain version; on a CUDA tensor it launches K3 or raises."""
     global LAUNCHES
-    N, C, H, W, Cout = check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, "K3")
+    N, C, H, W, Cout = check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, "K3", 2 * x.shape[-2])
     kernel_block_batch(block_batch, N)
     if blocks is not None and blocks < 1:
         raise ValueError(f"blocks must be at least 1, got {blocks}")
@@ -77,6 +77,6 @@ def fused_decoder_stage_v3(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tens
     if g.blocks >= 2 ** 31:
         raise ValueError(f"K3's {g.blocks} work items are too many for one launch")
     out = launch_stage("fd_fused_decoder_stage_v3", "K3", x, dw_w, dw_b, pw_w, pw_b, skip,
-                       extra=(*launch_args(g), blocks or resident_blocks(g)))
+                       2 * H, extra=(*launch_args(g), blocks or resident_blocks(g)))
     LAUNCHES += 1
     return out

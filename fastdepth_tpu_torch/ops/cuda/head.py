@@ -29,8 +29,8 @@ LAUNCHES = 0
 
 def pointwise_head_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of K4 (same arguments): a 1x1 conv + bias +
-    ReLU in f32, cast back to ``x``'s dtype."""
-    f32 = torch.float32
+    ReLU in f32 (f64 stays f64), cast back to ``x``'s dtype."""
+    f32 = torch.promote_types(x.dtype, torch.float32)
     y = F.conv2d(x.to(f32), w.to(f32).reshape(1, -1, 1, 1), b.to(f32))
     return torch.relu(y).to(x.dtype).contiguous(memory_format=torch.channels_last)
 

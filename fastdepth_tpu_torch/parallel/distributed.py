@@ -22,14 +22,20 @@ one-card path issues every collective;
 
 makes each process one rank (``init_method="tcp://HOST:PORT"``), with
 ``FDTPU_COORD`` / ``FDTPU_NUM_PROCESSES`` / ``FDTPU_PROCESS_ID`` as the
-defaults, so a launcher can template one command for every rank.
+defaults, so a launcher can template one command for every rank.  With
+``--mesh-spatial S`` the job is ``N x S`` ranks (``--mesh-devices N``, 1
+if absent): the image height shards S-way over each data row's ranks
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import pickle
+import signal
 import tempfile
+import threading
 
 import torch
 import torch.distributed as dist
@@ -92,7 +98,12 @@ def init_distributed(args) -> bool:
             f"--num-processes {n}: multi-process mode needs >= 2 "
             "(drop the distributed flags to run single-process)")
     mesh_devices = getattr(args, "mesh_devices", None)
-    if mesh_devices is not None and mesh_devices != n:
+    n_space = getattr(args, "mesh_spatial", None)
+    if n_space and mesh_world(args) != n:
+        raise SystemExit(
+            f"--mesh-devices {mesh_devices or 1} x --mesh-spatial {n_space} must equal "
+            f"--num-processes {n}: the port runs one rank per device")
+    if not n_space and mesh_devices is not None and mesh_devices != n:
         raise SystemExit(
             f"--mesh-devices {mesh_devices} must equal --num-processes {n}: "
             "the port runs one rank per device")
@@ -100,7 +111,15 @@ def init_distributed(args) -> bool:
     return True
 
 
-def init_group(device: str, rank: int, world: int, **kw) -> None:
+def mesh_world(args):
+    """The ranks the mesh flags ask for: ``--mesh-devices N`` (1 if absent)
+    times ``--mesh-spatial S``, or None without either flag."""
+    n = getattr(args, "mesh_devices", None)
+    s = getattr(args, "mesh_spatial", None)
+    return (n or 1) * (s or 1) if n or s else None
+
+
+def init_group(device: str, rank: int, world: int, timeout: float = None, **kw) -> None:
     """Pin this rank's device (before the group exists: NCCL binds the
     current device), then join the group (``kw``: ``init_method`` or
     ``store``): NCCL for ``cuda``, gloo for ``cpu``.
@@ -109,7 +128,8 @@ def init_group(device: str, rank: int, world: int, **kw) -> None:
     (``TORCH_FR_BUFFER_SIZE``): it captures a stack trace for every
     collective, which costs more the deeper the Python stack, and a mesh
     train step issues two collectives a BatchNorm, half from inside
-    autograd (PERF.md §6)."""
+    autograd (PERF.md §6).  ``timeout``: seconds a collective may wait
+    before it fails (the backend's default without)."""
     if device == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("--device cuda: no CUDA device is available "
@@ -121,6 +141,8 @@ def init_group(device: str, rank: int, world: int, **kw) -> None:
         backend = "nccl"
     else:
         backend = "gloo"
+    if timeout is not None:
+        kw["timeout"] = datetime.timedelta(seconds=timeout)
     dist.init_process_group(backend, rank=rank, world_size=world, **kw)
     if rank == 0:
         print(f"=> process group: {world} rank(s), backend {backend}", flush=True)
@@ -141,16 +163,20 @@ def is_primary() -> bool:
     return process_index() == 0
 
 
-def shard_kwargs(microbatches: int = 1) -> dict:
+def shard_kwargs(microbatches: int = 1, mesh=None) -> dict:
     """BatchLoader kwargs for this rank's rows of every global batch
     (identity in a single process).  ``microbatches`` (the train step's
     ``accum_steps``) gives each rank its share of every microbatch
-    (``data.loader.shard_rows``)."""
+    (``data.loader.shard_rows``).  ``mesh``: the rows of this rank's
+    place on its ``data`` axis (the ranks of a space group load the same
+    rows), else one share a process."""
+    if mesh is not None:
+        return {"num_shards": mesh.size, "shard_id": mesh.rank, "microbatches": microbatches}
     return {"num_shards": process_count(), "shard_id": process_index(),
             "microbatches": microbatches}
 
 
-def validate_distributed_batches(distributed: bool, mesh_devices,
+def validate_distributed_batches(distributed: bool, mesh_devices, n_space=None,
                                  **batch_sizes) -> None:
     """Shared CLI-arg validation for multi-process runs, raising
     SystemExit BEFORE any checkpoint/data/device work.  Multi-process
@@ -160,13 +186,15 @@ def validate_distributed_batches(distributed: bool, mesh_devices,
 
     ``batch_sizes``: flag-name -> value pairs, e.g.
     ``validate_distributed_batches(dist, args.mesh_devices,
-    **{"--batch-size": args.batch_size})``."""
-    if distributed and not mesh_devices:
+    **{"--batch-size": args.batch_size})``.  ``n_space``: the
+    ``--mesh-spatial`` ranks that share each process's rows (the batch
+    divides by the process count over it)."""
+    if distributed and not (mesh_devices or n_space):
         raise SystemExit(
             "multi-process mode needs --mesh-devices (the GLOBAL device "
             "count across all processes): the mesh is what ties the "
             "per-process batch shards into one SPMD step")
-    n_proc = process_count()
+    n_proc = process_count() // (n_space or 1)
     for flag, value in batch_sizes.items():
         if value % n_proc:
             raise SystemExit(
@@ -183,19 +211,24 @@ def devices_available(device: str) -> int:
     return os.cpu_count() or 1
 
 
-def launch(fn, args):
+def launch(fn, args, *, timeout: float = None, stop=None):
     """Run ``fn(args)`` on every rank the flags ask for; returns rank 0's
     result.  ``--coord ...``: this process is one rank.  ``--mesh-devices
-    N`` alone: N ranks on this host, N = 1 in this process over a group of
-    one, more spawned (``fn`` and ``args`` must pickle: a module-level
-    function and an argparse namespace).  Neither: ``fn(args)`` with no
-    group.  A mesh larger than the host's devices exits up front."""
+    N`` and/or ``--mesh-spatial S`` alone: N x S ranks on this host
+    (:func:`mesh_world`), one in this process over a group of one, more
+    spawned (``fn`` and ``args`` must pickle: a module-level function and
+    an argparse namespace).  Neither: ``fn(args)`` with no group.  A mesh
+    larger than the host's devices exits up front.  ``timeout``: the
+    group's collective timeout in seconds (:func:`init_group`).
+    ``stop``: an event that, once set, sends rank 0 of spawned ranks a
+    SIGINT (a daemon's shutdown; a SIGINT to this process does the
+    same), and then waits for the ranks to end."""
     if init_distributed(args):
         try:
             return fn(args)
         finally:
             dist.destroy_process_group()
-    n = getattr(args, "mesh_devices", None)
+    n = mesh_world(args)
     if not n:
         return fn(args)
     device = getattr(args, "device", "cuda")
@@ -204,7 +237,8 @@ def launch(fn, args):
         raise SystemExit(f"need {n} devices for the mesh, have {have}")
     with tempfile.TemporaryDirectory(prefix="fdtorch_ranks_") as tmp:
         if n == 1:
-            init_group(device, 0, 1, store=dist.FileStore(os.path.join(tmp, "store"), 1))
+            init_group(device, 0, 1, timeout,
+                       store=dist.FileStore(os.path.join(tmp, "store"), 1))
             try:
                 return fn(args)
             finally:
@@ -212,20 +246,48 @@ def launch(fn, args):
         # each spawned rank is a fresh interpreter: it takes its share of
         # this process's torch threads, not one thread per core
         threads = max(1, torch.get_num_threads() // n)
-        torch.multiprocessing.start_processes(
-            _rank_main, args=(fn, args, n, tmp, threads), nprocs=n, start_method="spawn")
+        ctx = torch.multiprocessing.start_processes(
+            _rank_main, args=(fn, args, n, tmp, threads, timeout), nprocs=n,
+            start_method="spawn", join=False)
+        _join(ctx, stop)
         with open(os.path.join(tmp, RESULT_FILE), "rb") as f:
             return pickle.load(f)
 
 
-def _rank_main(rank: int, fn, args, world: int, tmp: str, threads: int) -> None:
+def _join(ctx, stop) -> None:
+    """Wait for spawned ranks (an error in one raises here, as torch's
+    spawn raises it).  While they run, ``stop`` being set, or a SIGINT to
+    this process where it can take one, is passed on to rank 0 as a
+    SIGINT, once."""
+    rank0 = ctx.processes[0].pid
+    sent = []
+
+    def forward(*_):
+        if not sent:
+            sent.append(True)
+            os.kill(rank0, signal.SIGINT)
+
+    previous = None
+    if threading.current_thread() is threading.main_thread():
+        previous = signal.signal(signal.SIGINT, forward)
+    try:
+        while not ctx.join(timeout=0.5):
+            if stop is not None and stop.is_set():
+                forward()
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGINT, previous)
+
+
+def _rank_main(rank: int, fn, args, world: int, tmp: str, threads: int,
+               timeout: float = None) -> None:
     """One spawned rank of :func:`launch`: join the FileStore group, run
     ``fn(args)``, and from rank 0 hand the result back to the parent.
     A SystemExit becomes an error that the parent re-raises with its
     message (torch's spawn passes on only exceptions)."""
     torch.set_num_threads(threads)
-    init_group(getattr(args, "device", "cuda"), rank, world,
-                store=dist.FileStore(os.path.join(tmp, "store"), world))
+    init_group(getattr(args, "device", "cuda"), rank, world, timeout,
+               store=dist.FileStore(os.path.join(tmp, "store"), world))
     try:
         result = fn(args)
     except SystemExit as e:

@@ -38,6 +38,22 @@ matplotlib there either).
     python -m fastdepth_tpu_torch.parallel.dryrun [--report report.json]
 
 prints the JSON report and exits non-zero if a check fails.
+
+    python -m fastdepth_tpu_torch.parallel.dryrun --space [--report report.json]
+
+runs the ``space`` axis instead, over gloo ranks spawned on the CPU, on
+the pruned flagship at full width and 224^2 with the committed trained
+weights (``docs/rehearsal_model_r5.npz``): two ranks at S = 2 run the
+height-sharded forward (``impl='auto'``: the encoder's halo convs, K1's
+row windows, K4; the plain versions on the CPU) at b1 against the
+single-process forward (atol :data:`SPACE_ATOL`), and four ranks on
+``make_mesh_2d(2, 2)`` run the Evaluator over seeded frames against one
+process's metric rows: the means within :data:`TOLERANCE` relative, the
+delta fractions within :data:`DELTA_PIXELS` pixels of the image.  The
+sharded convs add in another order than the whole image's (f32 on the
+CPU: about 1e-5 m on these depths), and a pixel whose depth ratio lies
+that close to 1.25^k crosses it: the first run here moved one pixel of
+one image's delta1, 1 / 50176 of it (7e-5 relative).
 """
 
 from __future__ import annotations
@@ -60,6 +76,11 @@ BATCH = 8
 N_TRAIN, N_VAL = 8, 4
 TOLERANCE = 1e-5
 STATS_TOLERANCE = 1e-4  # the running statistics (module docstring)
+SPACE_ATOL = 1e-4  # the height-sharded forward against one process (f32)
+SPACE_EVAL_BATCH = 4  # the 2x2 Evaluator's global batch
+DELTA_PIXELS = 2  # pixels a delta fraction may move under the 2x2 mesh (docstring)
+WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "docs", "rehearsal_model_r5.npz")
 # tiny widths that satisfy the skip-add tap constraint
 TINY_CFG = {
     "encoder_channels": [4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24],
@@ -274,9 +295,137 @@ def run(work: str) -> dict:
     return report
 
 
+def flagship():
+    """(model, params) of the committed trained pruned flagship."""
+    from fastdepth_tpu_torch.checkpoint import load_checkpoint, params_from_jax
+    from fastdepth_tpu_torch.models import build
+
+    tree, cfg, _ = load_checkpoint(WEIGHTS)
+    model = build(cfg)
+    return model, model.load(params_from_jax(tree))
+
+
+def space_inputs():
+    """The seeded b1 frame of the forward check and the seeded
+    (rgb, depth) batch of the Evaluator check, 224^2."""
+    rng = np.random.RandomState(11)
+    x = rng.rand(1, 224, 224, 3).astype(np.float32)
+    rgb = rng.rand(SPACE_EVAL_BATCH, 224, 224, 3).astype(np.float32)
+    depth = rng.uniform(0.5, 10.0, (SPACE_EVAL_BATCH, 224, 224, 1)).astype(np.float32)
+    return x, rgb, depth
+
+
+def space_forward(model, params, x, mesh=None) -> np.ndarray:
+    """The pruned flagship's ``impl='auto'`` forward of ``x`` (f32, the
+    CPU), height-sharded over ``mesh``'s space axis and gathered (the
+    whole image in one process without a mesh)."""
+    from fastdepth_tpu_torch.engine.aot import _prepare
+    from fastdepth_tpu_torch.parallel.mesh import fetch_global, put_sharded
+
+    p, apply = _prepare(model, params, batch_size=x.shape[0], dtype=torch.float32,
+                        fold_bn=True, impl="auto", device="cpu",
+                        space=None if mesh is None else mesh.partition())
+    with torch.inference_mode():
+        if mesh is None:
+            return apply(p, torch.from_numpy(x)).numpy()
+        return fetch_global(apply(p, put_sharded(x, mesh)), mesh, dim=0, space_dim=1)
+
+
+def space_eval(model, params, rgb, depth, mesh=None) -> np.ndarray:
+    """The Evaluator's ``(fields, N)`` metric rows of one batch, each rank
+    putting its data rows of it under ``mesh``."""
+    from fastdepth_tpu_torch.engine import Evaluator
+
+    if mesh is not None:
+        n = rgb.shape[0] // mesh.size
+        rgb, depth = (a[mesh.rank * n:(mesh.rank + 1) * n] for a in (rgb, depth))
+    ev = Evaluator(model, params, batch_size=SPACE_EVAL_BATCH, mesh=mesh,
+                   device=None if mesh is not None else "cpu")
+    return ev.fetch(ev(ev.put(rgb), ev.put(depth))[1], dim=1)
+
+
+def _space_rank(rank: int, world: int, tmp: str, threads: int) -> None:
+    """One gloo rank of :func:`space_run`: S = 2 forward (two ranks) or the
+    2x2 Evaluator (four); rank 0 saves the result."""
+    import torch.distributed as dist
+
+    from fastdepth_tpu_torch.parallel.distributed import init_group
+    from fastdepth_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
+
+    torch.set_num_threads(threads)
+    init_group("cpu", rank, world, store=dist.FileStore(os.path.join(tmp, "store"), world))
+    try:
+        model, params = flagship()
+        x, rgb, depth = space_inputs()
+        if world == 2:
+            out = space_forward(model, params, x, make_mesh(2, "space"))
+        else:
+            out = space_eval(model, params, rgb, depth, make_mesh_2d(2, 2))
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        np.save(os.path.join(tmp, "result.npy"), out)
+
+
+def space_run(work: str) -> dict:
+    """The ``--space`` dryrun in ``work``: the two- and the four-rank job
+    spawned together, the single-process references meanwhile; returns
+    the report."""
+    import time
+
+    t0 = time.perf_counter()
+    threads = max(1, torch.get_num_threads() // 6)
+    ctxs = {}
+    for world in (2, 4):
+        tmp = os.path.join(work, f"w{world}")
+        os.makedirs(tmp)
+        ctxs[world] = (tmp, torch.multiprocessing.start_processes(
+            _space_rank, args=(world, tmp, threads), nprocs=world, start_method="spawn",
+            join=False))
+    model, params = flagship()
+    x, rgb, depth = space_inputs()
+    want_fwd = space_forward(model, params, x)
+    want_eval = space_eval(model, params, rgb, depth)
+    got = {}
+    for world, (tmp, ctx) in ctxs.items():
+        while not ctx.join():
+            pass
+        got[world] = np.load(os.path.join(tmp, "result.npy"))
+    fwd_err = float(np.abs(got[2] - want_fwd).max())
+    from fastdepth_tpu_torch.metrics import METRIC_FIELDS
+
+    fin = np.isfinite(want_eval)
+    delta = np.array([f.startswith("delta") for f in METRIC_FIELDS])
+    diff = np.abs(got[4] - want_eval)
+    mean_rows = fin & ~delta[:, None]
+    eval_rel = float((diff[mean_rows] / np.maximum(np.abs(want_eval[mean_rows]),
+                                                   1e-6 / TOLERANCE)).max())
+    delta_pixels = float(diff[delta].max() * 224 * 224)
+    checks = {
+        "forward_shape_ok": got[2].shape == want_fwd.shape == (1, 224, 224, 1),
+        "forward_finite": bool(np.isfinite(got[2]).all()),
+        "forward_max_abs_diff": fwd_err,
+        "eval_finite_equal": bool(np.array_equal(np.isfinite(got[4]), fin)) and bool(fin.any()),
+        "eval_max_rel_diff": eval_rel,
+        "eval_delta_max_pixels": delta_pixels,
+    }
+    ok = (checks["forward_shape_ok"] and checks["forward_finite"] and fwd_err <= SPACE_ATOL
+          and checks["eval_finite_equal"] and eval_rel <= TOLERANCE
+          and delta_pixels <= DELTA_PIXELS + 1e-3)
+    return {"ok": bool(ok), "checks": checks,
+            "bounds": {"forward_max_abs_diff": SPACE_ATOL, "eval_max_rel_diff": TOLERANCE,
+                       "eval_delta_max_pixels": DELTA_PIXELS},
+            "topology": {"forward": "2 gloo ranks, make_mesh(2, 'space')",
+                         "eval": "4 gloo ranks, make_mesh_2d(2, 2)"},
+            "model": "mobilenet-nnconv5dw-skipadd-pruned, 224x224, docs/rehearsal_model_r5.npz",
+            "seconds": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", default=None, help="also write the JSON report here")
+    ap.add_argument("--space", action="store_true",
+                    help="the space axis's dryrun (module docstring) instead")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
@@ -287,7 +436,7 @@ def main(argv=None) -> int:
                  dist_argv(args.ports[1], args.rank))
         return 0
     with tempfile.TemporaryDirectory(prefix="fdtorch_dryrun_") as work:
-        report = run(work)
+        report = space_run(work) if args.space else run(work)
     print(json.dumps(report, indent=1))
     if args.report:
         with open(args.report, "w") as f:

@@ -50,10 +50,10 @@ from fastdepth_tpu_torch.parallel.mesh import SPACE_AXIS
 from fastdepth_tpu_torch.train.loss import masked_l1_loss
 
 SPACE_TRAIN_REFUSED = (
-    "training does not support a 'space' mesh axis: "
-    "depthwise-conv weight gradients diverge under SPMD "
-    "spatial partitioning (docs/probe_r3_sp_grad.json). "
-    "Use a 1-D 'data' mesh for training; 'space' is for "
+    "training does not support a 'space' mesh axis: the port's height-sharded "
+    "forward (parallel/spatial.py) exchanges each conv's halo rows by hand and "
+    "has no backward for those exchanges, so its gradients would miss the "
+    "halo's terms. Use a 1-D 'data' mesh for training; 'space' is for "
     "inference/eval (Evaluator, serving).")
 
 
@@ -374,7 +374,7 @@ class Trainer:
         process-wide; bf16 leaves the flags as it finds them.  ``params``
         is copied, never moved; under a mesh every rank must pass the same
         values.  A mesh with a ``space`` axis is refused
-        (:func:`make_train_step`), with the JAX package's reason."""
+        (:func:`make_train_step`): the halo exchanges have no backward."""
         if mesh is not None:
             if device is not None and torch.device(device) != mesh.device:
                 raise ValueError(f"device {device} is not the mesh's device {mesh.device}")

@@ -305,9 +305,10 @@ def world1(tmp_path):
 @pytest.mark.parametrize("call, error, message", [
     (lambda: M.make_mesh(1), RuntimeError, "needs a torch.distributed process group"),
     (lambda: M.make_mesh(1, "model"), ValueError, "carry neither 'data' nor 'space'"),
-    (lambda: M.make_mesh(2, "space"), NotImplementedError, "ROADMAP A12b"),
-    (lambda: M.make_mesh_2d(2, 4), NotImplementedError, "ROADMAP A12b"),
-    (lambda: M.mesh_from_cli(None, 4), SystemExit, "ROADMAP A12b"),
+    (lambda: M.make_mesh(2, "space"), RuntimeError, "needs a torch.distributed process group"),
+    (lambda: M.make_mesh_2d(2, 4), RuntimeError, "needs a torch.distributed process group"),
+    (lambda: M.mesh_from_cli(None, 3, image_height=224), SystemExit,
+     "--mesh-spatial 3 must divide the 224-row image height"),
     (lambda: M.mesh_from_cli(2, None, batch_size=3), SystemExit,
      "--batch-size 3 must divide by --mesh-devices 2"),
 ])
@@ -439,15 +440,16 @@ def test_mesh_of_one_trains_and_evaluates_as_no_mesh(world1):
 
 def test_trainer_refuses_a_space_mesh():
     """The port's copy of tests/test_spatial.py's refusal: a mesh with a
-    'space' axis (the port cannot build one yet: ROADMAP A12b) is refused
-    for training with the JAX package's reason."""
+    'space' axis is refused for training, for the port's own reason (its
+    height-sharded forward exchanges halo rows by hand and has no backward
+    for them)."""
     mesh = M.Mesh(("data", "space"), None, torch.device("cpu"))
     with pytest.raises(ValueError, match="'space' mesh axis"):
         Trainer(R.MODEL, R.init(torch.float32), TrainConfig(lr=0.05), mesh=mesh)
 
 
 @pytest.mark.parametrize("flags, message", [
-    (["--mesh-spatial", "2"], "ROADMAP A12b"),
+    (["--mesh-spatial", "3"], "--mesh-spatial 3 must divide the 224-row image height"),
     (["--impl", "mixed"], "ROADMAP A14"),
     (["--tuning", "tuning/h100.json"], "ROADMAP A14"),
     (["--mesh-devices", "3"], "--batch-size 8 must divide by --mesh-devices 3"),

@@ -2,8 +2,10 @@
 ``cli/serve.py``) on the CPU, where the kernels' plain versions run:
 
 - every case of ``tests/test_server.py`` that needs no mesh, pointed at
-  the port (``device='cpu'``); the four mesh cases become the port's
-  refusals, which name ROADMAP A12b;
+  the port (``device='cpu'``); of the four mesh cases, the JAX server's
+  validation messages (batch, height, chain with a data axis) and the
+  serve CLI's spatial daemon launch over two spawned gloo ranks (the
+  mesh servers' answers are held in ``tests/test_torch_spatial.py``);
 - the port's server against the JAX package's on the same numpy tree
   (f32, uint8 in, f16 out, chain);
 - the wire protocol both ways: the JAX package's clients against the
@@ -323,21 +325,33 @@ def _daemon(argv):
     return stop, t, rc
 
 
-def test_serve_cli_daemon_launch_spatial_mesh(ckpt, tmp_path):
-    """The JAX CLI's (data=2, space=4) mesh daemon launch: the port parses
-    the flags and refuses them, naming ROADMAP A12b, before it loads
-    anything or binds the socket."""
-    with pytest.raises(SystemExit, match="A12b"):
-        serve_cli.main(["--evaluate", ckpt, "--socket", str(tmp_path / "fd.sock"),
-                        "--batch-size", "2", "--image-size", str(HW), str(HW),
-                        "--stats-every", "0", "--mesh-devices", "2", "--mesh-spatial", "4",
-                        "--device", "cpu"])
-    assert not os.path.exists(tmp_path / "fd.sock")
+def test_serve_cli_daemon_launch_spatial_mesh(ckpt, tiny, rng, tmp_path):
+    """The JAX CLI's spatial mesh daemon launch on the port, at two ranks
+    (data=1, space=2: two gloo ranks spawned on the CPU): rank 0 binds
+    the socket and answers a client ping with the single-process
+    prediction (atol 1e-5, the JAX test's); ``_stop`` reaches rank 0 as a
+    SIGINT and the daemon exits 0.  A spawned rank cannot set this
+    process's ``_ready``, so the test waits for the socket file."""
+    sock = str(tmp_path / "fd.sock")
+    stop, rc = threading.Event(), {}
+    t = _start(lambda: rc.setdefault("rc", serve_cli.main(
+        ["--evaluate", ckpt, "--socket", sock, "--batch-size", "2", "--image-size", str(HW),
+         str(HW), "--stats-every", "0", "--mesh-devices", "1", "--mesh-spatial", "2",
+         "--device", "cpu"], _stop=stop)))
+    deadline = time.monotonic() + RESULT_S
+    while not os.path.exists(sock) and time.monotonic() < deadline and t.is_alive():
+        time.sleep(0.05)
+    assert os.path.exists(sock), "daemon never bound its socket"
+    frame = _frames(rng, 1)[0]
+    pred = request(sock, frame)
+    _stop(stop, t)
+    assert rc.get("rc") == 0
+    np.testing.assert_allclose(pred, _ref(tiny, [frame])[0], atol=1e-5)
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--mesh-devices", "2"], "A12b"),
-    (["--mesh-spatial", "4"], "A12b"),
+    (["--mesh-devices", "3"], "--batch-size 32 must divide by --mesh-devices 3"),
+    (["--mesh-spatial", "5"], "--mesh-spatial 5 must divide the 224-row image height"),
     (["--impl", "mixed"], "A14"),
     (["--tuning", "tuning/h100.json"], "A14"),
 ])
@@ -448,16 +462,32 @@ def test_server_chain_mode_matches_direct_forward(rng, tiny):
         np.testing.assert_allclose(p, ref[i], atol=1e-5)
 
 
-@pytest.mark.parametrize("kw", [
-    {"batch_size": 4, "chain": True},  # chain over a data mesh
-    {"batch_size": 8},  # batch sharded over an 8-device mesh
-    {"batch_size": 2},  # a (data=2, space=4) mesh
+class _MeshShape:
+    """A mesh as the server's checks read it (its axis sizes and device):
+    they run before the server touches the process group."""
+
+    def __init__(self, **shape):
+        self.shape = shape
+        self.device = torch.device("cpu")
+
+
+@pytest.mark.parametrize("kw, message", [
+    # chain over a data mesh
+    ({"batch_size": 4, "chain": True, "mesh": _MeshShape(data=2)},
+     "a 'data' mesh axis would shard the scan axis"),
+    # batch 6 over an 8-device data mesh
+    ({"batch_size": 6, "mesh": _MeshShape(data=8)},
+     "batch_size 6 must divide by the mesh's 8-way 'data' axis"),
+    # a (data=2, space=4) mesh: the height must divide by the space axis
+    ({"batch_size": 2, "image_size": (HW + 2, HW), "mesh": _MeshShape(data=2, space=4)},
+     f"image height {HW + 2} must divide by the mesh's 4-way 'space' axis"),
 ], ids=["chain_rejects_data_mesh", "mesh_sharded", "mesh_spatial"])
-def test_server_mesh_is_refused(kw, tiny):
-    """The JAX server's three mesh cases: the port refuses any mesh,
-    naming ROADMAP A12b, before it prepares anything."""
-    with pytest.raises(ValueError, match="A12b"):
-        _server(tiny, mesh=object(), **kw)
+def test_server_mesh_is_refused(kw, message, tiny):
+    """The JAX server's three mesh validations, with its messages, before
+    the server prepares anything (the mesh servers' answers:
+    ``tests/test_torch_spatial.py``)."""
+    with pytest.raises(ValueError, match=message):
+        _server(tiny, **kw)
 
 
 @pytest.mark.parametrize("kw", [{"impl": "mixed"}, {"tuning": "tuning/h100.json"}])
