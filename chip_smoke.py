@@ -42,7 +42,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    frames/s, the stats' p50/p99 and occupancy, and a lone frame's round
    trip; and the uint8 normalisation bit for bit on all 256 values (the
    eval path checks the Evaluator's uint8 path the same way);
-8. zoo: the rest of the model zoo at 224x224 with seeded random weights
+8. tuned dispatch: cli.autotune on the four released models at a reduced
+   call count (the plain cuDNN stage 'xla' against K1 'pallas', level by
+   level; each record printed as one JSON line, every level with a
+   winner at both dtypes); Evaluator(impl='mixed') on the committed
+   weights at b8 with the flagship's tuned record, a hand-mixed map and
+   all plain stages: K1 launched once per 'pallas' level and K4 once a
+   forward, f32 within 1e-3 of the fused forward, metric rows, eval step
+   times in turns with the fused one (and at b128, where the device
+   binds, for the hand-mixed and all-plain maps); cli.deploy --impl mixed --tuning
+   b1 f32 in a fresh process; a mixed InferenceServer b8 against the
+   mixed Evaluator's forward;
+9. zoo: the rest of the model zoo at 224x224 with seeded random weights
    (Model.init's convs, drawn BatchNorm statistics, a non-negative last
    conv; no trained zoo weights exist): resnet50-upproj at full
    width through validate() b8 f32 and bf16, cli.deploy.main b1 f32,
@@ -60,14 +71,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    a tiny MobileNet encoder and ResNet-18/34 (skip add, concat), -50
    (bottleneck_skips add, concat), -101 and -152, one b2 f32 forward each
    through compile_forward on the card against the CPU, same bound;
-9. train path: the committed weights fine-tuned at 224x224 through the
+10. train path: the committed weights fine-tuned at 224x224 through the
    port's train item path (seeded raw frames, the real augmentations):
    one f32 step on the card against the CPU (with an f64 CPU step as the
    momentum's reference), the loss falling over 10 steps, a checkpoint
    round trip, remat and accumulation, cli.train's epoch loop in f32 and
    bf16 with K1's and K4's launches in its validation, and the step time
    at b8 and b128 in f32 and bf16 with the peak memory;
-10. input: the input pipeline's on-card half on the committed weights
+11. input: the input pipeline's on-card half on the committed weights
    over seeded raw frames: device augmentation (data/device_aug.py) bit
    for bit against the host's train items and its own CPU run, the
    device-augment train step bit for bit against the host-item step,
@@ -78,7 +89,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    device augmentation) and eval_run (b8 f32, host against device
    preprocessing), the b128 copy and augmentation against its bound, and
    engine/benchmark.throughput_sweep;
-11. mesh: data parallelism (parallel/) at world size 1 over NCCL, every
+12. mesh: data parallelism (parallel/) at world size 1 over NCCL, every
    collective issued: the train step with the mesh against the step
    without (b8 f32 and accum_steps 2 within the train phase's bounds, b8
    bf16 loss within rtol 3e-3), Evaluator(mesh) against Evaluator(mesh=
@@ -88,7 +99,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    cli.train / cli.evaluate --mesh-devices 1 against their runs without a
    mesh, --mesh-devices 2 refused up front, and two gloo ranks on the
    CPU (parallel/dryrun.py);
-12. space: the space mesh axis and serving over a mesh (parallel/
+13. space: the space mesh axis and serving over a mesh (parallel/
    spatial.py): K1's row-window mode against its plain version at every
    (tile, window) that S = 2, 4, 8 give at 224x224 on the pruned
    flagship's five levels (b8, f32 and bf16), the whole-image window bit
@@ -102,7 +113,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    frames/s of both); the space dryrun over gloo ranks on the CPU
    (parallel/dryrun.py --space: two ranks at S = 2 on the trained
    flagship at 224x224 b1, four on a 2 x 2 mesh through the Evaluator);
-13. probes: every tag of the probe catalogue (engine/probes.py, the
+14. probes: every tag of the probe catalogue (engine/probes.py, the
    scripts' Pallas probes) runs its kernel (K5, K6, or K3) once, with
    K5's and K6's launches counted on that run; then the launch floor
    (the least a call costs in the same timer), each kernel against its
@@ -111,11 +122,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    to it (with the CUDA kernels K6's taps and up_only yardsticks run
    as); K5's copy sweep (dma_copy) and K6's scale rows (compute_sweep),
    each checked against its plain version;
-14. tools: engine/calibrate (reduced call count) measures the card's
+15. tools: engine/calibrate (reduced call count) measures the card's
    ceilings, and cli.profile --mode prefix --batch 128 profiles the
    pruned flagship on them; the summed roofline bounds must not exceed
-   the measured full forward;
-15. prints the kernels' JSON line, then the result line.
+   the measured full forward; cli.fidelity's f32 against bf16 rows on
+   the committed weights over seeded frames in memory, cli.frontier at a
+   reduced sweep (the flagship with its 'mixed' row from the committed
+   tuning/h100.* record, and mobilenet-nnconv5; b1, b32; both dtypes),
+   and cli.visualize's PNGs;
+16. prints each phase's seconds, the kernels' JSON line, then the
+   result line.
 
 Nothing here, and nothing of the port it drives, imports JAX or the JAX
 package.
@@ -328,13 +344,13 @@ class _Frames:
         return iter(self.batches)
 
 
-def _frames(pipe, seed: int):
-    """Seeded raw 480x640 uint8 RGB + f32 depth frames (the NYU h5 item
-    format), put through the shared val pipeline (resize/crop to
-    224x224) and /255, as NYUDataset's host path does."""
+def _frames(pipe, seed: int, n_batches: int = E2E_BATCHES):
+    """``n_batches`` batches of seeded raw 480x640 uint8 RGB + f32 depth
+    frames (the NYU h5 item format), put through the shared val pipeline
+    (resize/crop to 224x224) and /255, as NYUDataset's host path does."""
     rng = np.random.RandomState(seed)
     batches = []
-    for _ in range(E2E_BATCHES):
+    for _ in range(n_batches):
         rgb = rng.randint(0, 256, (BATCH, 480, 640, 3), dtype=np.uint8)
         depth = rng.uniform(0.5, 10.0, (BATCH, 480, 640)).astype(np.float32)
         batches.append((pipe.apply_batch(rgb).astype(np.float32) / 255.0,
@@ -552,36 +568,49 @@ def deploy_phase(model, params) -> dict:
     return out
 
 
-def fresh_deploy_f32(in_fp: str, out_fp: str, want: np.ndarray) -> dict:
-    """cli.deploy.main in f32 in a fresh process, whose TF32 flags start
-    at PyTorch's defaults (cuDNN's on): the CLI must turn both off, and
-    its saved prediction must agree with ``want``, the straight forward
-    with TF32 off, within 1e-3."""
+FRESH_DEPLOY_CALLS = 2 + 2 + 5  # compile_forward's warm run, the saved prediction, 2 + 5
+
+
+def fresh_deploy_f32(in_fp: str, out_fp: str, want: np.ndarray, extra=(),
+                     per_call=(STAGES_PER_FORWARD, 1), label: str = "deploy f32") -> dict:
+    """cli.deploy.main in f32 (``extra`` flags on top) in a fresh process,
+    whose TF32 flags start at PyTorch's defaults (cuDNN's on): the CLI
+    must turn both off, its saved prediction must agree with ``want``,
+    the straight forward with TF32 off, within 1e-3, and K1 and K4 must
+    have launched ``per_call`` times a call of the forward."""
     argv = ["--model", WEIGHTS, "--input-fp", in_fp, "--output-fp", out_fp, "--warmup", "2",
-            "--run", "5", "--device", "cuda"]
+            "--run", "5", "--device", "cuda", *extra]
     code = ("import json, torch\n"
             "def flags():\n"
             "    return [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]\n"
             "before = flags()\n"
             "from fastdepth_tpu_torch.cli import deploy\n"
+            "from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1, head as K4\n"
             f"deploy.main({argv!r})\n"
-            "print('TF32 ' + json.dumps({'before': before, 'after': flags()}))\n")
+            "print('TF32 ' + json.dumps({'before': before, 'after': flags(),\n"
+            "                            'launches': [K1.LAUNCHES, K4.LAUNCHES]}))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                        timeout=300)
     if r.returncode != 0:
-        fail(f"deploy in a fresh process exited {r.returncode}: {r.stderr[-2000:]}")
+        fail(f"{label} in a fresh process exited {r.returncode}: {r.stderr[-2000:]}")
     flags = json.loads(r.stdout.rsplit("TF32 ", 1)[1])
     pred = np.load(out_fp)
     err = float(np.abs(pred - want).max())
-    print(f"deploy f32, fresh process: TF32 flags (cudnn, matmul) {flags['before']} before, "
-          f"{flags['after']} after; saved prediction vs straight forward max|diff| {err:.3e} "
-          "(bound 1e-3)")
+    launches = flags["launches"]
+    print(f"{label}, fresh process: TF32 flags (cudnn, matmul) {flags['before']} before, "
+          f"{flags['after']} after; K1 {launches[0]}, K4 {launches[1]} launches over "
+          f"{FRESH_DEPLOY_CALLS} calls; saved prediction vs straight forward max|diff| "
+          f"{err:.3e} (bound 1e-3)")
     if flags["after"] != [False, False]:
-        fail(f"deploy in f32 left TF32 on: {flags['after']}")
+        fail(f"{label} left TF32 on: {flags['after']}")
     if not err <= 1e-3:
-        fail(f"fresh-process f32 deploy disagrees with the straight forward: {err}")
+        fail(f"fresh-process {label} disagrees with the straight forward: {err}")
+    if launches != [per_call[0] * FRESH_DEPLOY_CALLS, per_call[1] * FRESH_DEPLOY_CALLS]:
+        fail(f"{label}: K1 {launches[0]} and K4 {launches[1]} launches over "
+             f"{FRESH_DEPLOY_CALLS} calls, want {per_call[0]} and {per_call[1]} a call")
     return {"tf32_before": flags["before"], "tf32_after": flags["after"],
-            "max_abs_err_vs_straight": err}
+            "max_abs_err_vs_straight": err, "launches": launches[0],
+            "k4_launches": launches[1], "calls": FRESH_DEPLOY_CALLS}
 
 
 def _serve_one(srv, tmp: str, name: str, inputs, lone_inputs,
@@ -741,6 +770,175 @@ def serve_phase(model, params, card: dict) -> dict:
             if got.shape != (SERVE_FRAMES + SERVE_LONE, *OUTPUT_HW, 1) or not err <= bound:
                 fail(f"serve {name}: answers of shape {got.shape}, max|diff| {err} > {bound}")
             out[name] = row
+    return out
+
+
+# --- the tuned dispatch (engine/autotune, impl='mixed') ----------------------
+
+TUNE_CALLS = 10  # cli.autotune --calls (its default is 20)
+FLAGSHIP = "mobilenet-nnconv5dw-skipadd-pruned"
+# the winner maps the mixed path runs on the flagship: the card's tuned
+# record (filled in by tuned_phase), a hand-mixed map, all plain stages
+MIXED_MAPS = {"tuned": None,
+              "hand": {1: "pallas", 2: "xla", 3: "pallas", 4: "xla", 5: "pallas"},
+              "xla": {i: "xla" for i in range(1, 6)}}
+MIXED_SERVE_FRAMES = 2 * BATCH
+MIXED_WIDE_BATCH = 128  # the mixed maps' eval step where the device, not the host, binds
+
+
+def _tune_records(tmp: str) -> dict:
+    """cli.autotune on the four released models at TUNE_CALLS: each
+    record printed as one JSON line; every decoder stage needs a winner
+    at both dtypes, and no impl may have failed.  Returns {model: path}."""
+    from fastdepth_tpu_torch.cli import autotune
+
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        paths = autotune.main(["--out", tmp, "--calls", str(TUNE_CALLS), "--device", "cuda"])
+    out = {}
+    for path in paths:
+        name = os.path.basename(path).split(".", 1)[1][:-len(".json")]
+        with open(path) as f:
+            rec = json.load(f)
+        print(f"tuned record {os.path.basename(path)}: {json.dumps(rec)}")
+        errors = [r for r in rec["records"] + rec["encoder_records"]
+                  if any(k.endswith("_error") for k in r)]
+        if errors:
+            fail(f"autotune {name}: failed impls {errors}")
+        have = {(r["stage"], r["dtype"]) for r in rec["records"] if r.get("winner")}
+        want = {(i, d) for i in range(1, 6) for d in ("bfloat16", "float32")}
+        if have != want:
+            fail(f"autotune {name}: winners for {sorted(have)}, want every stage at both dtypes")
+        winners = {d: {r["stage"]: r["winner"] for r in rec["records"] if r["dtype"] == d}
+                   for d in ("bfloat16", "float32")}
+        print(f"tuned {name} on {rec['device']}: winners {json.dumps(winners)}")
+        out[name] = path
+    print(f"autotune: {len(paths)} records in {time.perf_counter() - t0:.1f} s "
+          f"(--calls {TUNE_CALLS})")
+    return out
+
+
+def tuned_phase(model, params, card: dict) -> dict:
+    """The tuned dispatch on the card: cli.autotune's records for the four
+    released models (:func:`_tune_records`); then Evaluator(impl='mixed')
+    on the committed trained flagship at b8 over seeded frames with three
+    winner maps (the card's tuned record, a hand-mixed map, all plain
+    stages): each through validate() with K1 launched once per 'pallas'
+    level and K4 once a forward (f32; bf16 too for the tuned record, whose
+    map is per dtype), its f32 output within 1e-3 of the fused forward,
+    its metric row, and its eval step time in turns with the fused one
+    (the hand-mixed and all-plain maps also at b128);
+    cli.deploy --impl mixed --tuning b1 f32 in a fresh process; and an
+    InferenceServer(impl='mixed', tuning=) b8 whose answers equal the
+    mixed Evaluator's forward."""
+    from fastdepth_tpu_torch import OUTPUT_SIZE, RAW_SIZE, Evaluator, ValPipeline, validate
+    from fastdepth_tpu_torch.engine.autotune import load_tuning
+    from fastdepth_tpu_torch.engine.server import InferenceServer
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        records = _tune_records(tmp)
+        path = records[FLAGSHIP]
+        maps = dict(MIXED_MAPS, tuned=path)
+        loader = _Frames(_frames(ValPipeline.create(raw_size=RAW_SIZE, output_size=OUTPUT_SIZE),
+                                 seed=11))
+        rgb0, depth0, _ = loader.batches[0]
+        forwards = E2E_BATCHES + 1  # validate() warms up on the first batch
+        fused = Evaluator(model, params, batch_size=BATCH, impl="fused", device="cuda")
+        x, d = fused.put(rgb0), fused.put(depth0)
+        want, _ = fused(x, d)
+        runs = [(name, torch.float32) for name in maps] + [("tuned", torch.bfloat16)]
+        f32_evs = {}
+        for name, dtype in runs:
+            label = f"mixed {name} {'f32' if dtype == torch.float32 else 'bf16'}"
+            winners = maps[name] if isinstance(maps[name], dict) else load_tuning(path, dtype)
+            n_pallas = sum(w == "pallas" for w in winners.values())
+            ev = Evaluator(model, params, batch_size=BATCH, dtype=dtype, impl="mixed",
+                           tuning=maps[name], device="cuda")
+            _reset(K1, K4)
+            avg = validate(loader, ev, print_freq=0, make_images=False, log=lambda *a: None)
+            torch.cuda.synchronize()
+            k1, k4 = _counts(K1, K4)
+            if (k1, k4) != (n_pallas * forwards, forwards):
+                fail(f"{label}: K1 launched {k1} and K4 {k4} times over {forwards} forwards, "
+                     f"want {n_pallas} (its 'pallas' levels) and 1 per forward")
+            row = {"winners": winners, "launches": k1, "k4_launches": k4, "forwards": forwards,
+                   "metrics": {k: getattr(avg, k) for k in ("rmse", "mae", "delta1", "absrel",
+                                                           "lg10")}}
+            if dtype == torch.float32:
+                got, _ = ev(x, d)
+                err = float((got - want).abs().max())
+                if not err <= 1e-3:
+                    fail(f"{label}: output vs the fused forward max|diff| {err} > 1e-3")
+                # in turns: fused, mixed, mixed, fused
+                t = [_median_ms(e, (x, d)) for e in (fused, ev, ev, fused)]
+                row.update(max_abs_err_vs_fused=err, step_ms=[t[1], t[2]],
+                           fused_step_ms=[t[0], t[3]])
+                f32_evs[name] = ev
+            print(f"tuned {label} b{BATCH} on {card['nvidia_smi']}: {json.dumps(row)}")
+            out[label] = row
+
+        # the b8 step is host-bound (PERF.md section 5): the plain levels'
+        # share shows at b128, in turns fused, hand, xla, xla, hand, fused
+        reps = MIXED_WIDE_BATCH // BATCH
+        xw, dw = torch.cat([x] * reps), torch.cat([d] * reps)
+        order = (fused, f32_evs["hand"], f32_evs["xla"], f32_evs["xla"], f32_evs["hand"], fused)
+        t = [_median_ms(e, (xw, dw), repeats=3, calls=10) for e in order]
+        out[f"step_ms_b{MIXED_WIDE_BATCH}_f32"] = wide = {
+            "fused": [t[0], t[5]], "hand": [t[1], t[4]], "xla": [t[2], t[3]]}
+        print(f"tuned eval step b{MIXED_WIDE_BATCH} f32 on {card['nvidia_smi']}, ms in turns "
+              f"fused, hand, xla, xla, hand, fused: {json.dumps(wide)}")
+        del xw, dw
+
+        # the deploy CLI with the tuned record, b1 f32 in a fresh process
+        from fastdepth_tpu_torch.engine.aot import compile_forward
+
+        rgb = np.random.RandomState(12).rand(*OUTPUT_HW, 3).astype(np.float32)
+        in_fp = os.path.join(tmp, "rgb.npy")
+        np.save(in_fp, rgb)
+        fn, p = compile_forward(model, params, batch_size=1, image_size=OUTPUT_HW,
+                                impl="xla", device="cuda")
+        straight = fn(p, torch.from_numpy(rgb[None]).cuda()).permute(0, 3, 1, 2).cpu().numpy()
+        n32 = sum(w == "pallas" for w in load_tuning(path, torch.float32).values())
+        out["deploy_mixed_f32"] = fresh_deploy_f32(
+            in_fp, os.path.join(tmp, "pred_mixed.npy"), straight,
+            extra=("--impl", "mixed", "--tuning", path), per_call=(n32, 1),
+            label="deploy --impl mixed f32")
+
+        # the server with the tuned record against the mixed Evaluator
+        frames = np.concatenate([b[0] for b in loader.batches])[:MIXED_SERVE_FRAMES]
+        ev = Evaluator(model, params, batch_size=BATCH, impl="mixed", tuning=path,
+                       device="cuda")
+        with torch.inference_mode():
+            ref = np.concatenate([ev._apply(ev.params, torch.from_numpy(frames[i:i + BATCH])
+                                            .cuda()).cpu().numpy()
+                                  for i in range(0, MIXED_SERVE_FRAMES, BATCH)])
+        srv = InferenceServer(model, params, batch_size=BATCH, image_size=OUTPUT_HW,
+                              impl="mixed", tuning=path, device="cuda")
+        try:
+            srv.submit(frames[0]).result(timeout=60)  # warm-up
+            before = srv.stats()["batches"]
+            _reset(K1, K4)
+            answers = np.stack([f.result(timeout=60) for f in [srv.submit(fr) for fr in frames]])
+            torch.cuda.synchronize()
+            k1, k4 = _counts(K1, K4)
+            batches = srv.stats()["batches"] - before
+        finally:
+            srv.close()
+        err = float(np.abs(answers - ref).max())
+        print(f"tuned server b{BATCH} f32: {MIXED_SERVE_FRAMES} frames in {batches} batches, "
+              f"K1 {k1}, K4 {k4} launches; answers vs the mixed Evaluator's forward "
+              f"max|diff| {err:.3e} (bound 1e-5)")
+        if (k1, k4) != (n32 * batches, batches) or not err <= 1e-5:
+            fail(f"tuned server: K1 {k1}, K4 {k4} over {batches} batches (want {n32} and 1 "
+                 f"a batch), max|diff| {err}")
+        out["serve_mixed"] = {"launches": k1, "k4_launches": k4, "batches": batches,
+                              "max_abs_err_vs_evaluator": err}
+    print(f"tuned phase: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2662,11 +2860,13 @@ def probe_phase() -> dict:
     return out
 
 
-def tools_phase() -> dict:
+def tools_phase(model, params, card: dict) -> dict:
     """engine/calibrate at a reduced call count, then cli.profile --mode
     prefix at batch 128 on the pruned flagship (f32, random weights) on
     those ceilings: 20 finite rows, and the summed bounds at most the
-    measured full forward."""
+    measured full forward; then cli.fidelity, cli.frontier and
+    cli.visualize (:func:`fidelity_check`, :func:`frontier_check`,
+    :func:`visualize_check`)."""
     from fastdepth_tpu_torch.cli import profile
     from fastdepth_tpu_torch.engine import calibrate
 
@@ -2695,7 +2895,93 @@ def tools_phase() -> dict:
     print(f"tools: sum of bounds {prof['sum_bounds_us']:.1f} us <= measured full forward "
           f"{prof['full_us']:.1f} us (b128 f32, {prof['fps']:.0f} fps)")
     return {"ceilings": c, "profile_full_us": prof["full_us"],
-            "profile_sum_bounds_us": prof["sum_bounds_us"]}
+            "profile_sum_bounds_us": prof["sum_bounds_us"],
+            "fidelity": fidelity_check(model, params, card),
+            "frontier": frontier_check(card), "visualize": visualize_check(model, params)}
+
+
+FIDELITY_BATCHES = 8  # 64 seeded frames
+FRONTIER_MODELS = (FLAGSHIP, "mobilenet-nnconv5")
+
+
+def fidelity_check(model, params, card: dict) -> dict:
+    """cli.fidelity's core (``compare``) on the committed trained flagship
+    over seeded 480x640 frames held in memory (the card machine has no
+    h5py): f32 and bf16 metric rows and their deltas, finite."""
+    from fastdepth_tpu_torch import OUTPUT_SIZE, RAW_SIZE, ValPipeline
+    from fastdepth_tpu_torch.cli import fidelity
+
+    batches = _frames(ValPipeline.create(raw_size=RAW_SIZE, output_size=OUTPUT_SIZE), seed=13,
+                      n_batches=FIDELITY_BATCHES)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        _, table = fidelity.compare(model, params, lambda: _Frames(batches), batch_size=BATCH,
+                                    device="cuda")
+    for line in log.getvalue().splitlines():
+        print(f"fidelity: {line}")
+    if not all(np.isfinite([v for row in table.values() for v in row.values()])):
+        fail(f"fidelity: non-finite table {table}")
+    print(f"fidelity on {card['nvidia_smi']} ({FIDELITY_BATCHES * BATCH} synthetic frames, "
+          f"b{BATCH}): {json.dumps(table)}")
+    return table
+
+
+def frontier_check(card: dict) -> dict:
+    """cli.frontier at a reduced sweep (the flagship and mobilenet-nnconv5,
+    b1 and b32, both dtypes) under its --budget-s: every (model, dtype,
+    batch) has its 'xla' and 'opt' rows, and the flagship its 'mixed' row
+    from the committed tuning/h100.* record."""
+    from fastdepth_tpu_torch.cli import frontier
+
+    if not os.path.exists(frontier.tuning_path(FLAGSHIP)):
+        fail(f"frontier: no committed record {frontier.tuning_path(FLAGSHIP)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            rows = frontier.main(["--models", ",".join(FRONTIER_MODELS), "--batches", "1,32",
+                                  "--calls", "10", "--budget-s", "120",
+                                  "--out", os.path.join(tmp, "frontier")])
+        with open(os.path.join(tmp, "frontier.md")) as f:
+            md = f.read()
+    for line in log.getvalue().splitlines():
+        print(f"frontier: {line}")
+    have = {(r["model"], r["dtype"], r["batch"], r["impl"]) for r in rows}
+    want = {(m, d, b, i) for m in FRONTIER_MODELS for d in ("bfloat16", "float32")
+            for b in (1, 32) for i in ("xla", "opt", "mixed") if i != "mixed" or m == FLAGSHIP}
+    if have != want or "| model | dtype | batch | impl |" not in md:
+        fail(f"frontier: rows {sorted(have)}, want {sorted(want)}")
+    print(f"frontier on {card['nvidia_smi']}: {json.dumps(rows)}")
+    return {"rows": rows}
+
+
+def visualize_check(model, params) -> dict:
+    """cli.visualize on a seeded rgb, depth and the flagship's prediction:
+    three PNGs of the input's size."""
+    from PIL import Image
+
+    from fastdepth_tpu_torch.cli import visualize
+    from fastdepth_tpu_torch.engine.aot import compile_forward
+
+    rng = np.random.RandomState(14)
+    rgb = rng.rand(*OUTPUT_HW, 3).astype(np.float32)
+    fn, p = compile_forward(model, params, batch_size=1, image_size=OUTPUT_HW, device="cuda")
+    pred = fn(p, torch.from_numpy(rgb[None]).cuda()).permute(0, 3, 1, 2).cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        args = []
+        for name, arr in (("rgb", rgb), ("depth", rng.uniform(0.5, 10, OUTPUT_HW)),
+                          ("pred", pred)):
+            np.save(os.path.join(tmp, f"{name}.npy"), arr)
+            args += [f"--{name}", os.path.join(tmp, f"{name}.npy")]
+        with contextlib.redirect_stdout(io.StringIO()):
+            visualize.main(args + ["--out-dir", tmp])
+        sizes = {}
+        for name in ("rgb", "depth", "pred"):
+            with Image.open(os.path.join(tmp, f"{name}.png")) as im:
+                sizes[name] = [im.size[1], im.size[0], len(im.getbands())]
+    if any(v != [*OUTPUT_HW, 3] for v in sizes.values()):
+        fail(f"visualize: PNG shapes {sizes}")
+    print(f"visualize: rgb, depth, pred PNGs written, each {OUTPUT_HW[0]}x{OUTPUT_HW[1]}x3")
+    return sizes
 
 
 KERNELS = [
@@ -2716,21 +3002,30 @@ KERNELS = [
 
 def main() -> None:
     t0 = time.perf_counter()
-    card = device_phase()
-    build_phase()
-    kernels = kernel_phase()
-    model, params = load_weights()
-    e2e = e2e_phase(model, params)
-    fwd = forwards_phase(model, params)
-    dep = deploy_phase(model, params)
-    srv = serve_phase(model, params, card)
-    zoo_phase(card)
-    train_phase(model, params)
-    input_phase(model, params, card)
-    mesh_phase(model, params, card)
-    space_phase(model, params, kernels, card)
-    kernels.update(probe_phase())
-    tools_phase()
+    phase_s = {}
+
+    def timed(fn, *args):
+        t = time.perf_counter()
+        result = fn(*args)
+        phase_s[fn.__name__] = round(time.perf_counter() - t, 1)
+        return result
+
+    card = timed(device_phase)
+    timed(build_phase)
+    kernels = timed(kernel_phase)
+    model, params = timed(load_weights)
+    e2e = timed(e2e_phase, model, params)
+    fwd = timed(forwards_phase, model, params)
+    dep = timed(deploy_phase, model, params)
+    srv = timed(serve_phase, model, params, card)
+    tuned = timed(tuned_phase, model, params, card)
+    timed(zoo_phase, card)
+    timed(train_phase, model, params)
+    timed(input_phase, model, params, card)
+    timed(mesh_phase, model, params, card)
+    timed(space_phase, model, params, kernels, card)
+    kernels.update(timed(probe_phase))
+    timed(tools_phase, model, params, card)
     # launches: each kernel's count on the f32 run of its path (K1: the
     # eval path, K2/K3: the v2/v3 forwards, K4: the deploy path, K5/K6:
     # the probe catalogue's run); ms / plain_ms: device time (events_ms
@@ -2742,11 +3037,15 @@ def main() -> None:
     # per call where one computes the same function, else null (K5 and K6:
     # summed over library_tags, beside ms_over_library_tags, the kernel's
     # own time over the same tags); serve_launches: K1's and K4's counts
-    # over the f32 server's counted run (serve phase)
+    # over the f32 server's counted run (serve phase); mixed_launches: over
+    # the hand-mixed map's f32 validate() (tuned phase: 3 'pallas' levels)
     launches = {"K1": e2e["f32"]["launches"], "K2": fwd["f32"]["v2"]["launches"],
                 "K3": fwd["f32"]["v3"]["launches"], "K4": dep["f32"]["k4_launches"],
                 "K5": kernels["K5"]["launches"], "K6": kernels["K6"]["launches"]}
     serve_launches = {"K1": srv["f32"]["launches"], "K4": srv["f32"]["k4_launches"]}
+    mixed_launches = {"K1": tuned["mixed hand f32"]["launches"],
+                      "K4": tuned["mixed hand f32"]["k4_launches"]}
+    print(f"chip_smoke: seconds by phase {json.dumps(phase_s)}")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": source,
@@ -2759,6 +3058,7 @@ def main() -> None:
         **{f: kernels[key][f] for f in ("library_tags", "ms_over_library_tags")
            if f in kernels[key]},
         **({"serve_launches": serve_launches[key]} if key in serve_launches else {}),
+        **({"mixed_launches": mixed_launches[key]} if key in mixed_launches else {}),
     } for key, name, source, replaces in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,14 +7,17 @@ batch 1 (``engine/aot.compile_forward``: fold, cast, kernels built and
 run once), feeds a golden npy input, saves the prediction npy in the
 reference's NCHW layout, and reports warmup + repeat timings (also with
 fresh random inputs).  On the flagship, ``--impl auto`` runs the decoder
-levels through K1 and the head through K4.
+levels through K1 and the head through K4; ``--impl mixed --tuning
+tuning/h100.<model>.json`` each level on the kernel that won on the card
+(``engine/autotune.py``), the analogue of the reference's AutoTVM-tuned
+deploy artifact.
 
 Usage:
     python -m fastdepth_tpu_torch.cli.deploy --model CKPT --input-fp rgb.npy \\
         [--output-fp pred.npy] [--warmup 10] [--run 100] [--bf16] [--device cuda|cpu]
 
-Not ported yet (ROADMAP A8, A14): ``--save-bundle``/``--load-bundle`` and
-``--impl mixed --tuning``.
+Not ported yet: ``--save-bundle``/``--load-bundle`` (ROADMAP A19); they
+are parsed under the JAX names and refused.
 """
 
 from __future__ import annotations
@@ -25,12 +28,15 @@ import os
 import numpy as np
 import torch
 
-from fastdepth_tpu_torch.engine.aot import IMPLS, strict_f32
+from fastdepth_tpu_torch.engine.aot import IMPLS, check_tuning_flags, strict_f32
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="FastDepth deploy runner (PyTorch/CUDA port)")
-    p.add_argument("--model", required=True, help="checkpoint (.npz or torch pickle)")
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--model", help="checkpoint (.npz or torch pickle)")
+    src.add_argument("--load-bundle", metavar="PREFIX",
+                     help="a saved deploy bundle; not ported yet (ROADMAP A19)")
     p.add_argument("--input-fp", required=True, help="input rgb .npy (HWC in [0,1] or CHW)")
     p.add_argument("--output-fp", default="pred.npy", help="prediction .npy out")
     p.add_argument("--warmup", type=int, default=10, help="warmup trials (tx2_run_tvm.py:43)")
@@ -43,9 +49,16 @@ def parse_args(argv=None):
     p.add_argument("--impl", default="auto", choices=list(IMPLS),
                    help="forward (engine/aot._pick_apply): auto = decoder levels "
                         "through K1 and the head through K4 when the architecture "
-                        "allows and BN is folded")
+                        "allows and BN is folded; mixed = each decoder stage on its "
+                        "autotuned winner from --tuning")
+    p.add_argument("--tuning", default=None, metavar="JSON",
+                   help="with --impl mixed: tuning record (tuning/*.json), "
+                        "the analogue of the AutoTVM log the reference's "
+                        "deploy artifact was compiled with")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of the timed runs to DIR")
+    p.add_argument("--save-bundle", default=None, metavar="PREFIX",
+                   help="also write a deploy bundle; not ported yet (ROADMAP A19)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda runs the port's kernels; cpu runs their plain "
                         "PyTorch versions (timings are then CPU times); on either, f32 "
@@ -69,6 +82,9 @@ def load_input(path: str) -> np.ndarray:
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.load_bundle or args.save_bundle:
+        raise SystemExit("--save-bundle/--load-bundle are not ported yet: ROADMAP A19")
+    check_tuning_flags(args.impl, args.tuning)
     if not args.bf16:
         strict_f32()  # f32 is true f32; bf16 runs leave the flags as they are
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -92,7 +108,7 @@ def main(argv=None):
     print(f"=> compiling for {x_np.shape} ({str(dtype).replace('torch.', '')}, {args.device})")
     forward, prepared = compile_forward(
         model, params, batch_size=1, image_size=(h, w), dtype=dtype, impl=args.impl,
-        device=device)
+        tuning=args.tuning, device=device)
     fl = flops_estimate(model, prepared, batch_size=1, image_size=(h, w))
     print(f"=> compiled; {fl / 1e9:.3f} GFLOP/frame")
 

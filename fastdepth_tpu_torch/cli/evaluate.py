@@ -15,8 +15,9 @@ evaluates over N ranks, one a device (``parallel/``), spawned here or one
 a process under ``--coord``; each rank runs its rows of every batch, and
 rank 0 prints and writes.  ``--mesh-spatial S`` also shards the image
 height S-way (``N x S`` ranks; the MobileNet + NNConv family): each rank
-runs its rows of every image through the height-sharded forward.  Parsed
-and refused: ``--impl mixed`` / ``--tuning`` (ROADMAP A14).
+runs its rows of every image through the height-sharded forward.
+``--impl mixed --tuning tuning/h100.<model>.json`` runs each decoder level
+on the kernel that won on the card (``engine/autotune.py``).
 """
 
 from __future__ import annotations
@@ -27,8 +28,7 @@ import os
 import torch
 
 from fastdepth_tpu_torch.data.nyu import OUTPUT_SIZE
-from fastdepth_tpu_torch.engine.aot import IMPLS, strict_f32
-from fastdepth_tpu_torch.engine.server import TUNED_NOT_PORTED
+from fastdepth_tpu_torch.engine.aot import IMPLS, check_tuning_flags, strict_f32
 from fastdepth_tpu_torch.parallel import distributed as D
 from fastdepth_tpu_torch.parallel.mesh import check_cli_mesh, mesh_from_cli
 
@@ -60,11 +60,12 @@ def parse_args(argv=None):
     p.add_argument("--no-fold-bn", action="store_true",
                    help="keep BatchNorm unfolded (exact reference numerics)")
     p.add_argument("--tuning", default=None, metavar="JSON",
-                   help="with --impl mixed: a tuning record; not ported yet (ROADMAP A14)")
-    p.add_argument("--impl", default="auto", choices=[*IMPLS, "mixed"],
+                   help="with --impl mixed: tuning record (tuning/*.json) "
+                        "selecting each decoder stage's kernel")
+    p.add_argument("--impl", default="auto", choices=IMPLS,
                    help="forward: auto = decoder levels through the fused CUDA "
                         "kernel when the architecture allows and BN is folded; mixed "
-                        "is not ported yet (ROADMAP A14)")
+                        "= each level on its tuned winner (--tuning)")
     p.add_argument("--no-images", action="store_true", help="skip comparison PNGs")
     p.add_argument("--split", default="val", choices=["val", "holdout"],
                    help="dataset split (holdout = the two NetAdapt files, nyu.py:13-24)")
@@ -103,8 +104,7 @@ def main(argv=None):
     """Parse and check the flags, then evaluate on every rank they ask for
     (``parallel.distributed.launch``); returns the ``Result``."""
     args = parse_args(argv)
-    if args.impl == "mixed" or args.tuning is not None:
-        raise SystemExit(TUNED_NOT_PORTED)
+    check_tuning_flags(args.impl, args.tuning)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available "
                          "(pass --device cpu to run the plain PyTorch versions)")
@@ -151,6 +151,7 @@ def _main(args):
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         fold_bn=not args.no_fold_bn,
         impl=args.impl,
+        tuning=args.tuning,
         val_pipeline=dataset.val_pipeline if args.device_preprocess else None,
         mesh=mesh,
         device=None if mesh is not None else args.device,

@@ -25,8 +25,8 @@ a device); rank 0 binds the socket and serves, the others follow its
 batches (``engine/server.py``).  A SIGINT to this process stops rank 0,
 which stops the others.
 
-Not ported yet: ``--impl mixed`` / ``--tuning`` (ROADMAP A14); they are
-parsed under the JAX names and refused.
+``--impl mixed --tuning tuning/h100.<model>.json`` serves each decoder
+level on the kernel that won on the card (``engine/autotune.py``).
 """
 
 from __future__ import annotations
@@ -38,8 +38,7 @@ import threading
 
 import torch
 
-from fastdepth_tpu_torch.engine.aot import IMPLS, strict_f32
-from fastdepth_tpu_torch.engine.server import TUNED_NOT_PORTED
+from fastdepth_tpu_torch.engine.aot import IMPLS, check_tuning_flags, strict_f32
 from fastdepth_tpu_torch.parallel import distributed as D
 from fastdepth_tpu_torch.parallel.mesh import check_cli_mesh, mesh_from_cli
 
@@ -69,13 +68,16 @@ def parse_args(argv=None):
     p.add_argument("--half-output", action="store_true",
                    help="return float16 predictions (half the response "
                         "payload; ~1 cm quantization at 10 m)")
-    p.add_argument("--impl", default="auto", choices=[*IMPLS, "mixed"],
+    p.add_argument("--impl", default="auto", choices=IMPLS,
                    help="forward (engine/aot._pick_apply): auto = decoder levels "
                         "through K1 and the head through K4 when the architecture "
-                        "allows and BN is folded; mixed is not ported yet (ROADMAP A14)")
+                        "allows and BN is folded; mixed = each level on its tuned "
+                        "winner (--tuning)")
     p.add_argument("--tuning", default=None, metavar="JSON",
-                   help="with --impl mixed: a tuning record; not ported yet "
-                        "(ROADMAP A14)")
+                   help="with --impl mixed: tuning record (tuning/*.json) "
+                        "whose per-stage winners pick each decoder "
+                        "stage's kernel (the reference runs its AutoTVM-"
+                        "tuned artifact the same way)")
     p.add_argument("--chain", action="store_true",
                    help="single-stream latency mode: run each packed window of "
                         "up to --batch-size frames as sequential batch-1 forwards "
@@ -112,11 +114,6 @@ def parse_args(argv=None):
                    help="cuda runs the port's kernels; cpu runs their plain "
                         "PyTorch versions; on either, f32 is true f32 (TF32 off)")
     return p.parse_args(argv)
-
-
-def _refuse_unported(args) -> None:
-    if args.impl == "mixed" or args.tuning is not None:
-        raise SystemExit(TUNED_NOT_PORTED)
 
 
 def main(argv=None, *, _ready=None, _stop=None):
@@ -171,7 +168,7 @@ def main(argv=None, *, _ready=None, _stop=None):
 
     if not args.evaluate:
         raise SystemExit("--evaluate is required (or use --ping for client mode)")
-    _refuse_unported(args)
+    check_tuning_flags(args.impl, args.tuning)
     # the mesh flags' checks before any rank starts or any checkpoint loads
     check_cli_mesh(args.mesh_devices, args.mesh_spatial, image_height=args.image_size[0],
                    batch_size=args.batch_size)
@@ -222,6 +219,7 @@ def _serve(args, ready=None, stop=None):
         image_size=tuple(args.image_size),
         dtype=torch.bfloat16 if args.bf16 else torch.float32,
         impl=args.impl,
+        tuning=args.tuning,
         input_dtype=np.uint8 if args.uint8 else np.float32,
         output_dtype=np.float16 if args.half_output else np.float32,
         chain=args.chain,

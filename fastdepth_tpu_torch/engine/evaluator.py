@@ -48,6 +48,7 @@ class Evaluator:
         dtype: torch.dtype = torch.float32,
         fold_bn: bool = True,
         impl: str = "auto",
+        tuning=None,
         val_pipeline=None,
         mesh=None,
         device: Union[str, torch.device, None] = None,
@@ -55,8 +56,10 @@ class Evaluator:
         """``params``: the tree from ``Model.load``.  ``impl``: 'auto'
         runs decoder levels 1-5 through K1 and the head through K4
         whenever the architecture allows and BN is folded; 'fused', 'opt'
-        and 'xla' force the K1/K4, head-commute and straight forwards
-        (engine/aot.py, which also folds in f32 before the cast to
+        and 'xla' force the K1/K4, head-commute and straight forwards;
+        'mixed' runs each decoder level on its autotuned winner from a
+        ``tuning`` record path or winner map (engine/autotune.py) (all
+        through engine/aot.py, which also folds in f32 before the cast to
         ``dtype``).  ``device``: 'cuda' unless given; under ``mesh``
         (a ``data``, ``space`` or 2-D mesh), the mesh's device, and the
         batches are this rank's rows (``batch_size`` stays the global
@@ -84,7 +87,7 @@ class Evaluator:
         self._space = None if mesh is None else mesh.partition()
         self.params, self._apply = _prepare(model, params, batch_size=batch_size,
                                             dtype=dtype, fold_bn=fold_bn, impl=impl,
-                                            device=device, space=self._space)
+                                            device=device, space=self._space, tuning=tuning)
         # validate() keeps one batch in flight: two batches of (rgb, depth)
         self._ring = PinnedRing(self.device, slots=4)
         self._gather = None

@@ -56,8 +56,6 @@ CHAIN_DATA_REFUSED = (
     "would shard the scan axis.  Use chain with no mesh or "
     "a 'space'-only mesh (spatial partitioning cuts each "
     "frame's latency; the window is the amortization).")
-TUNED_NOT_PORTED = ("the tuned dispatch (impl='mixed', tuning=, --impl mixed, --tuning) is "
-                    "not ported yet: ROADMAP A14")
 
 
 def _resolve_future(fut: Future, value=None, exc=None) -> None:
@@ -151,10 +149,10 @@ class InferenceServer:
         its ``space`` axis, and ``chain`` takes no ``data`` axis larger
         than 1 (the JAX server's checks).  Every rank constructs the
         server; on rank 0 it serves, on the others it follows until rank
-        0 closes (a follower's :meth:`close` blocks until then).  ``tuning`` and ``impl='mixed'`` are
-        refused (ROADMAP A14)."""
-        if tuning is not None or impl == "mixed":
-            raise ValueError(TUNED_NOT_PORTED)
+        0 closes (a follower's :meth:`close` blocks until then).
+        ``impl='mixed'`` runs each decoder level on its autotuned winner
+        from ``tuning`` (a record path or a winner map, as for
+        ``Evaluator``)."""
         space = None
         if mesh is not None:
             n_data = mesh.shape.get(DATA_AXIS, 1)
@@ -190,7 +188,7 @@ class InferenceServer:
         self.params, apply = _prepare(model, params,
                                       batch_size=1 if self.chain else batch_size,
                                       dtype=dtype, fold_bn=fold_bn, impl=impl,
-                                      device=self.device, space=space)
+                                      device=self.device, space=space, tuning=tuning)
         out_dtype = torch.float16 if self.output_dtype == np.float16 else torch.float32
         uint8_in = self.input_dtype == np.uint8
 

@@ -12,11 +12,15 @@ counterpart of ``fastdepth_tpu/models/fused.py``.
 * :func:`apply_fastdepth_opt`: plain PyTorch, the 1x1 head commuted
   before the final nearest x2 (exact: the head is a per-pixel affine +
   ReLU).
+* :func:`apply_fastdepth_mixed`: each decoder level on the implementation
+  a tuning record names for it (``engine/autotune.py``): ``'pallas'`` is
+  one launch of K1, ``'xla'`` the plain cuDNN/ATen stage; the head through
+  K4.
 
-``space=`` (a ``parallel.spatial.Partition``) runs the fused and the opt
-forward height-sharded: every conv of the encoder and the decoder with
-its halo rows exchanged (``parallel/spatial.py``), each decoder level as
-one launch of K1 in its row-window mode on this rank's rows, the head
+``space=`` (a ``parallel.spatial.Partition``) runs the fused, the mixed
+and the opt forward height-sharded: every conv of the encoder and the
+decoder with its halo rows exchanged (``parallel/spatial.py``), each K1
+level as one launch in its row-window mode on this rank's rows, the head
 through K4 on the local rows.
 
 All need BN-folded params (``Model.fold``); the fused forwards also read
@@ -110,6 +114,33 @@ def _fused_forward(params, x, cfg, stage, space=None):
     return B.to_nhwc(pointwise_head(y, head.k4_w, head["pw"].b))
 
 
+def _k1_stage(i, y, p, skip, level):
+    """One decoder level as one launch of K1 (its plain version for a CPU
+    tensor); under ``level`` on this rank's tile and row window
+    (``parallel.spatial.k1_window``)."""
+    window = None
+    if level is not None:
+        y, window = S.k1_window(y, level)
+    return fused_decoder_stage(y, p.k1_dw, p["dw"].b, p.k1_pw, p["pw"].b, skip=skip,
+                               window=window)
+
+
+def _plain_stage(i, y, p, skip, level):
+    """One decoder level as plain PyTorch ops (cuDNN/ATen on the card),
+    as :func:`apply_fastdepth_opt`'s loop runs it: dw5x5 -> ReLU -> pw1x1
+    -> ReLU -> nearest x2 (+ skip); under ``level`` height-sharded."""
+    if level is None:
+        y = B.relu(B.depthwise_conv2d(y, p["dw"].w, bias=p["dw"].b))
+        y = B.relu(B.conv2d(y, p["pw"].w, bias=p["pw"].b))
+    else:
+        y = B.relu(S.conv2d(y, p["dw"].w, p["dw"].b, level=level, groups=y.shape[1]))
+        y = B.relu(S.conv2d(y, p["pw"].w, p["pw"].b, level=level))
+    # channels_last for K1 and K4 downstream: a no-op except where a
+    # 1x1 level's upsample comes back in the default layout
+    y = S.upsample(y, level)[0].contiguous(memory_format=torch.channels_last)
+    return y if skip is None else y + skip
+
+
 def apply_fastdepth_fused(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig, *,
                           space: Optional[S.Partition] = None) -> torch.Tensor:
     """NHWC forward with decoder levels 1-5 through K1 and the head
@@ -117,15 +148,31 @@ def apply_fastdepth_fused(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConf
     from ``Model.fold``.  ``space``: height-sharded (module docstring);
     each level's K1 takes this rank's tile and row window
     (``parallel.spatial.k1_window``)."""
+    return _fused_forward(params, x, cfg, _k1_stage, space)
 
-    def stage(i, y, p, skip, level):
-        window = None
-        if level is not None:
-            y, window = S.k1_window(y, level)
-        return fused_decoder_stage(y, p.k1_dw, p["dw"].b, p.k1_pw, p["pw"].b, skip=skip,
-                                   window=window)
 
-    return _fused_forward(params, x, cfg, stage, space)
+MIXED_STAGES = {"pallas": _k1_stage, "xla": _plain_stage}
+
+
+def apply_fastdepth_mixed(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig,
+                          winners: Dict[int, str], *,
+                          space: Optional[S.Partition] = None) -> torch.Tensor:
+    """Per-level implementation from a tuning record's winner map
+    ``{level: 'xla' | 'pallas'}`` (``engine/autotune.load_tuning``), the
+    counterpart of the JAX package's ``apply_fastdepth_mixed``: a
+    ``'pallas'`` level is one launch of K1, an ``'xla'`` level the plain
+    cuDNN/ATen stage, a level the map does not name ``'xla'``; the head
+    through K4.  Every stage takes and returns channels_last NCHW, so no
+    level pays a layout change.  Params must come from ``Model.fold``.
+    ``space``: height-sharded (module docstring).  The JAX forward's
+    per-level block batches and ``lax.map`` slices worked around TPU
+    compile limits and have no counterpart here."""
+    bad = {i: w for i, w in winners.items() if w not in MIXED_STAGES}
+    if bad:
+        raise ValueError(f"winner map names unknown implementations {bad}; "
+                         f"known: {sorted(MIXED_STAGES)}")
+    return _fused_forward(params, x, cfg, lambda i, y, p, skip, level: MIXED_STAGES[
+        winners.get(i, "xla")](i, y, p, skip, level), space)
 
 
 def apply_fastdepth_fused_v2(params: nn.ModuleDict, x: torch.Tensor,

@@ -9,11 +9,30 @@ from typing import Optional
 import numpy as np
 
 
+def viridis(x: np.ndarray) -> np.ndarray:
+    """``matplotlib.pyplot.cm.viridis(x)[..., :3]`` for a float array,
+    without matplotlib: the same 256-entry table (``viridis.py``) and
+    matplotlib's index rule — ``x * 256`` in ``x``'s own dtype, 1.0 on
+    the last entry, truncated; below 0 the first entry, 1 and above the
+    last, NaN black."""
+    from fastdepth_tpu_torch.viridis import VIRIDIS_DATA
+
+    n = len(VIRIDIS_DATA)
+    xa = np.array(x, copy=True)
+    xa *= n
+    xa[xa == n] = n - 1
+    under, over, bad = xa < 0, xa >= n, np.isnan(xa)
+    with np.errstate(invalid="ignore"):
+        idx = xa.astype(int)
+    idx[under], idx[over] = 0, n - 1
+    out = np.asarray(VIRIDIS_DATA, dtype=float)[np.clip(idx, 0, n - 1)]
+    out[bad] = 0.0
+    return out
+
+
 def colored_depthmap(depth: np.ndarray, d_min: Optional[float] = None,
                      d_max: Optional[float] = None) -> np.ndarray:
     """Depth (H, W) -> viridis RGB float in [0, 255] (utils.py:37-43)."""
-    import matplotlib.pyplot as plt
-
     if d_min is None:
         d_min = float(np.min(depth))
     if d_max is None:
@@ -21,7 +40,7 @@ def colored_depthmap(depth: np.ndarray, d_min: Optional[float] = None,
     span = d_max - d_min
     # constant map (untrained model, zero pred): 0/0 would paint NaNs
     rel = (depth - d_min) / span if span > 0 else np.zeros_like(depth)
-    return 255 * plt.cm.viridis(rel)[:, :, :3]
+    return 255 * viridis(rel)
 
 
 def merge_into_row(rgb: np.ndarray, depth_target: np.ndarray,

@@ -72,8 +72,13 @@ def test_deploy_cli_refusals(tiny_ckpt, rgb_npy, tmp_path):  # noqa: F811
     with pytest.raises(SystemExit, match="no model found"):
         deploy.main(["--model", str(tmp_path / "absent.npz"), "--input-fp", rgb_npy,
                      "--device", "cpu"])
-    with pytest.raises(SystemExit):  # not ported: bundles and the tuned impl
-        deploy.main(["--model", tiny_ckpt, "--input-fp", rgb_npy, "--impl", "mixed"])
+    for flags in (["--model", tiny_ckpt, "--save-bundle", str(tmp_path / "b")],
+                  ["--load-bundle", str(tmp_path / "b")]):  # not ported: bundles
+        with pytest.raises(SystemExit, match="ROADMAP A19"):
+            deploy.main(flags + ["--input-fp", rgb_npy, "--device", "cpu"])
+    with pytest.raises(SystemExit, match="needs a tuning record"):  # mixed needs --tuning
+        deploy.main(["--model", tiny_ckpt, "--input-fp", rgb_npy, "--impl", "mixed",
+                     "--device", "cpu"])
     if torch.cuda.is_available():
         return
     with pytest.raises(SystemExit, match="no CUDA device"):

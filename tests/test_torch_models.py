@@ -216,13 +216,13 @@ def test_pick_apply_dispatch(tiny, monkeypatch):
     model, p = _port(cfg, params)
     folded = model.fold(p)
     calls = []
-    for name in ("apply_fastdepth_fused", "apply_fastdepth_opt"):
+    for name in ("apply_fastdepth_fused", "apply_fastdepth_opt", "apply_fastdepth_mixed"):
         monkeypatch.setattr(F, name, lambda *a, name=name: calls.append(name))
     x = torch.zeros(2, 32, 32, 3)
 
-    def picks(m, params, impl, batch):
+    def picks(m, params, impl, batch, tuning=None):
         calls.clear()
-        fn = _pick_apply(m, params, impl, batch)
+        fn = _pick_apply(m, params, impl, batch, tuning=tuning)
         if fn == m.apply:
             return "xla"
         fn(params, x)
@@ -237,8 +237,11 @@ def test_pick_apply_dispatch(tiny, monkeypatch):
     for impl in ("fused", "opt"):
         with pytest.raises(ValueError, match="folded"):
             _pick_apply(model, p, impl, 2)
-    with pytest.raises(ValueError, match="impl"):
-        _pick_apply(model, folded, "mixed", 2)
+    # the tuned dispatch: mixed with a winner map; refused without one
+    assert picks(model, folded, "mixed", 8, {1: "pallas"}) == "apply_fastdepth_mixed"
+    for impl in ("mixed", "bogus"):
+        with pytest.raises(ValueError, match="impl"):
+            _pick_apply(model, folded, impl, 2)
     # skip=concat is outside K1's stage shape: auto follows the JAX rule
     ccfg, _, _, cfolded = tiny["concat"]
     cmodel, cp = _port(ccfg, cfolded)

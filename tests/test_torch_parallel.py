@@ -450,8 +450,8 @@ def test_trainer_refuses_a_space_mesh():
 
 @pytest.mark.parametrize("flags, message", [
     (["--mesh-spatial", "3"], "--mesh-spatial 3 must divide the 224-row image height"),
-    (["--impl", "mixed"], "ROADMAP A14"),
-    (["--tuning", "tuning/h100.json"], "ROADMAP A14"),
+    (["--impl", "mixed"], "needs a tuning record"),
+    (["--tuning", "tuning/h100.json"], "applies to impl='mixed' only"),
     (["--mesh-devices", "3"], "--batch-size 8 must divide by --mesh-devices 3"),
 ])
 def test_evaluate_cli_refusals(flags, message, tmp_path):

@@ -352,8 +352,8 @@ def test_serve_cli_daemon_launch_spatial_mesh(ckpt, tiny, rng, tmp_path):
 @pytest.mark.parametrize("flags, item", [
     (["--mesh-devices", "3"], "--batch-size 32 must divide by --mesh-devices 3"),
     (["--mesh-spatial", "5"], "--mesh-spatial 5 must divide the 224-row image height"),
-    (["--impl", "mixed"], "A14"),
-    (["--tuning", "tuning/h100.json"], "A14"),
+    (["--impl", "mixed"], "needs a tuning record"),
+    (["--impl", "mixed", "--tuning", "tuning/h100.json"], "no tuning record at"),
 ])
 def test_serve_cli_refuses_unported_flags(flags, item, ckpt, tmp_path):
     with pytest.raises(SystemExit, match=item):
@@ -490,10 +490,35 @@ def test_server_mesh_is_refused(kw, message, tiny):
         _server(tiny, **kw)
 
 
+# the tuned dispatch's winner map: K1's plain version on levels 1, 3 and 5
+MIXED = {1: "pallas", 2: "xla", 3: "pallas", 4: "xla", 5: "pallas"}
+
+
 @pytest.mark.parametrize("kw", [{"impl": "mixed"}, {"tuning": "tuning/h100.json"}])
-def test_server_tuned_dispatch_is_refused(kw, tiny):
-    with pytest.raises(ValueError, match="A14"):
+def test_server_tuned_dispatch_is_refused(kw, rng, tiny, jax_tree, tmp_path):
+    """Half of the tuned dispatch's pair is refused: impl='mixed' without
+    a record, a record without impl='mixed'.  The whole pair serves the
+    JAX server's answers for the same winners, numpy tree and frames
+    (1e-5): from a record file after the first half, from a winner map
+    after the second."""
+    with pytest.raises(ValueError, match="needs a tuning record" if "impl" in kw
+                       else "applies to impl='mixed' only"):
         _server(tiny, batch_size=2, **kw)
+    tuning = MIXED
+    if "impl" in kw:
+        tuning = str(tmp_path / "rec.json")
+        with open(tuning, "w") as f:
+            json.dump({"config": {}, "device": "x", "records": [
+                {"stage": s, "dtype": d, "winner": w} for s, w in MIXED.items()
+                for d in ("float32", "bfloat16")]}, f)
+    frames = _frames(rng, 3)
+    with JS.InferenceServer(jax_build(to_jax(CFG)), jax_tree, batch_size=2,
+                            image_size=(HW, HW), impl="mixed", tuning=tuning) as js:
+        want = np.stack([f.result(timeout=RESULT_S) for f in [js.submit(x) for x in frames]])
+    with _server(tiny, batch_size=2, impl="mixed", tuning=tuning) as srv:
+        got = np.stack([f.result(timeout=RESULT_S) for f in [srv.submit(x) for x in frames]])
+    assert got.shape == want.shape == (3, HW, HW, 1) and got.std() > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
 def test_server_latency_distribution(rng, tiny):

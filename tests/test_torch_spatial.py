@@ -271,7 +271,7 @@ def jax_space_forwards(jobs):
 
 
 @pytest.mark.parametrize("world", [2, 4])
-@pytest.mark.parametrize("impl", ["fused", "opt", "xla"])
+@pytest.mark.parametrize("impl", ["fused", "mixed", "opt", "xla"])
 def test_sharded_forward_matches_jax_on_a_space_mesh(ranks, jax_space_forwards, world, impl):
     got = ranks[world]["forwards"][("skipadd", impl, str(torch.float32))]
     np.testing.assert_allclose(got, jax_space_forwards[world], rtol=0, atol=JAX_ATOL)

@@ -117,25 +117,35 @@ def _plain_kernels(on: bool):
         F.fused_decoder_stage, F.pointwise_head = saved
 
 
+# the mixed forward's winner map: K1 and the plain stage in turns, so
+# that each hands the other sharded and replicated levels
+MIXED = {1: "pallas", 2: "xla", 3: "pallas", 4: "xla", 5: "pallas"}
+
+
 def forward(name: str, impl: str, dtype, x, space=None):
-    """One forward of a tiny model (``impl`` 'fused', 'opt' or 'xla'):
-    folded params for the first two, the unfolded tree straight; the
-    fused forward in f64 through the kernels' plain versions."""
+    """One forward of a tiny model (``impl`` 'fused', 'mixed' (winners
+    :data:`MIXED`), 'opt' or 'xla'): folded params for the first three,
+    the unfolded tree straight; the fused and mixed forwards in f64
+    through the kernels' plain versions."""
     model, params = MODELS[name], init(name, dtype)
-    with torch.inference_mode(), _plain_kernels(impl == "fused" and dtype == torch.float64):
+    with torch.inference_mode(), _plain_kernels(impl in ("fused", "mixed")
+                                                and dtype == torch.float64):
         x = torch.as_tensor(x).to(dtype)
         if impl == "xla":
             return model.apply(params, x, space=space)
+        if impl == "mixed":
+            return F.apply_fastdepth_mixed(model.fold(params), x, model.config, MIXED,
+                                           space=space)
         fn = F.apply_fastdepth_fused if impl == "fused" else F.apply_fastdepth_opt
         return fn(model.fold(params), x, model.config, space=space)
 
 
-# what the forward checks run: (model, impl, dtype); the fused forward in
-# f64 runs the kernels' plain versions, in f32 their wrappers
+# what the forward checks run: (model, impl, dtype); the fused and mixed
+# forwards in f64 run the kernels' plain versions, in f32 their wrappers
 FORWARDS = [("skipadd", "xla", torch.float64), ("skipadd", "opt", torch.float64),
-            ("skipadd", "fused", torch.float64),
+            ("skipadd", "fused", torch.float64), ("skipadd", "mixed", torch.float64),
             ("skipadd", "fused", torch.float32), ("skipadd", "xla", torch.float32),
-            ("skipadd", "opt", torch.float32),
+            ("skipadd", "opt", torch.float32), ("skipadd", "mixed", torch.float32),
             ("nnconv5dw", "xla", torch.float64), ("nnconv5dw", "opt", torch.float64),
             ("nnconv5", "xla", torch.float64), ("nnconv5", "opt", torch.float64)]
 
