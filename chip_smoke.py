@@ -53,7 +53,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    binds, for the hand-mixed and all-plain maps); cli.deploy --impl mixed --tuning
    b1 f32 in a fresh process; a mixed InferenceServer b8 against the
    mixed Evaluator's forward;
-9. zoo: the rest of the model zoo at 224x224 with seeded random weights
+9. bundle: the deploy bundle (engine/aot.save_bundle / load_bundle:
+   torch.export with K1 and K4 as the custom ops fastdepth::
+   fused_decoder_stage and fastdepth::pointwise_head) at 224x224 b1:
+   cli.deploy --model --save-bundle on the trained flagship in f32, bf16
+   and --impl mixed with the committed tuning/h100 record, then the three
+   bundles through cli.deploy --load-bundle in one fresh process (K1
+   launched once a K1 level and K4 once a call in that process, TF32 off
+   after the f32 load, each loaded prediction against the saving run's:
+   f32 within 1e-5, bf16 within 2^-7 * max|pred|); the hand-mixed map's
+   bundle and resnet50-upproj's (full width, random weights: no K1 or
+   K4) against compile_forward; the export and load seconds, deploy b1
+   medians from the bundle and from the checkpoint in turns, the host
+   cost of a call through each op against its implementation called
+   directly, and torch.library.opcheck of both ops on CUDA tensors;
+10. zoo: the rest of the model zoo at 224x224 with seeded random weights
    (Model.init's convs, drawn BatchNorm statistics, a non-negative last
    conv; no trained zoo weights exist): resnet50-upproj at full
    width through validate() b8 f32 and bf16, cli.deploy.main b1 f32,
@@ -71,14 +85,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    a tiny MobileNet encoder and ResNet-18/34 (skip add, concat), -50
    (bottleneck_skips add, concat), -101 and -152, one b2 f32 forward each
    through compile_forward on the card against the CPU, same bound;
-10. train path: the committed weights fine-tuned at 224x224 through the
+11. train path: the committed weights fine-tuned at 224x224 through the
    port's train item path (seeded raw frames, the real augmentations):
    one f32 step on the card against the CPU (with an f64 CPU step as the
    momentum's reference), the loss falling over 10 steps, a checkpoint
    round trip, remat and accumulation, cli.train's epoch loop in f32 and
    bf16 with K1's and K4's launches in its validation, and the step time
    at b8 and b128 in f32 and bf16 with the peak memory;
-11. input: the input pipeline's on-card half on the committed weights
+12. input: the input pipeline's on-card half on the committed weights
    over seeded raw frames: device augmentation (data/device_aug.py) bit
    for bit against the host's train items and its own CPU run, the
    device-augment train step bit for bit against the host-item step,
@@ -89,7 +103,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    device augmentation) and eval_run (b8 f32, host against device
    preprocessing), the b128 copy and augmentation against its bound, and
    engine/benchmark.throughput_sweep;
-12. mesh: data parallelism (parallel/) at world size 1 over NCCL, every
+13. mesh: data parallelism (parallel/) at world size 1 over NCCL, every
    collective issued: the train step with the mesh against the step
    without (b8 f32 and accum_steps 2 within the train phase's bounds, b8
    bf16 loss within rtol 3e-3), Evaluator(mesh) against Evaluator(mesh=
@@ -99,7 +113,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    cli.train / cli.evaluate --mesh-devices 1 against their runs without a
    mesh, --mesh-devices 2 refused up front, and two gloo ranks on the
    CPU (parallel/dryrun.py);
-13. space: the space mesh axis and serving over a mesh (parallel/
+14. space: the space mesh axis and serving over a mesh (parallel/
    spatial.py): K1's row-window mode against its plain version at every
    (tile, window) that S = 2, 4, 8 give at 224x224 on the pruned
    flagship's five levels (b8, f32 and bf16), the whole-image window bit
@@ -113,7 +127,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    frames/s of both); the space dryrun over gloo ranks on the CPU
    (parallel/dryrun.py --space: two ranks at S = 2 on the trained
    flagship at 224x224 b1, four on a 2 x 2 mesh through the Evaluator);
-14. probes: every tag of the probe catalogue (engine/probes.py, the
+15. probes: every tag of the probe catalogue (engine/probes.py, the
    scripts' Pallas probes) runs its kernel (K5, K6, or K3) once, with
    K5's and K6's launches counted on that run; then the launch floor
    (the least a call costs in the same timer), each kernel against its
@@ -122,7 +136,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    to it (with the CUDA kernels K6's taps and up_only yardsticks run
    as); K5's copy sweep (dma_copy) and K6's scale rows (compute_sweep),
    each checked against its plain version;
-15. tools: engine/calibrate (reduced call count) measures the card's
+16. tools: engine/calibrate (reduced call count) measures the card's
    ceilings, and cli.profile --mode prefix --batch 128 profiles the
    pruned flagship on them; the summed roofline bounds must not exceed
    the measured full forward; cli.fidelity's f32 against bf16 rows on
@@ -130,7 +144,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    reduced sweep (the flagship with its 'mixed' row from the committed
    tuning/h100.* record, and mobilenet-nnconv5; b1, b32; both dtypes),
    and cli.visualize's PNGs;
-16. prints each phase's seconds, the kernels' JSON line, then the
+17. prints each phase's seconds, the kernels' JSON line, then the
    result line.
 
 Nothing here, and nothing of the port it drives, imports JAX or the JAX
@@ -939,6 +953,264 @@ def tuned_phase(model, params, card: dict) -> dict:
         out["serve_mixed"] = {"launches": k1, "k4_launches": k4, "batches": batches,
                               "max_abs_err_vs_evaluator": err}
     print(f"tuned phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# --- the deploy bundle (engine/aot.save_bundle / load_bundle) --------------
+
+BUNDLE_TURNS = 3  # deploy b1 from the bundle against from the checkpoint, in turns
+BUNDLE_RECORD = os.path.join(REPO, "tuning", f"h100.{FLAGSHIP}.json")
+BUNDLE_LOAD_CALLS = 1 + 2 + 5  # the saved prediction, --warmup 2, --run 5
+
+
+def _bundle_loads_in_a_fresh_process(runs, in_fp: str) -> dict:
+    """``cli.deploy --load-bundle`` for each ``(name, prefix, out_fp)`` of
+    ``runs``, one after the other in ONE fresh process, whose TF32 flags
+    start at PyTorch's defaults: the first (f32) run's flags before and
+    after, and K1's and K4's launches of each run counted in that
+    process.  Returns {name: {...}}."""
+    code = ("import json, torch\n"
+            "def flags():\n"
+            "    return [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]\n"
+            "from fastdepth_tpu_torch.cli import deploy\n"
+            "from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1, head as K4\n"
+            "out = {}\n"
+            f"for name, prefix, out_fp in {[tuple(r) for r in runs]!r}:\n"
+            "    K1.LAUNCHES = K4.LAUNCHES = 0\n"
+            "    before = flags()\n"
+            "    deploy.main(['--load-bundle', prefix, '--input-fp', " + repr(in_fp) + ",\n"
+            "                 '--output-fp', out_fp, '--warmup', '2', '--run', '5',\n"
+            "                 '--device', 'cuda'])\n"
+            "    torch.cuda.synchronize()\n"
+            "    out[name] = {'tf32_before': before, 'tf32_after': flags(),\n"
+            "                 'launches': [K1.LAUNCHES, K4.LAUNCHES]}\n"
+            "print('BUNDLES ' + json.dumps(out))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode != 0:
+        fail(f"bundle loads in a fresh process exited {r.returncode}: {r.stderr[-2000:]}")
+    for line in r.stdout.splitlines():
+        if not line.startswith("BUNDLES "):
+            print(f"bundle fresh process: {line}")
+    return json.loads(r.stdout.rsplit("BUNDLES ", 1)[1])
+
+
+def _bundle_opchecks() -> dict:
+    """torch.library.opcheck of both custom ops on CUDA tensors at the
+    flagship's b1 shapes: K1 at level 1 (no skip), level 2 (skip) and
+    level 4 as rank 1 of a space axis of 2 (a row window), K4 on the
+    224^2 head.  Each case first calls the op once: its kernel must
+    launch once."""
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+
+    cases = {}
+    for name, (h, c, cout, skip, window) in {
+            "K1 level 1": (7, 512, 200, False, None), "K1 level 2 +skip": (14, 200, 256, True, None),
+            "K1 level 4 window": (56, 120, 56, True, (26, 56, 56, 112))}.items():
+        x, w, sk = _k1_level_operands(1, h, c, cout, skip, torch.float32, seed=14)
+        if window is not None:
+            r0, _, o0, o1 = window
+            x = x[:, :, r0:].contiguous(memory_format=torch.channels_last)
+            sk = sk[:, :, o0:o1].contiguous(memory_format=torch.channels_last)
+        cases[name] = (K1, K1.STAGE_OP, (x, *w, sk, None if window is None else list(window)))
+    y = torch.rand(1, 16, *OUTPUT_HW, device="cuda").contiguous(memory_format=torch.channels_last)
+    cases["K4 head"] = (K4, K4.HEAD_OP, (y, torch.randn(16, device="cuda"),
+                                         torch.randn(1, device="cuda")))
+    out = {}
+    for name, (mod, op, args) in cases.items():
+        before = mod.LAUNCHES
+        op(*args)
+        torch.cuda.synchronize()
+        if mod.LAUNCHES != before + 1:
+            fail(f"bundle opcheck {name}: the op launched its kernel {mod.LAUNCHES - before} "
+                 "times, want 1")
+        try:
+            result = torch.library.opcheck(op, args)
+        except Exception as e:  # opcheck raises OpCheckError (or the op's own error)
+            fail(f"bundle opcheck {name} on CUDA tensors: {type(e).__name__}: {e}")
+        out[name] = result
+        print(f"bundle opcheck {name} (CUDA tensors): {json.dumps(result)}")
+    return out
+
+
+DISPATCH_CALLS = 200  # calls a turn when timing the custom ops' dispatch
+
+
+def _dispatch_cost(deploy_ms: float, card: dict) -> dict:
+    """What the custom-op dispatcher costs the host: microseconds a call
+    of K1 (level 1, b1 f32) and of K4 (the 224^2 head) through its op
+    against its implementation called directly (what an eager call of
+    the wrapper runs), in turns op, direct, direct, op of DISPATCH_CALLS
+    calls each (host clock; the card keeps up with these launches).  A
+    forward makes five K1 calls and one K4 call: their extra time against
+    ``deploy_ms``, the deploy b1 median."""
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+
+    x, w, _ = _k1_level_operands(1, 7, 512, 200, False, torch.float32, seed=15)
+    y = torch.rand(1, 16, *OUTPUT_HW, device="cuda").contiguous(memory_format=torch.channels_last)
+    hw, hb = torch.randn(16, device="cuda"), torch.randn(1, device="cuda")
+    cases = {"K1": (K1.STAGE_OP, K1._stage_cuda, (x, *w, None, None)),
+             "K4": (K4.HEAD_OP, K4._head_cuda, (y, hw, hb))}
+    out = {}
+    for name, (op, direct, args) in cases.items():
+        us = {"op": [], "direct": []}
+        for label in ("op", "direct", "direct", "op"):
+            fn = op if label == "op" else direct
+            fn(*args)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(DISPATCH_CALLS):
+                fn(*args)
+            us[label].append((time.perf_counter() - t) / DISPATCH_CALLS * 1e6)
+            torch.cuda.synchronize()
+        out[name] = us
+    extra = sum(n * (float(np.mean(out[k]["op"])) - float(np.mean(out[k]["direct"])))
+                for k, n in (("K1", STAGES_PER_FORWARD), ("K4", 1)))
+    out["forward_extra_us"] = extra
+    out["share_of_deploy_b1"] = extra / (deploy_ms * 1e3)
+    print(f"bundle dispatch cost on {card['nvidia_smi']}: host us a call, op against direct "
+          f"in turns: {json.dumps({k: out[k] for k in ('K1', 'K4')})}; a forward's five K1 "
+          f"and one K4 calls through the ops: +{extra:.1f} us, "
+          f"{100 * out['share_of_deploy_b1']:.1f}% of the deploy b1 median {deploy_ms:.4f} ms")
+    return out
+
+
+def bundle_phase(model, params, card: dict) -> dict:
+    """The deploy bundle on the card at 224x224, b1.  The committed
+    trained flagship: cli.deploy --model --save-bundle in f32, --bf16 and
+    --impl mixed --tuning (the committed tuning/h100 record), then the
+    three bundles through cli.deploy --load-bundle in one fresh process
+    (:func:`_bundle_loads_in_a_fresh_process`): K1 launched once a K1
+    level and K4 once a call, TF32 off after the f32 load, the loaded
+    prediction against the saving run's (f32 and mixed within 1e-5, bf16
+    within 2^-7 * max|pred|).  Through the API: the hand-mixed map's
+    bundle (3 K1 a call) and resnet50-upproj at full width with random
+    weights (no K1 or K4; within 1e-5 * max(1, max|pred|) of
+    compile_forward); the f32 flagship's export and load seconds, its
+    output against compile_forward's, and deploy b1 medians from the
+    bundle and from the checkpoint in turns; the ops' dispatch cost
+    (:func:`_dispatch_cost`); then opcheck of both ops on CUDA tensors
+    (:func:`_bundle_opchecks`)."""
+    from fastdepth_tpu_torch.cli import deploy
+    from fastdepth_tpu_torch.engine.aot import compile_forward, load_bundle, save_bundle
+    from fastdepth_tpu_torch.engine.autotune import load_tuning
+    from fastdepth_tpu_torch.engine.benchmark import time_fn
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+
+    t_phase = time.perf_counter()
+    rgb = np.random.RandomState(14).rand(*OUTPUT_HW, 3).astype(np.float32)
+    n32 = sum(w == "pallas" for w in load_tuning(BUNDLE_RECORD, torch.float32).values())
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        in_fp = os.path.join(tmp, "rgb.npy")
+        np.save(in_fp, rgb)
+        cli_runs = [("f32", [], STAGES_PER_FORWARD), ("bf16", ["--bf16"], STAGES_PER_FORWARD),
+                    ("mixed f32", ["--impl", "mixed", "--tuning", BUNDLE_RECORD], n32)]
+        saved, loads = {}, []
+        for name, extra, _ in cli_runs:
+            tag = name.replace(" ", "_")
+            prefix = os.path.join(tmp, tag)
+            saved[name] = os.path.join(tmp, f"saved_{tag}.npy")
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                deploy.main(["--model", WEIGHTS, "--input-fp", in_fp, "--output-fp",
+                             saved[name], "--warmup", "0", "--run", "1", "--device", "cuda",
+                             "--save-bundle", prefix] + extra)
+            if f"=> saved bundle {prefix}.pt2 + .npz" not in log.getvalue():
+                fail(f"bundle {name}: cli.deploy --save-bundle printed {log.getvalue()!r}")
+            loads.append((name, prefix, os.path.join(tmp, f"loaded_{tag}.npy")))
+        fresh = _bundle_loads_in_a_fresh_process(loads, in_fp)
+        for (name, _, per_call), (_, _, loaded_fp) in zip(cli_runs, loads):
+            row = fresh[name]
+            want_pred, got_pred = np.load(saved[name]), np.load(loaded_fp)
+            err = float(np.abs(got_pred - want_pred).max())
+            bound = (2.0 ** -7 * float(np.abs(want_pred).max()) if name == "bf16" else 1e-5)
+            row.update(calls=BUNDLE_LOAD_CALLS, max_abs_err_vs_checkpoint=err, bound=bound)
+            print(f"bundle {name} b{DEPLOY_BATCH} {OUTPUT_HW[0]}^2 on {card['nvidia_smi']}: "
+                  f"--load-bundle in a fresh process: TF32 flags {row['tf32_before']} before, "
+                  f"{row['tf32_after']} after; K1 {row['launches'][0]}, K4 {row['launches'][1]} "
+                  f"launches over {BUNDLE_LOAD_CALLS} calls; loaded prediction vs the "
+                  f"checkpoint run's max|diff| {err:.3e} (bound {bound:.3e})")
+            if row["launches"] != [per_call * BUNDLE_LOAD_CALLS, BUNDLE_LOAD_CALLS]:
+                fail(f"bundle {name}: K1 {row['launches'][0]} and K4 {row['launches'][1]} "
+                     f"launches over {BUNDLE_LOAD_CALLS} calls, want {per_call} and 1 a call")
+            if name != "bf16" and row["tf32_after"] != [False, False]:
+                fail(f"bundle {name}: the f32 load left TF32 on: {row['tf32_after']}")
+            if got_pred.shape != (1, 1, *OUTPUT_HW) or not err <= bound:
+                fail(f"bundle {name}: loaded prediction {got_pred.shape} max|diff| {err} "
+                     f"> {bound}")
+            out[name] = row
+
+        x = torch.from_numpy(rgb[None]).cuda()
+
+        # the hand-mixed map through the API: 3 K1 levels a call
+        hand = MIXED_MAPS["hand"]
+        prefix = os.path.join(tmp, "hand")
+        save_bundle(prefix, model, params, impl="mixed", tuning=hand, device="cuda")
+        call, lp, _, _ = load_bundle(prefix, device="cuda")
+        fn, p = compile_forward(model, params, impl="mixed", tuning=hand, device="cuda")
+        _reset(K1, K4)
+        got = call(lp, x)
+        torch.cuda.synchronize()
+        k1, k4 = _counts(K1, K4)
+        err = float((got - fn(p, x)).abs().max())
+        n_hand = sum(w == "pallas" for w in hand.values())
+        print(f"bundle mixed hand f32: K1 {k1}, K4 {k4} launches a call (want {n_hand} and 1); "
+              f"vs compile_forward max|diff| {err:.3e} (bound 1e-5)")
+        if (k1, k4) != (n_hand, 1) or not err <= 1e-5:
+            fail(f"bundle mixed hand: K1 {k1}, K4 {k4}, max|diff| {err}")
+        out["mixed hand f32"] = {"winners": hand, "launches": [k1, k4], "max_abs_err": err}
+
+        # resnet50-upproj at full width, random weights: the straight path
+        zmodel, zparams = _zoo_model("resnet50-upproj")
+        prefix = os.path.join(tmp, "resnet50")
+        save_bundle(prefix, zmodel, zparams, device="cuda")
+        call, lp, _, _ = load_bundle(prefix, device="cuda")
+        fn, p = compile_forward(zmodel, zparams, device="cuda")
+        _reset(K1, K4)
+        got = call(lp, x)
+        torch.cuda.synchronize()
+        k1, k4 = _counts(K1, K4)
+        want = fn(p, x)
+        err = float((got - want).abs().max())
+        bound = 1e-5 * max(1.0, float(want.abs().max()))
+        print(f"bundle resnet50-upproj f32: K1 {k1}, K4 {k4} launches a call (want 0 and 0); "
+              f"vs compile_forward max|diff| {err:.3e} (bound {bound:.3e}), max|pred| "
+              f"{float(want.abs().max()):.3e}")
+        if (k1, k4) != (0, 0) or not err <= bound:
+            fail(f"bundle resnet50-upproj: K1 {k1}, K4 {k4}, max|diff| {err} > {bound}")
+        out["resnet50-upproj f32"] = {"launches": [k1, k4], "max_abs_err": err, "bound": bound}
+        del zparams, lp, p, call, fn
+
+        # the f32 flagship: export and load seconds, then b1 in turns
+        prefix = os.path.join(tmp, "api_f32")
+        t = time.perf_counter()
+        save_bundle(prefix, model, params, device="cuda")
+        export_s = time.perf_counter() - t
+        t = time.perf_counter()
+        call, lp, _, _ = load_bundle(prefix, device="cuda")
+        load_s = time.perf_counter() - t
+        fn, p = compile_forward(model, params, device="cuda")
+        err = float((call(lp, x) - fn(p, x)).abs().max())
+        if not err <= 1e-5:
+            fail(f"bundle f32 (API) vs compile_forward max|diff| {err} > 1e-5")
+        turns = {"checkpoint": [], "bundle": []}
+        for name in ["checkpoint", "bundle", "bundle", "checkpoint"] * 2:
+            if len(turns[name]) < BUNDLE_TURNS:
+                f, a = (fn, (p, x)) if name == "checkpoint" else (call, (lp, x))
+                turns[name].append(time_fn(f, a, warmup=DEPLOY_WARMUP, repeats=DEPLOY_RUN * 2,
+                                           device="cuda")["median_s"] * 1e3)
+        out["times"] = {"export_s": export_s, "load_s": load_s, "max_abs_err": err,
+                        "deploy_b1_median_ms": turns}
+        print(f"bundle f32 b{DEPLOY_BATCH} on {card['nvidia_smi']}: export {export_s:.2f} s, "
+              f"load {load_s:.2f} s; vs compile_forward max|diff| {err:.3e}; deploy b1 median "
+              f"ms in turns (checkpoint, bundle, bundle, checkpoint, ...): {json.dumps(turns)}")
+        out["dispatch"] = _dispatch_cost(float(np.median(turns["checkpoint"])), card)
+        out["opcheck"] = _bundle_opchecks()
+    print(f"bundle phase: {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -3019,6 +3291,7 @@ def main() -> None:
     dep = timed(deploy_phase, model, params)
     srv = timed(serve_phase, model, params, card)
     tuned = timed(tuned_phase, model, params, card)
+    bundle = timed(bundle_phase, model, params, card)
     timed(zoo_phase, card)
     timed(train_phase, model, params)
     timed(input_phase, model, params, card)
@@ -3038,13 +3311,16 @@ def main() -> None:
     # summed over library_tags, beside ms_over_library_tags, the kernel's
     # own time over the same tags); serve_launches: K1's and K4's counts
     # over the f32 server's counted run (serve phase); mixed_launches: over
-    # the hand-mixed map's f32 validate() (tuned phase: 3 'pallas' levels)
+    # the hand-mixed map's f32 validate() (tuned phase: 3 'pallas' levels);
+    # bundle_launches: over the f32 bundle's cli.deploy --load-bundle run in
+    # a fresh process (bundle phase: BUNDLE_LOAD_CALLS calls)
     launches = {"K1": e2e["f32"]["launches"], "K2": fwd["f32"]["v2"]["launches"],
                 "K3": fwd["f32"]["v3"]["launches"], "K4": dep["f32"]["k4_launches"],
                 "K5": kernels["K5"]["launches"], "K6": kernels["K6"]["launches"]}
     serve_launches = {"K1": srv["f32"]["launches"], "K4": srv["f32"]["k4_launches"]}
     mixed_launches = {"K1": tuned["mixed hand f32"]["launches"],
                       "K4": tuned["mixed hand f32"]["k4_launches"]}
+    bundle_launches = dict(zip(("K1", "K4"), bundle["f32"]["launches"]))
     print(f"chip_smoke: seconds by phase {json.dumps(phase_s)}")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
@@ -3059,6 +3335,7 @@ def main() -> None:
            if f in kernels[key]},
         **({"serve_launches": serve_launches[key]} if key in serve_launches else {}),
         **({"mixed_launches": mixed_launches[key]} if key in mixed_launches else {}),
+        **({"bundle_launches": bundle_launches[key]} if key in bundle_launches else {}),
     } for key, name, source, replaces in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

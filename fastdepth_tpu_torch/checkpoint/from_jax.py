@@ -11,7 +11,8 @@ Every other leaf (biases ``b``, BatchNorm ``scale/bias/mean/var``, the
 classifier's 2-D ``fc.w (features, classes)``, which the port multiplies
 as ``x @ w`` as JAX does) is copied as is, so both ``{'w','bn'}`` and
 ``{'w','b'}`` trees of every model family convert, and the round trip is
-bit-exact.
+bit-exact.  bfloat16 leaves (``ml_dtypes.bfloat16`` arrays in the tree,
+as ``checkpoint.io`` loads them) keep their dtype both ways.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from fastdepth_tpu_torch.checkpoint.io import flatten_tree, unflatten_tree
+from fastdepth_tpu_torch.checkpoint.io import _to_numpy, flatten_tree, unflatten_tree
 
 
 def _is_conv_weight(key: str, arr) -> bool:
@@ -35,7 +36,10 @@ def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
         key = key.replace("/", ".")
         if _is_conv_weight(key, arr):
             arr = arr.transpose(3, 2, 0, 1)
-        sd[key] = torch.tensor(arr)  # a copy: npz and JAX arrays may be read-only
+        if arr.dtype.name == "bfloat16":  # torch takes ml_dtypes' arrays as their bits
+            sd[key] = torch.tensor(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            sd[key] = torch.tensor(arr)  # a copy: npz and JAX arrays may be read-only
     return sd
 
 
@@ -43,7 +47,7 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict:
     """Flat state dict -> npz parameter tree of numpy arrays (HWIO convs)."""
     flat = {}
     for key, t in state_dict.items():
-        arr = t.detach().cpu().numpy()
+        arr = _to_numpy(t)
         if _is_conv_weight(key, arr):
             arr = arr.transpose(2, 3, 1, 0)
         flat[key.replace(".", "/")] = np.ascontiguousarray(arr)

@@ -1,22 +1,33 @@
-"""Forward selection and preparation for a fixed shape — counterpart of
-``fastdepth_tpu/engine/aot.py``.
+"""Forward selection and preparation for a fixed shape, and the deploy
+bundle — counterpart of ``fastdepth_tpu/engine/aot.py``.
 
 JAX compiles the forward ahead of time for one input shape.  PyTorch runs
 eagerly, so :func:`compile_forward` does what is left of that on the
 card: it folds and casts the params once, picks the forward, builds the
 kernels and runs the forward once at the fixed shape, so that the first
-timed call neither builds nor allocates.  Saved bundles (``torch.export``
-of the kernels as ``torch.library`` custom ops) and a CUDA graph of the
-forward are still to come (ROADMAP A8).
+timed call neither builds nor allocates.
+
+:func:`save_bundle` writes the deploy artifact pair, the counterpart of
+JAX's StableHLO blob + npz and of the reference's TVM deploy_lib /
+deploy_graph / deploy_param set (reference deploy/tx2_run_tvm.py:13-26):
+``<prefix>.pt2``, the forward at its fixed shape as a ``torch.export``
+program whose decoder levels and head are the custom-op nodes
+``fastdepth::fused_decoder_stage`` (K1) and ``fastdepth::pointwise_head``
+(K4), and ``<prefix>.npz``, the folded, cast params in the JAX package's
+checkpoint format.  The params are an input of the program, not
+constants in it.  :func:`load_bundle` reads the pair back.  A CUDA graph
+of the forward is still to come (ROADMAP A8).
 """
 
 from __future__ import annotations
 
 import copy
 import os
-from typing import Callable, Tuple, Union
+from typing import Callable, Dict, Tuple, Union
 
 import torch
+from torch import nn
+from torch.utils import _pytree as pytree
 
 from fastdepth_tpu_torch.models import fused as F
 from fastdepth_tpu_torch.models.registry import Model
@@ -206,3 +217,162 @@ def flops_estimate(model: Model, params, *, batch_size: int = 1,
     with FlopCounterMode(display=False) as counter, torch.no_grad():
         model.apply(meta, x)
     return float(counter.get_total_flops())
+
+
+def param_tensors(params: nn.Module) -> Dict[str, torch.Tensor]:
+    """Every tensor of a parameter tree by name: its parameters and its
+    buffers, the kernels' weight layouts (``models/fused.
+    attach_kernel_weights``, kept out of the state dict) among them.  A
+    bundle's program takes them as its first input."""
+    return {**dict(params.named_parameters()), **dict(params.named_buffers())}
+
+
+class _TreeForward(nn.ModuleDict):
+    """A prepared tree (the same submodules) whose forward is
+    ``apply(tree, x.to(dtype)).float()``, for ``torch.func.functional_call``."""
+
+    def __init__(self, params: nn.ModuleDict, apply: Callable, dtype: torch.dtype):
+        super().__init__(dict(params.items()))
+        object.__setattr__(self, "fn", apply)
+        object.__setattr__(self, "dtype", dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fn(self, x.to(self.dtype)).float()
+
+
+class _BundleForward(nn.Module):
+    """The function a bundle exports: ``(param_tensors(params), rgb) ->
+    f32 depth``.  The tree is held outside the module's registry, so that
+    ``torch.export`` finds no parameter or buffer of its own to store:
+    ``functional_call`` runs it with the input tensors in place of its
+    own."""
+
+    def __init__(self, params: nn.ModuleDict, apply: Callable, dtype: torch.dtype):
+        super().__init__()
+        object.__setattr__(self, "tree", _TreeForward(params, apply, dtype))
+
+    def forward(self, tensors: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+        return torch.func.functional_call(self.tree, tensors, (x,), strict=True)
+
+
+def save_bundle(
+    path_prefix: str,
+    model: Model,
+    params,
+    *,
+    batch_size: int = 1,
+    image_size: Tuple[int, int] = (224, 224),
+    dtype: torch.dtype = torch.float32,
+    fold_bn: bool = True,
+    impl: str = "auto",
+    tuning=None,
+    device: Union[str, torch.device] = "cuda",
+):
+    """Write a deploy bundle: ``<prefix>.pt2`` (``torch.export`` of the
+    forward :func:`compile_forward` would run, at input ``(batch_size,
+    *image_size, 3)`` f32, traced under ``torch.no_grad``) and
+    ``<prefix>.npz`` (the folded, cast params, the config and
+    ``extra={'bundle', 'batch_size', 'image_size', 'dtype'}``: the file
+    the JAX package's ``save_bundle`` writes for the same params).
+    Returns the ``ExportedProgram``.
+
+    The program's inputs are ``(param_tensors(params), rgb)``: every
+    tensor of the prepared tree, the kernels' weight layouts included,
+    so a bundle called with other params runs every layer, K1 and K4
+    too, on them.  It raises if the trace captured any tensor as a
+    constant.  'mixed' with a record path fixes the winner map of
+    ``dtype`` into the graph."""
+    from fastdepth_tpu_torch.checkpoint import params_to_jax, save_checkpoint
+
+    params, apply = _prepare(model, params, batch_size=batch_size, dtype=dtype,
+                             fold_bn=fold_bn, impl=impl, device=device, tuning=tuning)
+    x = torch.zeros((batch_size, *image_size, 3), device=torch.device(device))
+    fwd = _BundleForward(params, apply, dtype)
+    with torch.no_grad():
+        exported = torch.export.export(fwd, (param_tensors(params), x))
+    held = sorted(exported.state_dict) + sorted(exported.constants)
+    if held:
+        raise RuntimeError(f"the exported forward holds tensors as constants: {held[:5]}; "
+                           "every tensor of the tree must be an input")
+    torch.export.save(exported, path_prefix + ".pt2")
+    save_checkpoint(path_prefix + ".npz", params_to_jax(params.state_dict()), model.config,
+                    extra={"bundle": True, "batch_size": batch_size,
+                           "image_size": list(image_size),
+                           "dtype": str(dtype).replace("torch.", "")})
+    return exported
+
+
+def _program_inputs(exported, params: nn.Module, x: torch.Tensor) -> list:
+    """The bundle program's flat inputs for ``params`` (all but the rgb,
+    which comes last), checked once against what the program was traced
+    with: the same tensor names, and each tensor's shape, dtype, device
+    and strides (where a dimension is longer than 1).  A tree that fits
+    runs every node as the trace did; any other raises here, before a
+    kernel sees a pointer."""
+    flat, spec = pytree.tree_flatten(((param_tensors(params), x), {}))
+    if spec != exported.call_spec.in_spec:
+        raise ValueError("the params are not the tree the bundle was saved with "
+                         "(other tensor names)")
+    metas = [n.meta["val"] for n in exported.graph_module.graph.nodes if n.op == "placeholder"]
+    for i, (t, want) in enumerate(zip(flat[:-1], metas)):
+        strides = [(s, w) for s, w, n in zip(t.stride(), want.stride(), t.shape) if n > 1]
+        if (t.shape != want.shape or t.dtype != want.dtype or t.device != want.device
+                or any(s != w for s, w in strides)):
+            raise ValueError(
+                f"params tensor {i} is {tuple(t.shape)} {t.dtype} on {t.device}, strides "
+                f"{t.stride()}; the bundle was saved with {tuple(want.shape)} {want.dtype} on "
+                f"{want.device}, strides {want.stride()}")
+    return flat[:-1]
+
+
+def load_bundle(path_prefix: str, device: Union[str, torch.device] = "cuda"):
+    """Load a deploy bundle on ``device``; returns ``(call(params, rgb),
+    params, config, spec)`` as the JAX package's ``load_bundle`` does:
+    ``spec`` is what :func:`save_bundle` fixed, ``{'bundle',
+    'batch_size', 'image_size', 'dtype'}``; ``params`` the tree rebuilt
+    from the npz (its kernel weight layouts derived anew by
+    ``Model.fold``); ``call`` runs the program under inference mode on
+    an f32 NHWC input of the fixed shape and refuses any other.  It takes
+    the tensors of a tree once, on the tree's first call, and checks
+    them then (:func:`_program_inputs`); later calls with the same tree
+    run the program's graph alone.
+
+    The program runs on ``device`` whatever device it was saved on (its
+    nodes are moved there): on CUDA, K1 and K4 launch; on the CPU their
+    plain versions run.  CUDA without a card raises; there the kernels
+    are built here.  An f32 bundle makes f32 true f32
+    (:func:`strict_f32`); a bf16 one leaves the TF32 flags as found."""
+    from torch.export.passes import move_to_device_pass
+
+    from fastdepth_tpu_torch.checkpoint import load_checkpoint, params_from_jax
+    from fastdepth_tpu_torch.models.registry import build
+    from fastdepth_tpu_torch.ops.cuda import _build
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder, head  # noqa: F401  (the ops)
+
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but no CUDA device is available")
+    tree, config, meta = load_checkpoint(path_prefix + ".npz")
+    spec = meta.get("extra", {})
+    dtype = getattr(torch, spec.get("dtype", "float32"))
+    if dtype == torch.float32:
+        strict_f32()
+    if device.type == "cuda":
+        _build.load()
+    model = build(config)
+    params = model.fold(model.load(params_from_jax(tree))).to(device=device, dtype=dtype)
+    exported = move_to_device_pass(torch.export.load(path_prefix + ".pt2"), device)
+    graph = exported.graph_module
+    graph.recompile()  # the pass edits the nodes, not the code generated from them
+    shape = (spec.get("batch_size", 1), *spec.get("image_size", (224, 224)), 3)
+    bound = {"tree": None, "inputs": None}
+
+    @torch.inference_mode()
+    def call(p, x: torch.Tensor) -> torch.Tensor:
+        if tuple(x.shape) != shape:
+            raise ValueError(f"bundle expects input {shape}, got {tuple(x.shape)}")
+        if bound["tree"] is not p:
+            bound["inputs"], bound["tree"] = _program_inputs(exported, p, x), p
+        return graph(*bound["inputs"], x)[0]
+
+    return call, params, config, spec

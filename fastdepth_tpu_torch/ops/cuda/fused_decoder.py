@@ -29,9 +29,15 @@ output; the skip and the result hold those rows only.  The kernel tiles
 only the input rows the window duplicates, so a window costs its share
 of the level and no padded copy of the skip.
 
-Dispatch: a CPU tensor takes :func:`fused_decoder_stage_reference`, the
-plain PyTorch version of the same math; a CUDA tensor launches K1 or
-raises.  ``LAUNCHES`` counts the launches of K1 and nothing else.
+Dispatch: K1 is the custom op ``fastdepth::fused_decoder_stage``
+(``torch.library``, registered when this module is imported), so that
+``torch.export`` records a level as one node (``engine/aot.save_bundle``).
+Its CPU kernel is :func:`fused_decoder_stage_reference`, the plain
+PyTorch version of the same math; its CUDA kernel launches K1 or raises;
+any other device raises.  :func:`fused_decoder_stage` checks the
+operands, then calls the op under a trace and the same implementation
+directly in eager mode.  ``LAUNCHES`` counts the launches of K1 and
+nothing else.
 """
 
 from __future__ import annotations
@@ -309,14 +315,24 @@ def check_operands(label, activations, weights):
             + ", ".join(str(t.dtype) for t in tensors))
     if any(t.device != tensors[0].device for t in tensors):
         raise ValueError(f"{label}'s operands must lie on one device")
-    for name, t in activations.items():
-        if t is not None and not t.is_contiguous(memory_format=torch.channels_last):
-            raise ValueError(f"{name} must be channels_last contiguous (NHWC memory)")
+    if not torch.compiler.is_compiling():
+        # a trace's strides are FakeTensor's guess, which for cuDNN's
+        # convolutions is not always the card's choice: the op's CUDA
+        # kernel checks the layout the run gives (check_layout)
+        check_layout(activations)
     for name, t in weights.items():
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise ValueError(f"{label} is inference-only: it has no backward yet")
+
+
+def check_layout(activations):
+    """Raise unless every activation (``None`` skipped) is channels_last
+    contiguous (NHWC memory), as the kernels read it."""
+    for name, t in activations.items():
+        if t is not None and not t.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError(f"{name} must be channels_last contiguous (NHWC memory)")
 
 
 def use_plain_version(label, x):
@@ -366,15 +382,36 @@ def fused_decoder_stage(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
     (module docstring) x is a tile of an image of Hg rows, and skip and
     the result hold rows ``o0 .. o1 - 1`` of its ``2Hg``-row output.  On
     the CPU this is the plain version; on a CUDA tensor it launches K1 or
-    raises."""
-    global LAUNCHES
+    raises.  The operands are checked here.  Under a trace
+    (``torch.export``, ``torch.compile``) the call goes through the custom
+    op ``fastdepth::fused_decoder_stage`` (:data:`STAGE_OP`), one node in
+    the graph; an eager call goes straight to the op's implementation
+    for its device, without the dispatcher's host time (PERF.md §6)."""
     rows = x.shape[-2]
     window = (0, rows, 0, 2 * rows) if window is None else tuple(int(v) for v in window)
-    N, C, H, W, Cout = check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, "K1",
-                                   window[3] - window[2])
+    check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, "K1", window[3] - window[2])
+    window_rows(window, rows)
+    if torch.compiler.is_compiling():
+        return STAGE_OP(x, dw_w, dw_b, pw_w, pw_b, skip, list(window))
+    impl = _stage_cpu if use_plain_version("K1", x) else _stage_cuda
+    return impl(x, dw_w, dw_b, pw_w, pw_b, skip, window)
+
+
+def _stage_cpu(x, dw_w, dw_b, pw_w, pw_b, skip, window):
+    """``fastdepth::fused_decoder_stage`` on the CPU: the plain version."""
+    return fused_decoder_stage_reference(x, dw_w, dw_b, pw_w, pw_b, skip, window)
+
+
+def _stage_cuda(x, dw_w, dw_b, pw_w, pw_b, skip, window):
+    """``fastdepth::fused_decoder_stage`` on CUDA: one launch of K1.  The
+    caller checked the operands; the layout is checked again here, where
+    a saved program's run reaches the kernel without the wrapper."""
+    global LAUNCHES
+    check_layout({"x": x, "skip": skip})
+    N, C, H, W = x.shape
+    Cout = pw_w.shape[1]
+    window = (0, H, 0, 2 * H) if window is None else window
     c0, c1 = window_rows(window, H)
-    if use_plain_version("K1", x):
-        return fused_decoder_stage_reference(x, dw_w, dw_b, pw_w, pw_b, skip, window)
     g = launch_geometry(N, c1 - c0, W, C, Cout, x.dtype)
     if g.grid[0] >= 2 ** 31 or g.grid[1] > _MAX_GRID_YZ:
         raise ValueError(f"K1's grid {g.grid} is too large for one launch")
@@ -383,3 +420,24 @@ def fused_decoder_stage(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
                                                      g.cout_tile, g.chunk, g.groups, *window))
     LAUNCHES += 1
     return out
+
+
+def _stage_fake(x, dw_w, dw_b, pw_w, pw_b, skip, window):
+    """The output's metadata, as :func:`launch_stage` allocates it."""
+    rows = 2 * x.shape[2] if window is None else window[3] - window[2]
+    return torch.empty((x.shape[0], pw_w.shape[1], rows, 2 * x.shape[3]), dtype=x.dtype,
+                       device=x.device, memory_format=torch.channels_last)
+
+
+# K1 as the custom op fastdepth::fused_decoder_stage, registered when this
+# module is imported: the plain version on the CPU, K1 on CUDA, and a fake
+# (shapes, dtype and strides only) for torch.export's trace; no autograd
+# (the TPU kernel has no VJP either).  LIBRARY must stay referenced: the
+# registrations go with it.
+LIBRARY = torch.library.Library("fastdepth", "FRAGMENT")
+LIBRARY.define("fused_decoder_stage(Tensor x, Tensor dw_w, Tensor dw_b, Tensor pw_w, "
+               "Tensor pw_b, Tensor? skip, int[]? window) -> Tensor")
+LIBRARY.impl("fused_decoder_stage", _stage_cpu, "CPU")
+LIBRARY.impl("fused_decoder_stage", _stage_cuda, "CUDA")
+torch.library.register_fake("fastdepth::fused_decoder_stage", _stage_fake, lib=LIBRARY)
+STAGE_OP = torch.ops.fastdepth.fused_decoder_stage.default

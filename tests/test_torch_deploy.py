@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_cli_tools import tiny_ckpt  # noqa: F401  (shared fixture)
+from test_cli_tools import REF_RGB, tiny_ckpt  # noqa: F401  (shared fixture)
 import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 TINY_ENC = (4, 6, 8, 10, 12, 14, 16, 16, 16, 16, 16, 16, 20, 24)
@@ -66,16 +66,47 @@ def test_deploy_cli_bf16_and_input_layouts(tiny_ckpt, rgb_npy, tmp_path, capsys)
     np.testing.assert_allclose(bf16, f32, atol=0.05 * max(1.0, float(np.abs(f32).max())))
 
 
-def test_deploy_cli_refusals(tiny_ckpt, rgb_npy, tmp_path):  # noqa: F811
+@pytest.fixture(scope="module")
+def saved_bundle(tiny_ckpt, tmp_path_factory):  # noqa: F811
+    """(bundle prefix, its 64x64 rgb npy, the saving run's prediction):
+    one ``--save-bundle`` run of the port's deploy CLI on the CPU."""
+    root = tmp_path_factory.mktemp("bundle")
+    rgb = str(root / "rgb.npy")
+    np.save(rgb, np.random.RandomState(0).rand(64, 64, 3).astype(np.float32))
+    prefix, pred = str(root / "bundle"), str(root / "pred.npy")
+    from fastdepth_tpu_torch.cli import deploy
+
+    deploy.main(["--model", tiny_ckpt, "--input-fp", rgb, "--output-fp", pred, "--warmup", "0",
+                 "--run", "1", "--device", "cpu", "--save-bundle", prefix])
+    return prefix, rgb, pred
+
+
+def test_deploy_cli_refusals(tiny_ckpt, rgb_npy, saved_bundle, tmp_path):  # noqa: F811
+    """The JAX CLI's refusals and messages: a missing checkpoint or
+    bundle; --bf16, --impl/--tuning and --save-bundle with --load-bundle
+    (each before the bundle loads); an input of another shape than the
+    bundle's; mixed without a record; cuda without a card."""
     from fastdepth_tpu_torch.cli import deploy
 
     with pytest.raises(SystemExit, match="no model found"):
         deploy.main(["--model", str(tmp_path / "absent.npz"), "--input-fp", rgb_npy,
                      "--device", "cpu"])
-    for flags in (["--model", tiny_ckpt, "--save-bundle", str(tmp_path / "b")],
-                  ["--load-bundle", str(tmp_path / "b")]):  # not ported: bundles
-        with pytest.raises(SystemExit, match="ROADMAP A19"):
-            deploy.main(flags + ["--input-fp", rgb_npy, "--device", "cpu"])
+    with pytest.raises(SystemExit, match=r"=> no bundle found at '.*absent\.pt2'"):
+        deploy.main(["--load-bundle", str(tmp_path / "absent"), "--input-fp", rgb_npy,
+                     "--device", "cpu"])
+    prefix, rgb, _ = saved_bundle
+    for flags, message in ((["--bf16"], "--bf16 has no effect on a prebuilt bundle"),
+                           (["--impl", "opt"], "--impl/--tuning have no effect"),
+                           (["--tuning", "t.json"], "--impl/--tuning have no effect"),
+                           (["--save-bundle", str(tmp_path / "b")],
+                            "--save-bundle requires --model")):
+        with pytest.raises(SystemExit, match=message):
+            deploy.main(["--load-bundle", prefix, "--input-fp", rgb, "--device", "cpu"] + flags)
+    small = str(tmp_path / "small.npy")
+    np.save(small, np.zeros((32, 32, 3), np.float32))
+    with pytest.raises(SystemExit, match=r"=> bundle expects input \(1, 64, 64, 3\) "
+                                         r"\(float32 compute\), got \(1, 32, 32, 3\)"):
+        deploy.main(["--load-bundle", prefix, "--input-fp", small, "--device", "cpu"])
     with pytest.raises(SystemExit, match="needs a tuning record"):  # mixed needs --tuning
         deploy.main(["--model", tiny_ckpt, "--input-fp", rgb_npy, "--impl", "mixed",
                      "--device", "cpu"])
@@ -83,6 +114,51 @@ def test_deploy_cli_refusals(tiny_ckpt, rgb_npy, tmp_path):  # noqa: F811
         return
     with pytest.raises(SystemExit, match="no CUDA device"):
         deploy.main(["--model", tiny_ckpt, "--input-fp", rgb_npy, "--device", "cuda"])
+
+
+def test_deploy_cli_bundle_round_trip(tiny_ckpt, saved_bundle, tmp_path, capsys):  # noqa: F811
+    """--save-bundle, then --load-bundle (timing, randomized timing and
+    the profiler on the loaded bundle): the same prediction as the
+    compile-from-checkpoint run, which is the JAX deploy CLI's within
+    1e-4."""
+    from fastdepth_tpu.cli import deploy as jax_cli
+    from fastdepth_tpu_torch.cli import deploy
+
+    prefix, rgb, saved = saved_bundle
+    assert os.path.isfile(prefix + ".pt2") and os.path.isfile(prefix + ".npz")
+    loaded, prof = str(tmp_path / "loaded.npy"), tmp_path / "prof"
+    stats = deploy.main(["--load-bundle", prefix, "--input-fp", rgb, "--output-fp", loaded,
+                         "--warmup", "1", "--run", "2", "--randomized-input-timing",
+                         "--device", "cpu", "--profile", str(prof)])
+    out = capsys.readouterr().out
+    for line in ("=> loading bundle", "=> saved prediction", "=> [timed] mean=",
+                 "=> [randomized] mean="):
+        assert line in out, line
+    assert "GFLOP/frame" not in out and stats["median_s"] > 0  # as the JAX CLI's bundle branch
+    assert (prof / "trace.json").stat().st_size > 0
+    np.testing.assert_array_equal(np.load(loaded), np.load(saved))
+    jax_pred = str(tmp_path / "jax.npy")
+    jax_cli.main(["--model", tiny_ckpt, "--input-fp", rgb, "--output-fp", jax_pred,
+                  "--warmup", "0", "--run", "1"])
+    np.testing.assert_allclose(np.load(loaded), np.load(jax_pred), atol=1e-4)
+
+
+@pytest.mark.skipif(not os.path.exists(REF_RGB), reason="reference golden data absent")
+def test_deploy_cli_golden_bundle_round_trip(tiny_ckpt, tmp_path):  # noqa: F811
+    """The reference's own deploy/data/rgb.npy (1x3x224x224 NCHW) through
+    --save-bundle and --load-bundle: the same finite, non-negative
+    prediction both ways."""
+    from fastdepth_tpu_torch.cli import deploy
+
+    prefix = str(tmp_path / "golden")
+    preds = [str(tmp_path / "a.npy"), str(tmp_path / "b.npy")]
+    deploy.main(["--model", tiny_ckpt, "--input-fp", REF_RGB, "--output-fp", preds[0],
+                 "--warmup", "0", "--run", "1", "--device", "cpu", "--save-bundle", prefix])
+    deploy.main(["--load-bundle", prefix, "--input-fp", REF_RGB, "--output-fp", preds[1],
+                 "--warmup", "0", "--run", "1", "--device", "cpu"])
+    a, b = np.load(preds[0]), np.load(preds[1])
+    assert a.shape == (1, 1, 224, 224) and np.isfinite(a).all() and a.min() >= 0
+    np.testing.assert_array_equal(a, b)
 
 
 def test_deploy_cli_profile_writes_a_trace(tiny_ckpt, rgb_npy, tmp_path):  # noqa: F811

@@ -194,14 +194,17 @@ print("rmse", avg.rmse)
 def test_deploy_cli_runs_on_the_cpu_with_the_jax_package_blocked(tiny_npz, tmp_path):
     rgb = str(tmp_path / "rgb.npy")
     np.save(rgb, np.random.RandomState(0).rand(64, 64, 3).astype(np.float32))
-    pred = str(tmp_path / "pred.npy")
+    pred, loaded, prefix = (str(tmp_path / n) for n in ("pred.npy", "loaded.npy", "bundle"))
     _run(f"""
 from fastdepth_tpu_torch.cli import deploy
 deploy.main(["--model", {tiny_npz!r}, "--input-fp", {rgb!r}, "--output-fp", {pred!r},
+             "--warmup", "1", "--run", "2", "--device", "cpu", "--save-bundle", {prefix!r}])
+deploy.main(["--load-bundle", {prefix!r}, "--input-fp", {rgb!r}, "--output-fp", {loaded!r},
              "--warmup", "1", "--run", "2", "--device", "cpu"])
 """)
     out = np.load(pred)
     assert out.shape == (1, 1, 64, 64) and np.isfinite(out).all()
+    np.testing.assert_array_equal(np.load(loaded), out)  # the bundle, written and run alone
 
 
 def test_train_cli_runs_on_the_cpu_with_the_jax_package_blocked(tmp_path):

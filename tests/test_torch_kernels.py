@@ -267,6 +267,50 @@ def test_k1_outputs_equal_the_recorded_digests_bit_for_bit():
     assert [k for k in want if got[k] != want[k]] == []
 
 
+
+# the flagship's b1 deploy shapes through the custom ops: (N, H, W, C, Cout,
+# skip, window) for K1 (level 1 without a skip, level 2 with one, level 4
+# as rank 1 of a space axis of 2: its tile holds image rows 26-55 of 56 and
+# it writes output rows 56-111), then K4 on the 224^2 head
+OP_CASES = {"k1_no_skip": (1, 7, 7, 512, 200, False, None),
+            "k1_skip": (1, 14, 14, 200, 256, True, None),
+            "k1_window": (1, 56, 56, 120, 56, True, (26, 56, 56, 112))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [*OP_CASES, "k4"])
+def test_custom_ops_launch_their_kernels_and_pass_opcheck_on_the_card(case):
+    """On a CUDA device: one call of fastdepth::fused_decoder_stage or
+    fastdepth::pointwise_head launches K1 or K4 once (``LAUNCHES``), and
+    ``torch.library.opcheck`` passes on the CUDA tensors (schema, fake
+    against real output metadata, strides included, and the op under
+    AOT dispatch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (on a GPU host: python -m pytest "
+                    "--noconftest tests/test_torch_kernels.py -m cuda)")
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+
+    rng = np.random.RandomState(0)
+    if case == "k4":
+        x = torch.from_numpy(rng.rand(1, 224, 224, 16).astype(np.float32)).cuda()
+        args, mod, op = (TB.from_nhwc(x), torch.randn(16, device="cuda"),
+                         torch.randn(1, device="cuda")), K4, K4.HEAD_OP
+    else:
+        n, h, w, c, cout, has_skip, window = OP_CASES[case]
+        ops = [t.cuda() if t is not None else None
+               for t in _port_operands(*_jax_operands(rng, n, h, w, c, cout, has_skip))]
+        if window is not None:
+            r0, _, o0, o1 = window
+            ops[0] = ops[0][:, :, r0:].contiguous(memory_format=torch.channels_last)
+            ops[5] = ops[5][:, :, o0:o1].contiguous(memory_format=torch.channels_last)
+        args, mod, op = (*ops, None if window is None else list(window)), K, K.STAGE_OP
+    before = mod.LAUNCHES
+    out = op(*args)
+    torch.cuda.synchronize()
+    assert mod.LAUNCHES == before + 1
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    torch.library.opcheck(op, args)
+
 LEVELS = [(7, 512, 200), (14, 200, 256), (28, 256, 120), (56, 120, 56), (112, 56, 16),
           (7, 1024, 512), (9, 33, 13), (9, 33, 200)]
 
