@@ -127,6 +127,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    frames/s of both); the space dryrun over gloo ranks on the CPU
    (parallel/dryrun.py --space: two ranks at S = 2 on the trained
    flagship at 224x224 b1, four on a 2 x 2 mesh through the Evaluator);
+   then the rest of the zoo on the space axis, on resnet50-upproj at
+   224x224, full width, random weights: each rank's MAC share at S = 2,
+   4, 8, the world-1 meshes' Evaluator b8 (metric rows 0 apart from no
+   mesh, K1 and K4 launched 0 times) and forward (bit for bit), the eval
+   step b8 f32 with and without them in turns, a mesh InferenceServer
+   whose answers are 0 apart from the server without one, and the space
+   dryrun's halo rules on it (--model resnet50-upproj: S = 2 within 1e-4
+   of the output's scale, the 2 x 2 Evaluator within 1e-5 relative);
 15. probes: every tag of the probe catalogue (engine/probes.py, the
    scripts' Pallas probes) runs its kernel (K5, K6, or K3) once, with
    K5's and K6's launches counted on that run; then the launch floor
@@ -1280,44 +1288,12 @@ def _rel_l2(got, want) -> float:
     return float(np.linalg.norm(np.asarray(got, np.float64) - want) / np.linalg.norm(want))
 
 
-# the last conv of each decoder: the depth head, or the shuffle decoders'
-# last stage (their output is its pixel shuffle)
-ZOO_LAST_CONVS = ("decoder.final.pw", "decoder.decode_conv6.pw", "decoder.conv4.pw",
-                  "decoder.conv4.conv")
-
-
-def _random_bn(params, seed: int):
-    """Make Model.init's tree carry signal to the output, in place: draw
-    every BatchNorm's statistics (scale and var in [0.5, 1.5), mean N(0,
-    0.1), bias in [0, 0.2)) and make the last conv's weights non-negative.
-    Model.init leaves BatchNorm at its defaults, and the reference's He
-    rule for a depthwise conv (n = k^2 * C) shrinks activations C-fold a
-    layer: at init a MobileNet's depth map is ~1e-17 (measured on one H100).
-    Deep random ResNets go the other way: their activations grow into a
-    common mode per channel, so a random head's sign is the same at every
-    pixel and its ReLU can be dark on the whole map.  Non-negative weights
-    over non-negative (post-ReLU) inputs and a positive bias keep the
-    output lit wherever its input is."""
-    from fastdepth_tpu_torch.models.layers import BatchNorm
-
-    gen = torch.Generator().manual_seed(seed)
-    with torch.no_grad():
-        for name, m in params.named_modules():
-            if isinstance(m, BatchNorm):
-                c = m.mean.numel()
-                m.scale.copy_(torch.rand(c, generator=gen) + 0.5)
-                m.var.copy_(torch.rand(c, generator=gen) + 0.5)
-                m.mean.copy_(torch.randn(c, generator=gen) * 0.1)
-                m.bias.copy_(torch.rand(c, generator=gen) * 0.2)
-            elif name in ZOO_LAST_CONVS:
-                m.w.abs_()
-    return params
-
-
 def _zoo_model(spec, *, tiny_decoder: str = None):
     """(model, params on the CPU): Model.init's tree, seeded, given signal
-    by :func:`_random_bn`."""
+    by ``parallel/dryrun.random_bn`` (drawn BatchNorm statistics, a
+    non-negative last conv)."""
     from fastdepth_tpu_torch import ModelConfig, build, from_name
+    from fastdepth_tpu_torch.parallel.dryrun import random_bn
 
     if tiny_decoder is not None:
         enc = (ZOO_TINY_ENC[:13] + (1024,) if tiny_decoder.startswith("shuffle")
@@ -1329,7 +1305,7 @@ def _zoo_model(spec, *, tiny_decoder: str = None):
                                   bottleneck_skips=True))
     else:
         model = from_name(spec)
-    return model, _random_bn(model.init(torch.Generator().manual_seed(ZOO_SEED)), ZOO_SEED)
+    return model, random_bn(model.init(torch.Generator().manual_seed(ZOO_SEED)), ZOO_SEED)
 
 
 def _zoo_serve(model, params, card: dict) -> dict:
@@ -2619,6 +2595,8 @@ SPACE_SHARDS = (2, 4, 8)  # the space axis sizes whose K1 windows are checked at
 # came (NVIDIA H100 80GB HBM3, 700 W): the unsharded call may not slow
 K1_BEFORE_WINDOW_MS = 0.1734
 SPACE_SERVE_FRAMES, SPACE_SERVE_PASSES = 64, 5
+SPACE_ZOO = "resnet50-upproj"  # the zoo's demanding model on the space axis
+SPACE_ZOO_SERVE_FRAMES, SPACE_ZOO_SERVE_PASSES = 16, 3
 
 
 def _k1_level_operands(n, h, c, cout, skip, dtype, seed=0):
@@ -2858,11 +2836,12 @@ def k1_window_checks(kernels: dict, card: dict) -> dict:
     return out
 
 
-def _space_eval_times(model, params, meshes: dict, card: dict) -> dict:
+def _space_eval_times(model, params, meshes: dict, card: dict, label: str = "") -> dict:
     """The eval step b8 f32 (forward, metrics, the metric fetch) without a
     mesh and over each world-1 space mesh, in turns (plain, meshes,
     meshes reversed, plain), host clock ending in the fetch, median of
-    MESH_TIMED after MESH_WARMUP."""
+    MESH_TIMED after MESH_WARMUP; ``label`` names the model in the
+    printed line."""
     from fastdepth_tpu_torch import Evaluator
 
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -2883,24 +2862,27 @@ def _space_eval_times(model, params, meshes: dict, card: dict) -> dict:
         ms[k].append(float(np.median(times)))
     row = {f"{k}_ms": v for k, v in ms.items()}
     row.update({f"{k}_over_plain": float(np.mean(ms[k]) / np.mean(ms["plain"])) for k in meshes})
-    print(f"space eval step b{BATCH} f32 on {card['nvidia_smi']} (host clock, ends with the "
-          f"metric fetch): {json.dumps(row)}")
+    print(f"space eval step{label} b{BATCH} f32 on {card['nvidia_smi']} (host clock, ends "
+          f"with the metric fetch): {json.dumps(row)}")
     return row
 
 
-def _space_serve(model, params, meshes: dict, card: dict) -> dict:
+def _space_serve(model, params, meshes: dict, card: dict, label: str = "",
+                 launches=(STAGES_PER_FORWARD, 1), n_frames: int = SPACE_SERVE_FRAMES,
+                 n_passes: int = SPACE_SERVE_PASSES) -> dict:
     """A world-1 mesh InferenceServer over each mesh against the server
-    without one: the same SPACE_SERVE_FRAMES seeded frames submitted at
-    once (batch 8), every answer 0 apart; frames/s of each, the median of
-    SPACE_SERVE_PASSES passes a turn, in turns (plain, meshes, meshes
-    reversed, plain), K1 5 and K4 1 launches a forward over each turn's
-    passes."""
+    without one: the same ``n_frames`` seeded frames submitted at once
+    (batch 8), every answer 0 apart; frames/s of each, the median of
+    ``n_passes`` passes a turn, in turns (plain, meshes, meshes reversed,
+    plain), K1 and K4 ``launches`` a forward over each turn's passes (the
+    flagship: 5 and 1; ``label`` names another model in the printed
+    lines)."""
     from fastdepth_tpu_torch.engine.server import InferenceServer
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import head as K4
 
     rng = np.random.RandomState(13)
-    frames = [rng.rand(*OUTPUT_HW, 3).astype(np.float32) for _ in range(SPACE_SERVE_FRAMES)]
+    frames = [rng.rand(*OUTPUT_HW, 3).astype(np.float32) for _ in range(n_frames)]
     servers = {"plain": InferenceServer(model, params, batch_size=BATCH, copy_inputs=False,
                                         device="cuda")}
     servers.update({k: InferenceServer(model, params, batch_size=BATCH, copy_inputs=False,
@@ -2914,7 +2896,7 @@ def _space_serve(model, params, meshes: dict, card: dict) -> dict:
             b0 = srv.stats()["batches"]
             _reset(K1, K4)
             passes = []
-            for _ in range(SPACE_SERVE_PASSES):
+            for _ in range(n_passes):
                 t0 = time.perf_counter()
                 got = [f.result(timeout=120) for f in [srv.submit(fr) for fr in frames]]
                 passes.append(len(frames) / (time.perf_counter() - t0))
@@ -2922,20 +2904,21 @@ def _space_serve(model, params, meshes: dict, card: dict) -> dict:
             fps[k].append(float(np.median(passes)))
             forwards = srv.stats()["batches"] - b0
             k1, k4 = _counts(K1, K4)
-            if (k1, k4) != (STAGES_PER_FORWARD * forwards, forwards):
-                fail(f"space server {k}: K1 {k1}, K4 {k4} launches over {forwards} forwards")
+            if (k1, k4) != (launches[0] * forwards, launches[1] * forwards):
+                fail(f"space server{label} {k}: K1 {k1}, K4 {k4} launches over {forwards} "
+                     "forwards")
         for k in meshes:
             apart = sum(int((a != b).sum()) for a, b in zip(answers[k], answers["plain"]))
             out[k] = {"values_apart": apart, "fps": fps[k]}
             if apart:
-                fail(f"space server {k}: {apart} values differ from the server without a mesh")
+                fail(f"space server{label} {k}: {apart} values differ from the server without a "
+                     "mesh")
         out["plain"] = {"fps": fps["plain"]}
     finally:
         for srv in servers.values():
             srv.close()
-    print(f"space servers b{BATCH} f32, {SPACE_SERVE_FRAMES} frames submitted at once, median "
-          f"of {SPACE_SERVE_PASSES} passes a turn, on "
-          f"{card['nvidia_smi']}: {json.dumps(out)}")
+    print(f"space servers{label} b{BATCH} f32, {n_frames} frames submitted at once, median "
+          f"of {n_passes} passes a turn, on {card['nvidia_smi']}: {json.dumps(out)}")
     return out
 
 
@@ -2968,6 +2951,129 @@ def replicated_work(cfg) -> dict:
     return out
 
 
+def _conv_work(model, hw: int = OUTPUT_HW[0]):
+    """Every conv and transposed conv of one frame of ``model``'s straight
+    forward at hw^2 as (input rows, output rows, MACs), counted off
+    F.conv2d and F.conv_transpose2d on the meta device (shapes only, no
+    arithmetic): a conv's N Cout Ho Wo x Cin / g k^2, a transposed conv's
+    N Cin Hi Wi x Cout / g k^2."""
+    import torch.nn.functional as Fn
+
+    from fastdepth_tpu_torch.models.registry import _family
+
+    params = _family(model.config)[0](model.config, folded=True).to("meta")
+    calls, conv, tconv = [], Fn.conv2d, Fn.conv_transpose2d
+
+    def counted(op, x, w, *a, **kw):
+        y = op(x, w, *a, **kw)
+        calls.append((x.shape[2], y.shape[2],
+                      (y.numel() if op is conv else x.numel()) * w[0].numel()))
+        return y
+
+    Fn.conv2d = lambda *a, **kw: counted(conv, *a, **kw)
+    Fn.conv_transpose2d = lambda *a, **kw: counted(tconv, *a, **kw)
+    try:
+        with torch.no_grad():
+            model.apply(params, torch.empty(1, hw, hw, 3, device="meta"))
+    finally:
+        Fn.conv2d, Fn.conv_transpose2d = conv, tconv
+    return calls
+
+
+def zoo_replicated_work(model, name: str) -> dict:
+    """What the partition's replicated levels cost a zoo model: the share
+    of its forward's conv MACs at 224^2 (:func:`_conv_work`) that each
+    rank of S = 2, 4, 8 computes, against the 1 / S of an even split,
+    under the model's own fewest rows a shard (parallel/spatial.min_rows).
+    A conv whose input and output levels are both sharded runs 1 / S of
+    itself on a rank; any other runs whole on every rank (from a
+    replicated level it is computed whole and sliced)."""
+    from fastdepth_tpu_torch.parallel.spatial import Partition, min_rows
+
+    calls = _conv_work(model)
+    total = sum(m for _, _, m in calls)
+    out = {}
+    for n_space in SPACE_SHARDS:
+        part = Partition(n_space, 0, min_rows=min_rows(model.config))
+        whole = [(ho, m) for hi, ho, m in calls if not (part.sharded(hi) and part.sharded(ho))]
+        whole_macs = sum(m for _, m in whole)
+        out[n_space] = {"rank_share": (whole_macs + (total - whole_macs) / n_space) / total,
+                        "even_share": 1 / n_space, "min_rows": part.min_rows,
+                        "whole_macs": whole_macs, "whole_rows": sorted({ho for ho, _ in whole})}
+    print(f"space partition at {OUTPUT_HW[0]}^2 of {name}: each rank's share of the forward's "
+          f"{total} conv MACs: {json.dumps(out)}")
+    return out
+
+
+def _space_zoo(meshes: dict, loader, card: dict) -> dict:
+    """SPACE_ZOO at 224^2, full width, random weights (the zoo phase's),
+    over the world-1 space meshes: each rank's MAC share, the Evaluator
+    b8's metric rows 0 apart from no mesh with K1 and K4 launched 0 times,
+    the forward b8 bit for bit the one without a mesh, the eval step's
+    times in turns, and the mesh servers (answers 0 apart)."""
+    from fastdepth_tpu_torch import Evaluator
+    from fastdepth_tpu_torch.engine.aot import _prepare
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+
+    model, params = _zoo_model(SPACE_ZOO)
+    label = f" {SPACE_ZOO}"
+    out = {"replicated_work": zoo_replicated_work(model, SPACE_ZOO), "eval": {}}
+    ev_p = Evaluator(model, params, batch_size=BATCH, device="cuda")
+    rows_p = [ev_p(ev_p.put(r), ev_p.put(d))[1].cpu().numpy() for r, d, _ in loader]
+    x = torch.from_numpy(np.random.RandomState(ZOO_SEED).rand(BATCH, *OUTPUT_HW, 3)
+                         .astype(np.float32)).cuda()
+    p0, f0 = _prepare(model, params, batch_size=BATCH, dtype=torch.float32, fold_bn=True,
+                      impl="auto", device="cuda")
+    with torch.inference_mode():
+        want = f0(p0, x)
+    for k, m in meshes.items():
+        ev_m = Evaluator(model, params, batch_size=BATCH, mesh=m)
+        _reset(K1, K4)
+        rows_m = [ev_m.fetch(ev_m(ev_m.put(r), ev_m.put(d))[1], dim=1) for r, d, _ in loader]
+        torch.cuda.synchronize()
+        k1, k4 = _counts(K1, K4)
+        apart = sum(int((~((a == b) | (np.isnan(a) & np.isnan(b)))).sum())
+                    for a, b in zip(rows_m, rows_p))
+        pm, fm = _prepare(model, params, batch_size=BATCH, dtype=torch.float32, fold_bn=True,
+                          impl="auto", device=m.device, space=m.partition())
+        with torch.inference_mode():
+            got = fm(pm, x)
+        fwd_apart = int((got != want).sum())
+        print(f"space eval{label} {k} b{BATCH} f32: {len(rows_m)} batches, {apart} metric "
+              f"entries apart from no mesh; forward b{BATCH}: {fwd_apart} values apart; K1 "
+              f"{k1}, K4 {k4} launches")
+        if apart or fwd_apart:
+            fail(f"{SPACE_ZOO} over {k}: {apart} metric entries and {fwd_apart} forward values "
+                 "differ from no mesh's")
+        if (k1, k4) != (0, 0):
+            fail(f"{SPACE_ZOO} over {k}: K1 launched {k1} and K4 {k4} times; it runs neither")
+        out["eval"][k] = {"batches": len(rows_m), "rows_apart": apart,
+                          "forward_values_apart": fwd_apart, "k1_launches": k1,
+                          "k4_launches": k4}
+    out["eval_times"] = _space_eval_times(model, params, meshes, card, label)
+    out["serve"] = _space_serve(model, params, meshes, card, label, launches=(0, 0),
+                                n_frames=SPACE_ZOO_SERVE_FRAMES, n_passes=SPACE_ZOO_SERVE_PASSES)
+    return out
+
+
+def _space_dryrun(*extra) -> dict:
+    """``parallel/dryrun.py --space`` in a subprocess (gloo ranks on the
+    CPU); its JSON report, or the run fails."""
+    t1 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fastdepth_tpu_torch.parallel.dryrun",
+                           "--space", *extra], capture_output=True, text=True, cwd=REPO,
+                          timeout=600)
+    report = proc.stdout[proc.stdout.find("{"):] if "{" in proc.stdout else ""
+    args = "".join(f" {a}" for a in extra)
+    print(f"space dryrun{args} (gloo ranks on the CPU, {time.perf_counter() - t1:.1f} s): "
+          f"{report}")
+    if proc.returncode != 0:
+        fail(f"parallel/dryrun.py --space{args} failed ({proc.returncode}): "
+             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    return json.loads(report)
+
+
 def space_phase(model, params, kernels: dict, card: dict) -> dict:
     """The space axis (parallel/spatial.py) and serving over a mesh on the
     one card:
@@ -2981,7 +3087,10 @@ def space_phase(model, params, kernels: dict, card: dict) -> dict:
     - the space dryrun over gloo ranks on this machine's CPU
       (``parallel/dryrun.py --space``: S = 2 forward of the trained
       flagship at 224^2 b1, atol 1e-4; the 2 x 2 Evaluator's metric rows,
-      rtol 1e-5 and the deltas within 2 pixels)."""
+      rtol 1e-5 and the deltas within 2 pixels);
+    - the rest of the zoo on SPACE_ZOO (:func:`_space_zoo`) and its space
+      dryrun (``--model``: S = 2 within 1e-4 of the output's scale, the
+      2 x 2 Evaluator's rows within rtol 1e-5)."""
     import torch.distributed as dist
 
     from fastdepth_tpu_torch import BatchLoader, Evaluator
@@ -3027,18 +3136,16 @@ def space_phase(model, params, kernels: dict, card: dict) -> dict:
                                   "k4_launches": k4}
             out["eval_times"] = _space_eval_times(model, params, meshes, card)
             out["serve"] = _space_serve(model, params, meshes, card)
+            t1 = time.perf_counter()
+            out["zoo"] = _space_zoo(meshes, loader, card)
+            out["zoo"]["seconds"] = time.perf_counter() - t1
         finally:
             dist.destroy_process_group()
 
+    out["dryrun"] = _space_dryrun()
     t1 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "fastdepth_tpu_torch.parallel.dryrun",
-                           "--space"], capture_output=True, text=True, cwd=REPO, timeout=600)
-    report = proc.stdout[proc.stdout.find("{"):] if "{" in proc.stdout else ""
-    print(f"space dryrun (gloo ranks on the CPU, {time.perf_counter() - t1:.1f} s): {report}")
-    if proc.returncode != 0:
-        fail(f"parallel/dryrun.py --space failed ({proc.returncode}): {proc.stdout[-3000:]}"
-             f"{proc.stderr[-3000:]}")
-    out["dryrun"] = json.loads(report)
+    out["zoo"]["dryrun"] = _space_dryrun("--model", SPACE_ZOO)
+    out["zoo"]["dryrun_seconds"] = time.perf_counter() - t1
     out["seconds"] = time.perf_counter() - t0
     print(f"space phase: {out['seconds']:.1f} s")
     return out

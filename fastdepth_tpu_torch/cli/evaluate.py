@@ -14,8 +14,8 @@ files only).  Extras over the reference CLI: --batch-size, --bf16,
 evaluates over N ranks, one a device (``parallel/``), spawned here or one
 a process under ``--coord``; each rank runs its rows of every batch, and
 rank 0 prints and writes.  ``--mesh-spatial S`` also shards the image
-height S-way (``N x S`` ranks; the MobileNet + NNConv family): each rank
-runs its rows of every image through the height-sharded forward.
+height S-way (``N x S`` ranks; any model of the zoo): each rank runs its
+rows of every image through the height-sharded forward.
 ``--impl mixed --tuning tuning/h100.<model>.json`` runs each decoder level
 on the kernel that won on the card (``engine/autotune.py``).
 """
@@ -55,8 +55,9 @@ def parse_args(argv=None):
                         "mesh; alone: spawned on this host; with --coord: N processes)")
     p.add_argument("--mesh-spatial", default=None, type=int, metavar="S",
                    help="additionally shard image HEIGHT S-way (total ranks = "
-                        "mesh-devices x S; each rank exchanges its convs' halo rows "
-                        "with its neighbours, parallel/spatial.py)")
+                        "mesh-devices x S; any model of the zoo; each rank exchanges "
+                        "its convs' and pools' halo rows with its neighbours, "
+                        "parallel/spatial.py)")
     p.add_argument("--no-fold-bn", action="store_true",
                    help="keep BatchNorm unfolded (exact reference numerics)")
     p.add_argument("--tuning", default=None, metavar="JSON",

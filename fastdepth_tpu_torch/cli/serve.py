@@ -19,8 +19,8 @@ Client modes against a running daemon (no model load):
     python -m fastdepth_tpu_torch.cli.serve --socket /tmp/fastdepth.sock --stats
 
 Over a mesh, ``--mesh-devices N`` (each packed batch's rows) and
-``--mesh-spatial S`` (the image height; the MobileNet + NNConv family)
-start ``N x S`` ranks on this host (``parallel.distributed.launch``, one
+``--mesh-spatial S`` (the image height; every model of the zoo, whose
+shards must hold its widest halo, ``parallel/spatial.min_rows``) start ``N x S`` ranks on this host (``parallel.distributed.launch``, one
 a device); rank 0 binds the socket and serves, the others follow its
 batches (``engine/server.py``).  A SIGINT to this process stops rank 0,
 which stops the others.
@@ -88,7 +88,8 @@ def parse_args(argv=None):
                         "latency) and print it")
     p.add_argument("--mesh-spatial", type=int, default=None, metavar="S",
                    help="additionally shard image HEIGHT S-way (total ranks = "
-                        "mesh-devices x S; S must divide the image height)")
+                        "mesh-devices x S; any model of the zoo; S must divide the "
+                        "image height into shards of at least the model's widest halo)")
     p.add_argument("--mesh-devices", type=int, default=None, metavar="N",
                    help="shard each packed batch over an N-rank data-parallel "
                         "mesh (params replicate; one rank a device)")

@@ -84,8 +84,7 @@ def _pick_apply(model: Model, params, impl: str, batch_size: int = 2, space=None
                 tuning=None):
     """The forward ``fn(params, x)`` an impl name selects.  ``space`` (a
     ``parallel.spatial.Partition``) makes it height-sharded: every impl
-    takes it, on the MobileNet + NNConv family only (the rest of the zoo
-    is refused here, naming ROADMAP A12c).
+    takes it, on every depth model of the registry.
 
     'fused' runs decoder levels 1-5 through K1 and the head through K4;
     'opt' the plain-PyTorch head-commute forward; 'xla' the straight

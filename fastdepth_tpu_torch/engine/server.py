@@ -836,6 +836,7 @@ def request_stream(sock_path: str, frames, depth: int = 32):
     c = _connect(sock_path)
     sem = _t.Semaphore(depth)
     dead = _t.Event()  # reader died / stream over: unblocks the sender
+    sent_all = _t.Event()  # the sender got through every frame
     n_sent = 0
     send_err = []
 
@@ -854,6 +855,7 @@ def request_stream(sock_path: str, frames, depth: int = 32):
                     return
                 _send_npy(c, np.asarray(f))
                 n_sent += 1
+            sent_all.set()
         except Exception as e:  # surfaced by the reader on short stream
             send_err.append(e)
         finally:
@@ -873,9 +875,12 @@ def request_stream(sock_path: str, frames, depth: int = 32):
                 st.join()
                 if send_err:
                     raise send_err[0]
-                if n_recv != n_sent:
+                # a sender that quit on ``dead`` left frames unsent: the
+                # stream is short even where every frame sent was answered
+                if n_recv != n_sent or not sent_all.is_set():
+                    left = "" if sent_all.is_set() else ", frames left unsent"
                     raise ConnectionError(
-                        f"server closed mid-stream ({n_recv}/{n_sent} answered)")
+                        f"server closed mid-stream ({n_recv}/{n_sent} answered{left})")
                 return
             n_recv += 1
             sem.release()

@@ -112,15 +112,16 @@ def apply_decoder(params: nn.ModuleDict, name: str, x: torch.Tensor, *, train: b
     """The decoder on channels_last NCHW features; ``train`` / ``stats``
     as in ``layers.apply_conv_bn``, paths relative to the decoder
     (``('stage2', 'dw', 'bn')``).  ``space``: the features' level in a
-    height-sharded forward (the nnconv decoders only, ROADMAP A12c)."""
+    height-sharded forward; each stage then runs on this rank's rows of
+    its level (``parallel/spatial.py``), and so does the result."""
     kind, k, dw = parse_decoder_name(name)
-    if space is not None and kind != "nnconv":
-        raise ValueError(S.SPACE_ZOO_NOT_PORTED.format(what=f"the {name} decoder"))
+    kw = dict(train=train, stats=stats)
     if kind == "shuffle":
         for i in range(1, 5):
-            x = _apply_conv_stage(B.pixel_shuffle(x, 2), params[f"conv{i}"], train=train,
-                                  stats=stats, path=(f"conv{i}",))
-        return B.pixel_shuffle(x, 2)
+            x = S.pixel_shuffle(x, space)
+            space = space and space.up()
+            x = _apply_conv_stage(x, params[f"conv{i}"], path=(f"conv{i}",), space=space, **kw)
+        return S.pixel_shuffle(x, space)
 
     for i in range(1, 6):
         p = params[f"stage{i}"]
@@ -128,30 +129,31 @@ def apply_decoder(params: nn.ModuleDict, name: str, x: torch.Tensor, *, train: b
         if kind == "deconv":
             # ConvTranspose2d(k, stride 2, (k-1)//2, output_padding k%2)
             # doubles the size for every k (models.py:145-180)
-            tkw = dict(stride=2, padding=(k - 1) // 2, output_padding=k % 2, train=train,
-                       stats=stats)
+            tkw = dict(stride=2, padding=(k - 1) // 2, output_padding=k % 2, space=space, **kw)
+            space = space and space.up()
             if dw:
                 x = L.apply_conv_bn(x, p["dw"], path=path + ("dw",), **tkw)
-                x = L.apply_conv_bn(x, p["pw"], train=train, stats=stats, path=path + ("pw",))
+                x = L.apply_conv_bn(x, p["pw"], path=path + ("pw",), space=space, **kw)
             else:
                 x = L.apply_conv_bn(x, p["conv"], path=path + ("conv",), **tkw)
         elif kind == "upconv":
-            x = L.apply_conv_bn(B.unpool_zero(x), p["conv"], train=train, stats=stats,
-                                path=path + ("conv",))
+            x = S.unpool_zero(x, space)
+            space = space and space.up()
+            x = L.apply_conv_bn(x, p["conv"], path=path + ("conv",), space=space, **kw)
         elif kind == "upproj":
-            x = B.unpool_zero(x)
-            b1 = L.apply_conv_bn(x, p["branch1_conv1"], train=train, stats=stats,
-                                 path=path + ("branch1_conv1",))
-            b1 = L.apply_conv_bn(b1, p["branch1_conv2"], act=None, train=train, stats=stats,
-                                 path=path + ("branch1_conv2",))
-            b2 = L.apply_conv_bn(x, p["branch2_conv"], act=None, train=train, stats=stats,
-                                 path=path + ("branch2_conv",))
+            x = S.unpool_zero(x, space)
+            space = space and space.up()
+            b1 = L.apply_conv_bn(x, p["branch1_conv1"], path=path + ("branch1_conv1",),
+                                 space=space, **kw)
+            b1 = L.apply_conv_bn(b1, p["branch1_conv2"], act=None,
+                                 path=path + ("branch1_conv2",), space=space, **kw)
+            b2 = L.apply_conv_bn(x, p["branch2_conv"], act=None, path=path + ("branch2_conv",),
+                                 space=space, **kw)
             x = B.relu(b1 + b2)
         elif kind == "nnconv":
-            x, space = S.upsample(_apply_conv_stage(x, p, train=train, stats=stats, path=path,
-                                                    space=space), space)
+            x, space = S.upsample(_apply_conv_stage(x, p, path=path, space=space, **kw), space)
         else:  # blconv
-            x = B.upsample_bilinear2x(_apply_conv_stage(x, p, train=train, stats=stats,
-                                                        path=path))
-    return L.apply_conv_bn(x, params["final"]["pw"], train=train, stats=stats,
-                           path=("final", "pw"), space=space)
+            x = S.upsample_bilinear2x(_apply_conv_stage(x, p, path=path, space=space, **kw),
+                                      space)
+            space = space and space.up()
+    return L.apply_conv_bn(x, params["final"]["pw"], path=("final", "pw"), space=space, **kw)

@@ -111,7 +111,7 @@ def apply_mobilenet_decoder(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelCo
                             space: Optional[S.Partition] = None) -> torch.Tensor:
     """NHWC forward of the plain MobileNet + registry decoder; statistics
     under ``('encoder', ...)`` and ``('decoder', 'stage1', ...)``.
-    ``space`` as in :func:`apply_fastdepth` (the nnconv decoders only)."""
+    ``space`` as in :func:`apply_fastdepth`."""
     lv = S.input_level(space, x, cfg)
     feats, _ = MN.apply_encoder(params["encoder"], B.from_nhwc(x), relu6=cfg.encoder_relu6,
                                 train=train, stats=L.sub_stats(stats, "encoder"), space=lv)

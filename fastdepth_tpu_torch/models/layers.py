@@ -136,19 +136,21 @@ def apply_conv_bn(x: torch.Tensor, p: ConvBN, *, stride: int = 1,
     :class:`TrainStats` with a group) and its new running statistics go
     to ``stats[path + ('bn',)]``.  ``space``: ``x`` holds this rank's rows
     of that level of a height-sharded forward (inference only), and the
-    conv is ``parallel.spatial.conv2d``: its halo rows exchanged, the
-    result this rank's rows of the output level."""
-    if space is not None:
-        if p.transpose or train:
-            raise ValueError("a height-sharded conv runs dense and depthwise convs for "
-                             "inference only")
+    conv is ``parallel.spatial.conv2d`` or ``conv_transpose2d``: its halo
+    rows exchanged, the result this rank's rows of the output level."""
+    if space is not None and train:
+        raise ValueError("a height-sharded conv runs for inference only")
+    if p.transpose:
+        cout = (p.b if p.bn is None else p.bn.mean).shape[0]
+        kw = dict(stride=stride, padding=padding or 0, output_padding=output_padding,
+                  groups=cout // p.w.shape[1])
+        if space is not None:
+            y = S.conv_transpose2d(x, p.w, p.b, level=space, **kw)
+        else:
+            y = B.conv2d_transpose(x, p.w, bias=p.b, **kw)
+    elif space is not None:
         y = S.conv2d(x, p.w, p.b, level=space, stride=stride, padding=padding,
                      groups=x.shape[1] if depthwise else 1)
-    elif p.transpose:
-        cout = (p.b if p.bn is None else p.bn.mean).shape[0]
-        y = B.conv2d_transpose(x, p.w, stride=stride, padding=padding or 0,
-                               output_padding=output_padding, groups=cout // p.w.shape[1],
-                               bias=p.b)
     else:
         conv = B.depthwise_conv2d if depthwise else B.conv2d
         y = conv(x, p.w, stride=stride, padding=padding, bias=p.b)

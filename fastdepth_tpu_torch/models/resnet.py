@@ -14,6 +14,11 @@ tap projections (add) or widens the stages to the taps (concat).
 The additive skip is added BEFORE each upsample, and at stage 5 before
 the conv (models.py:534-556); MobileNet's comes after the upsample, so
 the two families share no decoder code.
+
+Under a ``space`` level (a height-sharded forward, ``parallel/
+spatial.py``) every activation, the taps too, is this rank's rows of
+its level: the stem, the max pool and each block's strided conv step
+the level down, each decoder upsample steps it up.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from fastdepth_tpu_torch.config import ModelConfig
 from fastdepth_tpu_torch.models import decoders as D
 from fastdepth_tpu_torch.models import layers as L
 from fastdepth_tpu_torch.ops import blocks as B
+from fastdepth_tpu_torch.parallel import spatial as S
 
 # torchvision ResNet block counts and Bottleneck depths
 RESNET_LAYERS = {18: (2, 2, 2, 2), 34: (3, 4, 6, 3), 50: (3, 4, 6, 3),
@@ -79,41 +85,69 @@ def make_resnet_encoder(layers: int, in_channels: int = 3, *,
     return params
 
 
-def _apply_block(x, p, stride, bottleneck, *, train, stats, path):
+def _apply_block(x, p, stride, bottleneck, *, train, stats, path, space=None):
+    """One block; ``space``: the level of ``x``, and the block's output
+    is at ``space.down(stride=stride)`` (the strided conv and the 1x1
+    ``downsample`` land on the same rows, so the residual add is local)."""
     kw = dict(train=train, stats=stats)
+    out = space and space.down(stride=stride)
     if bottleneck:  # the stride sits on the 3x3 conv2 (torchvision v1.5)
-        y = L.apply_conv_bn(x, p["conv1"], path=path + ("conv1",), **kw)
-        y = L.apply_conv_bn(y, p["conv2"], stride=stride, path=path + ("conv2",), **kw)
-        y = L.apply_conv_bn(y, p["conv3"], act=None, path=path + ("conv3",), **kw)
+        y = L.apply_conv_bn(x, p["conv1"], path=path + ("conv1",), space=space, **kw)
+        y = L.apply_conv_bn(y, p["conv2"], stride=stride, path=path + ("conv2",), space=space,
+                            **kw)
+        y = L.apply_conv_bn(y, p["conv3"], act=None, path=path + ("conv3",), space=out, **kw)
     else:
-        y = L.apply_conv_bn(x, p["conv1"], stride=stride, path=path + ("conv1",), **kw)
-        y = L.apply_conv_bn(y, p["conv2"], act=None, path=path + ("conv2",), **kw)
+        y = L.apply_conv_bn(x, p["conv1"], stride=stride, path=path + ("conv1",), space=space,
+                            **kw)
+        y = L.apply_conv_bn(y, p["conv2"], act=None, path=path + ("conv2",), space=out, **kw)
     idn = x
     if "downsample" in p:
         idn = L.apply_conv_bn(x, p["downsample"], stride=stride, act=None,
-                              path=path + ("downsample",), **kw)
+                              path=path + ("downsample",), space=space, **kw)
     return B.relu(y + idn)
 
 
+def _stride(s: int, b: int) -> int:
+    """Block ``b`` of layer ``s``'s stride: 2 on the first block of layers 2-4."""
+    return 2 if (b == 0 and s > 1) else 1
+
+
 def apply_resnet_encoder(params: nn.ModuleDict, x: torch.Tensor, layers: int, *,
-                         train: bool = False, stats: Optional[L.StatsDict] = None
+                         train: bool = False, stats: Optional[L.StatsDict] = None,
+                         space: Optional[S.Level] = None
                          ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Channels_last NCHW -> (final features, [x1, x3, x4, x5, x6]), the
     skip taps of ResNetSkipAdd/Concat (reference models.py:515-531);
     statistics under ``('conv1', 'bn')``, ``('layer1', 'block0', 'conv1',
-    'bn')``."""
+    'bn')``.  ``space``: the level of ``x`` in a height-sharded forward;
+    the features and the taps are then this rank's rows of their levels
+    (:func:`output_level`)."""
     bottleneck = layers in BOTTLENECK
     x1 = L.apply_conv_bn(x, params["conv1"], stride=2, padding=3, train=train, stats=stats,
-                         path=("conv1",))
-    y = B.max_pool_3x3_s2(x1)
+                         path=("conv1",), space=space)
+    space = space and space.down(7, 2, 3)
+    y = S.max_pool_3x3_s2(x1, space)
+    space = space and space.down()
     taps = [x1]
     for s, n in enumerate(RESNET_LAYERS[layers], start=1):
         stage = params[f"layer{s}"]
         for b in range(n):
-            y = _apply_block(y, stage[f"block{b}"], 2 if (b == 0 and s > 1) else 1, bottleneck,
-                             train=train, stats=stats, path=(f"layer{s}", f"block{b}"))
+            y = _apply_block(y, stage[f"block{b}"], _stride(s, b), bottleneck, train=train,
+                             stats=stats, path=(f"layer{s}", f"block{b}"), space=space)
+            space = space and space.down(stride=_stride(s, b))
         taps.append(y)
     return y, taps
+
+
+def output_level(level: Optional[S.Level]) -> Optional[S.Level]:
+    """The encoder's output level of a height-sharded forward whose input
+    has ``level`` (None stays None): the stem, the pool and layers 2-4's
+    strides."""
+    if level is not None:
+        level = level.down(7, 2, 3)
+        for _ in range(4):  # the pool, layers 2-4
+            level = level.down()
+    return level
 
 
 def _tap_widths(layers: int) -> Tuple[int, ...]:
@@ -166,26 +200,35 @@ def make_resnet_depth(cfg: ModelConfig, *, folded: bool = False) -> nn.ModuleDic
 
 
 def apply_resnet_depth(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig, *,
-                       train: bool = False, stats: Optional[L.StatsDict] = None) -> torch.Tensor:
+                       train: bool = False, stats: Optional[L.StatsDict] = None,
+                       space: Optional[S.Partition] = None) -> torch.Tensor:
     """NHWC forward; statistics under ``('encoder', ...)`` and
-    ``('decoder', ...)`` as in JAX."""
+    ``('decoder', ...)`` as in JAX.  ``space``: the forward is
+    height-sharded over that partition; ``x`` and the result hold this
+    rank's rows of the image (``parallel.spatial.input_level``)."""
     layers = resnet_depth(cfg)
+    lv = S.input_level(space, x, cfg)
     feats, (x1, x3, x4, x5, x6) = apply_resnet_encoder(
         params["encoder"], B.from_nhwc(x), layers, train=train,
-        stats=L.sub_stats(stats, "encoder"))
-    x7 = B.conv2d(feats, params["conv2"].w, bias=params["conv2"].b)
+        stats=L.sub_stats(stats, "encoder"), space=lv)
+    lv = output_level(lv)
+    x7 = B.conv2d(feats, params["conv2"].w, bias=params["conv2"].b)  # 1x1: local
     dec = params["decoder"]
     if cfg.skip is None:
         return B.to_nhwc(D.apply_decoder(dec, cfg.decoder, x7, train=train,
-                                         stats=L.sub_stats(stats, "decoder")))
+                                         stats=L.sub_stats(stats, "decoder"), space=lv))
 
     def dc(i, v):
         p = dec[f"decode_conv{i}"]
         key = "conv" if "conv" in p else "pw"
         return L.apply_conv_bn(v, p[key], train=train, stats=stats,
-                               path=("decoder", f"decode_conv{i}", key))
+                               path=("decoder", f"decode_conv{i}", key), space=lv)
 
-    up = B.upsample_nearest2x
+    def up(v):
+        nonlocal lv
+        v, lv = S.upsample(v, lv)
+        return v
+
     if cfg.skip == "add":
         proj = dec["skip_proj"] if "skip_proj" in dec else {}
 
@@ -194,7 +237,7 @@ def apply_resnet_depth(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig,
             if name not in proj:
                 return v
             return L.apply_conv_bn(v, proj[name], act=None, train=train, stats=stats,
-                                   path=("decoder", "skip_proj", name))
+                                   path=("decoder", "skip_proj", name), space=lv)
 
         # models.py:534-556: add before the upsample; at stage 5 before the conv
         y = up(dc(1, x7) + tap("x6", x6))

@@ -54,6 +54,16 @@ sharded convs add in another order than the whole image's (f32 on the
 CPU: about 1e-5 m on these depths), and a pixel whose depth ratio lies
 that close to 1.25^k crosses it: the first run here moved one pixel of
 one image's delta1, 1 / 50176 of it (7e-5 relative).
+
+    python -m fastdepth_tpu_torch.parallel.dryrun --space --model resnet50-upproj
+
+runs the same two checks on any model of the registry (``models.
+from_name``) at 224^2 with random weights: ``Model.init`` seeded with
+:data:`ZOO_SEED`, every BatchNorm's statistics drawn and the last conv
+made non-negative (:func:`zoo_model`; random deep models otherwise give
+depth maps that are ~0 or dark).  Those outputs reach far above 1, so
+the forward is held within :data:`SPACE_ATOL` of ``max(1, max|one
+process|)``, the report's ``forward_scale``.
 """
 
 from __future__ import annotations
@@ -79,6 +89,7 @@ STATS_TOLERANCE = 1e-4  # the running statistics (module docstring)
 SPACE_ATOL = 1e-4  # the height-sharded forward against one process (f32)
 SPACE_EVAL_BATCH = 4  # the 2x2 Evaluator's global batch
 DELTA_PIXELS = 2  # pixels a delta fraction may move under the 2x2 mesh (docstring)
+ZOO_SEED = 9  # Model.init's and the drawn BatchNorms' seed under --model
 WEIGHTS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "docs", "rehearsal_model_r5.npz")
 # tiny widths that satisfy the skip-add tap constraint
@@ -305,6 +316,55 @@ def flagship():
     return model, model.load(params_from_jax(tree))
 
 
+# the last conv of each decoder: the depth head, or the shuffle decoders'
+# last stage (their output is its pixel shuffle)
+LAST_CONVS = ("decoder.final.pw", "decoder.decode_conv6.pw", "decoder.conv4.pw",
+              "decoder.conv4.conv")
+
+
+def random_bn(params, seed: int):
+    """Make Model.init's tree carry signal to the output, in place: draw
+    every BatchNorm's statistics (scale and var in [0.5, 1.5), mean N(0,
+    0.1), bias in [0, 0.2)) and make the last conv's weights non-negative.
+    Model.init leaves BatchNorm at its defaults, and the reference's He
+    rule for a depthwise conv (n = k^2 * C) shrinks activations C-fold a
+    layer: at init a MobileNet's depth map is ~1e-17 (measured on one H100).
+    Deep random ResNets go the other way: their activations grow into a
+    common mode per channel, so a random head's sign is the same at every
+    pixel and its ReLU can be dark on the whole map.  Non-negative weights
+    over non-negative (post-ReLU) inputs and a positive bias keep the
+    output lit wherever its input is."""
+    from fastdepth_tpu_torch.models.layers import BatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, m in params.named_modules():
+            if isinstance(m, BatchNorm):
+                c = m.mean.numel()
+                m.scale.copy_(torch.rand(c, generator=gen) + 0.5)
+                m.var.copy_(torch.rand(c, generator=gen) + 0.5)
+                m.mean.copy_(torch.randn(c, generator=gen) * 0.1)
+                m.bias.copy_(torch.rand(c, generator=gen) * 0.2)
+            elif name in LAST_CONVS:
+                m.w.abs_()
+    return params
+
+
+def zoo_model(name: str, seed: int = ZOO_SEED):
+    """(model, params on the CPU) of a registry model: Model.init's tree,
+    seeded, given signal by :func:`random_bn`."""
+    from fastdepth_tpu_torch.models import from_name
+
+    model = from_name(name)
+    return model, random_bn(model.init(torch.Generator().manual_seed(seed)), seed)
+
+
+def space_model(name=None):
+    """(model, params): the trained flagship, or with ``name`` the
+    registry model of :func:`zoo_model`."""
+    return flagship() if name is None else zoo_model(name)
+
+
 def space_inputs():
     """The seeded b1 frame of the forward check and the seeded
     (rgb, depth) batch of the Evaluator check, 224^2."""
@@ -344,7 +404,7 @@ def space_eval(model, params, rgb, depth, mesh=None) -> np.ndarray:
     return ev.fetch(ev(ev.put(rgb), ev.put(depth))[1], dim=1)
 
 
-def _space_rank(rank: int, world: int, tmp: str, threads: int) -> None:
+def _space_rank(rank: int, world: int, tmp: str, threads: int, name=None) -> None:
     """One gloo rank of :func:`space_run`: S = 2 forward (two ranks) or the
     2x2 Evaluator (four); rank 0 saves the result."""
     import torch.distributed as dist
@@ -355,7 +415,7 @@ def _space_rank(rank: int, world: int, tmp: str, threads: int) -> None:
     torch.set_num_threads(threads)
     init_group("cpu", rank, world, store=dist.FileStore(os.path.join(tmp, "store"), world))
     try:
-        model, params = flagship()
+        model, params = space_model(name)
         x, rgb, depth = space_inputs()
         if world == 2:
             out = space_forward(model, params, x, make_mesh(2, "space"))
@@ -367,10 +427,11 @@ def _space_rank(rank: int, world: int, tmp: str, threads: int) -> None:
         np.save(os.path.join(tmp, "result.npy"), out)
 
 
-def space_run(work: str) -> dict:
-    """The ``--space`` dryrun in ``work``: the two- and the four-rank job
-    spawned together, the single-process references meanwhile; returns
-    the report."""
+def space_run(work: str, name=None) -> dict:
+    """The ``--space`` dryrun in ``work`` on the trained flagship, or with
+    ``name`` on that registry model (:func:`space_model`): the two- and
+    the four-rank job spawned together, the single-process references
+    meanwhile; returns the report."""
     import time
 
     t0 = time.perf_counter()
@@ -380,9 +441,9 @@ def space_run(work: str) -> dict:
         tmp = os.path.join(work, f"w{world}")
         os.makedirs(tmp)
         ctxs[world] = (tmp, torch.multiprocessing.start_processes(
-            _space_rank, args=(world, tmp, threads), nprocs=world, start_method="spawn",
+            _space_rank, args=(world, tmp, threads, name), nprocs=world, start_method="spawn",
             join=False))
-    model, params = flagship()
+    model, params = space_model(name)
     x, rgb, depth = space_inputs()
     want_fwd = space_forward(model, params, x)
     want_eval = space_eval(model, params, rgb, depth)
@@ -409,15 +470,21 @@ def space_run(work: str) -> dict:
         "eval_max_rel_diff": eval_rel,
         "eval_delta_max_pixels": delta_pixels,
     }
-    ok = (checks["forward_shape_ok"] and checks["forward_finite"] and fwd_err <= SPACE_ATOL
+    fwd_bound = SPACE_ATOL
+    if name is not None:  # random weights: the bound scales with the output
+        checks["forward_scale"] = max(1.0, float(np.abs(want_fwd).max()))
+        fwd_bound = SPACE_ATOL * checks["forward_scale"]
+    ok = (checks["forward_shape_ok"] and checks["forward_finite"] and fwd_err <= fwd_bound
           and checks["eval_finite_equal"] and eval_rel <= TOLERANCE
           and delta_pixels <= DELTA_PIXELS + 1e-3)
     return {"ok": bool(ok), "checks": checks,
-            "bounds": {"forward_max_abs_diff": SPACE_ATOL, "eval_max_rel_diff": TOLERANCE,
+            "bounds": {"forward_max_abs_diff": fwd_bound, "eval_max_rel_diff": TOLERANCE,
                        "eval_delta_max_pixels": DELTA_PIXELS},
             "topology": {"forward": "2 gloo ranks, make_mesh(2, 'space')",
                          "eval": "4 gloo ranks, make_mesh_2d(2, 2)"},
-            "model": "mobilenet-nnconv5dw-skipadd-pruned, 224x224, docs/rehearsal_model_r5.npz",
+            "model": ("mobilenet-nnconv5dw-skipadd-pruned, 224x224, docs/rehearsal_model_r5.npz"
+                      if name is None else f"{name}, 224x224, random weights (seed "
+                                           f"{ZOO_SEED}, drawn BatchNorms)"),
             "seconds": time.perf_counter() - t0}
 
 
@@ -426,17 +493,22 @@ def main(argv=None) -> int:
     ap.add_argument("--report", default=None, help="also write the JSON report here")
     ap.add_argument("--space", action="store_true",
                     help="the space axis's dryrun (module docstring) instead")
+    ap.add_argument("--model", default=None, metavar="NAME",
+                    help="with --space: a registry model (e.g. resnet50-upproj) at random "
+                         "weights instead of the trained flagship")
     ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--root", help=argparse.SUPPRESS)
     ap.add_argument("--out", help=argparse.SUPPRESS)
     ap.add_argument("--ports", type=int, nargs=2, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.model is not None and not args.space:
+        ap.error("--model takes --space")
     if args.rank is not None:  # one rank of run()'s pair
         run_both(args.root, args.out, dist_argv(args.ports[0], args.rank),
                  dist_argv(args.ports[1], args.rank))
         return 0
     with tempfile.TemporaryDirectory(prefix="fdtorch_dryrun_") as work:
-        report = space_run(work) if args.space else run(work)
+        report = space_run(work, args.model) if args.space else run(work)
     print(json.dumps(report, indent=1))
     if args.report:
         with open(args.report, "w") as f:

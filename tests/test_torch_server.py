@@ -21,6 +21,7 @@ import json
 import os
 import pickle
 import socket
+import sys
 import threading
 import time
 from concurrent.futures import Future, wait
@@ -720,6 +721,55 @@ def test_request_stream_no_hang_on_server_eof(rng, tmp_path):
     _join(server)
     assert "got" not in outcome, "the stream ended as if every frame was answered"
     assert isinstance(outcome["error"], (ConnectionError, BrokenPipeError, OSError))
+
+
+def test_request_stream_raises_when_the_sender_quits_early(rng, tmp_path):
+    """The truncation the EOF test can only catch by chance, made certain:
+    the frames' generator holds the sender after its 2nd frame until the
+    fake server has answered both and closed, and until the stream's
+    reader has seen that EOF (the ``dead`` flag of the sender's closure,
+    read off the frame that asks for frame 3).  The sender then quits
+    with 38 frames unsent and 2 of 2 sent answered: ``request_stream``
+    must raise ``ConnectionError``, not end as a 2-answer stream."""
+    sock_path = str(tmp_path / "short.sock")
+    lsock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    lsock.bind(sock_path)
+    lsock.listen(1)
+    lsock.settimeout(RESULT_S)
+    closed = threading.Event()
+
+    def fake_server():
+        try:
+            conn, _ = lsock.accept()
+            with conn:
+                for _ in range(2):
+                    srv_mod._send_npy(conn, srv_mod._recv_npy(conn)[..., :1])
+        finally:
+            lsock.close()
+            closed.set()
+
+    def frames():
+        for _ in range(2):
+            yield rng.rand(4, 4, 3).astype(np.float32)
+        assert closed.wait(RESULT_S)
+        assert sys._getframe(1).f_locals["dead"].wait(RESULT_S)
+        for _ in range(38):
+            yield rng.rand(4, 4, 3).astype(np.float32)
+
+    server = _start(fake_server)
+    outcome = {}
+
+    def consume():
+        try:
+            outcome["got"] = len(list(request_stream(sock_path, frames(), depth=4)))
+        except Exception as e:
+            outcome["error"] = e
+
+    _join(_start(consume), RESULT_S)
+    _join(server)
+    assert "got" not in outcome, f"the stream ended after {outcome.get('got')} of 40 frames"
+    assert isinstance(outcome["error"], ConnectionError), outcome["error"]
+    assert "2/2 answered, frames left unsent" in str(outcome["error"])
 
 
 def test_resolve_future_idempotent():

@@ -2,8 +2,13 @@
 and ``parallel/mesh.py``) and serving over a mesh, on the CPU over gloo —
 the port's counterpart of ``tests/test_spatial.py``:
 
-- the row partition and K1's row window, in plain versions, without
-  ranks;
+- the row partition (each model's fewest rows a shard, its widest
+  halo) and K1's row window, in plain versions, without ranks;
+- every sharded op of the rest of the zoo (``conv_transpose2d`` k = 3,
+  5, 7, 9 dense and depthwise, the ``-inf`` max pool, bilinear x2, the
+  zero-unpool, the pixel shuffle, 7x7 and 1x1 stride-2 convs) at S = 2
+  and 4, on sharded and replicated levels: each rank's rows against the
+  unsharded op sliced (f64 atol 1e-12);
 - the height-sharded fused, opt and straight forwards of the MobileNet +
   NNConv family at S = 2 and 4 (two and four spawned ranks,
   ``tests/torch_spatial_ranks.py``) against the port's single-process
@@ -21,9 +26,19 @@ the port's counterpart of ``tests/test_spatial.py``:
   (``parallel/dryrun.py``), run by the same ranks;
 - a world-1 ``space`` mesh in this process: the forwards and the
   Evaluator bit for bit the runs without a mesh (what the card runs);
-- ``cli.evaluate --mesh-devices 2 --mesh-spatial 2 --device cpu`` against
-  the run without a mesh (rtol 1e-5, tests/test_eval_e2e.py's);
-- the rest of the zoo refused under ``space``, naming ROADMAP A12c.
+- the height-sharded forwards of the rest of the zoo (the MobileNet
+  decoders deconv, upconv, upproj, blconv, shuffle, nnconv{7,9}, and
+  ResNets plain, skip-add and skip-concat, ResNet-50 + UpProj) at S = 2
+  and 4 against the port's single-process forward (f64 atol 1e-9) and,
+  on a subset that covers every new halo rule, JAX's jitted forward on
+  ``make_mesh(S, 'space')`` (f32, 1e-4 of the output's scale: the random
+  ResNets' depths reach 1e3-1e4); the 2 x 2 Evaluator on a ResNet
+  against JAX's 2 x 2 Evaluator and against no mesh (rtol 1e-5), a
+  ``space`` = 2 mesh server on a zoo model (atol 1e-5), world-1 meshes
+  bit for bit, and an image too short for a model's shards refused;
+- ``cli.evaluate --mesh-devices 2 --mesh-spatial 2 --device cpu`` on the
+  flagship family and on a ResNet against the run without a mesh (rtol
+  1e-5, tests/test_eval_e2e.py's).
 
 The spawned jobs start together once for the module (the ``jobs``
 fixture) while this process computes the references.
@@ -52,7 +67,6 @@ from fastdepth_tpu.parallel.mesh import put_sharded as jax_put_sharded
 
 from fastdepth_tpu_torch.checkpoint import params_to_jax, save_checkpoint
 from fastdepth_tpu_torch.engine import Evaluator
-from fastdepth_tpu_torch.engine.aot import _pick_apply
 from fastdepth_tpu_torch.metrics import METRIC_FIELDS
 from fastdepth_tpu_torch.models import from_name
 from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
@@ -63,6 +77,7 @@ from fastdepth_tpu_torch.parallel import spatial as S
 from test_cli_tools import _make_nyu_tree
 from torch_port_config import to_jax
 from torch_threads import child_env
+from torch_zoo import assert_close
 import torch_spatial_ranks as R
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -71,16 +86,19 @@ F64_ATOL, F32_ATOL, JAX_ATOL = 1e-9, 1e-5, 1e-4
 # cli.evaluate on a tiny checkpoint over an h5 tree: without a mesh, then
 # --mesh-devices 2 --mesh-spatial 2 (four spawned ranks), then the same
 # with --device-preprocess (whole raw frames, each rank gathering its
-# rows of the 224-row output)
+# rows of the 224-row output); then a ResNet checkpoint without a mesh
+# and over the same mesh
 CLI_JOB = """
 import pickle, sys
 from fastdepth_tpu_torch.cli import evaluate
-ckpt, root, out = sys.argv[1:]
-base = ["--evaluate", ckpt, "--data-root", root, "--batch-size", "2", "--print-freq", "0",
-        "--no-images", "--workers", "1", "--device", "cpu"]
+ckpt, resnet, root, out = sys.argv[1:]
+base = ["--data-root", root, "--batch-size", "2", "--print-freq", "0", "--no-images",
+        "--workers", "1", "--device", "cpu"]
 mesh = ["--mesh-devices", "2", "--mesh-spatial", "2"]
-runs = {"plain": evaluate.main(base), "mesh": evaluate.main(base + mesh),
-        "device_preprocess": evaluate.main(base + ["--device-preprocess"] + mesh)}
+flagship, zoo = ["--evaluate", ckpt] + base, ["--evaluate", resnet] + base
+runs = {"plain": evaluate.main(flagship), "mesh": evaluate.main(flagship + mesh),
+        "device_preprocess": evaluate.main(flagship + ["--device-preprocess"] + mesh),
+        "resnet_plain": evaluate.main(zoo), "resnet_mesh": evaluate.main(zoo + mesh)}
 with open(out, "wb") as f:
     pickle.dump({k: v.as_dict() for k, v in runs.items()}, f)
 """
@@ -111,10 +129,11 @@ def jobs(tmp_path_factory):
              str(out)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     root = base / "cli"
     _make_nyu_tree(str(root / "nyudepthv2" / "val"), np.random.RandomState(7), 4)
-    ckpt = str(base / "tiny.npz")
+    ckpt, resnet = str(base / "tiny.npz"), str(base / "resnet.npz")
     save_checkpoint(ckpt, params_to_jax(R.init().state_dict()), R.CFGS["skipadd"])
+    save_checkpoint(resnet, params_to_jax(R.init(R.ZOO_CLI).state_dict()), R.CFGS[R.ZOO_CLI])
     procs["cli"] = subprocess.Popen(
-        [sys.executable, "-c", CLI_JOB, ckpt, str(root), str(base / "cli.pkl")], env=env,
+        [sys.executable, "-c", CLI_JOB, ckpt, resnet, str(root), str(base / "cli.pkl")], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=str(base))
     yield {"base": base, "procs": procs}
     for p in procs.values():
@@ -167,6 +186,32 @@ def test_every_level_is_covered_once(levels, replicated, n_space):
             got.add(rows)
             assert bounds == [(0, rows)] * n_space
     assert got == replicated[n_space]
+
+
+@pytest.mark.parametrize("name, rows, replicated", [
+    ("mobilenet-nnconv5dw-skipadd-pruned", 2, {4: {4, 2}}),
+    ("mobilenet-nnconv3", 2, {4: {4, 2}}),
+    ("mobilenet-deconv9dw", 2, {4: {4, 2}}),
+    ("mobilenet-upproj", 2, {4: {4, 2}}),
+    ("resnet18-nnconv5-skipadd", 3, {2: {4, 2}, 4: {8, 4, 2}}),
+    ("resnet50-upproj", 3, {2: {4, 2}, 4: {8, 4, 2}}),
+    ("mobilenet-nnconv7dw", 3, {2: {4, 2}, 4: {8, 4, 2}}),
+    ("mobilenet-blconv7", 3, {2: {4, 2}, 4: {8, 4, 2}}),
+    ("mobilenet-nnconv9", 4, {2: {4, 2}, 4: {8, 4, 2}}),
+    ("mobilenet-shuffle9dw", 4, {2: {4, 2}, 4: {8, 4, 2}}),
+])
+def test_a_shard_holds_the_models_widest_halo(name, rows, replicated):
+    """Each model's fewest rows a shard (its widest halo: ResNet's 7x7
+    stem 3, a k x k decoder conv (k - 1) / 2, a transposed conv at most
+    2; never under the flagship family's 2), the partition of its 64^2
+    levels under it, and the image input_level takes or refuses."""
+    cfg = from_name(name).config
+    assert S.min_rows(cfg) == rows
+    for n_space, want in replicated.items():
+        part = S.Partition(n_space, 0, min_rows=rows)
+        assert {r for r in LEVELS_64 if not part.sharded(r)} == want
+        lv = S.input_level(S.Partition(n_space, 0), torch.zeros(1, 64 // n_space, 8, 3), cfg)
+        assert lv.part.min_rows == rows and lv.sharded
 
 
 def _stage_operands(h, c=12, cout=8, n=2, dtype=torch.float64, seed=0):
@@ -416,15 +461,146 @@ def test_evaluate_cli_mesh_spatial_matches_no_mesh(cli_runs, run):
         np.testing.assert_allclose(got[f], plain[f], rtol=1e-5, err_msg=f)
 
 
-@pytest.mark.parametrize("name", [
-    "resnet18-nnconv5dw-skipadd", "resnet50-upproj", "mobilenet-deconv3", "mobilenet-upconv",
-    "mobilenet-blconv5dw", "mobilenet-shuffle5", "mobilenet-nnconv7dw",
+def test_evaluate_cli_mesh_spatial_on_a_resnet_matches_no_mesh(cli_runs):
+    """The same CLI on a ResNet checkpoint (:data:`R.ZOO_CLI`, 224^2:
+    its 7x7 stem, max pool and strided 1x1 convs sharded over two rows of
+    shards of at least 3 rows) against its run without a mesh."""
+    plain, got = cli_runs["resnet_plain"], cli_runs["resnet_mesh"]
+    for f in METRIC_FIELDS:
+        np.testing.assert_allclose(got[f], plain[f], rtol=1e-5, err_msg=f)
+
+
+# --- the rest of the zoo under the space axis ----------------------------------
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case", R.OP_CASES, ids=[c[0] for c in R.OP_CASES])
+def test_sharded_op_matches_the_unsharded_op_sliced(ranks, world, case):
+    """Each rank's rows of a sharded op (``parallel/spatial.py``) equal the
+    unsharded op of ``ops/blocks.py`` on the whole level, sliced to the
+    rank's rows of the output level (a replicated one: all of them), in
+    f64 within 1e-12.  The inputs' top rows are negative, so a zero fill
+    of the max pool's halo would show."""
+    x = R.op_operands(case)[0]
+    want = R.run_op(case, x)
+    got = ranks[world]["ops"][case[0]]
+    assert len(got) == world
+    for rank, y in enumerate(got):
+        lo, hi = R.op_level(case, world, rank, want.shape[2]).bounds()
+        assert y.shape == want[:, :, lo:hi].shape, (rank, y.shape)
+        np.testing.assert_allclose(y.numpy(), want[:, :, lo:hi].numpy(), rtol=0, atol=1e-12,
+                                   err_msg=f"rank {rank}")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", R.ZOO)
+def test_zoo_sharded_forward_matches_the_single_process_forward(ranks, world, name):
+    """S = world ranks' gathered straight forward of a zoo model against
+    the port's forward of the whole image in one process, f64 within
+    1e-9 (the random ResNets' outputs reach 1e4: about 1e-11 apart)."""
+    got = ranks[world]["zoo"][(name, str(torch.float64))]
+    want = R.zoo_forward(name, torch.float64, R.rgb()).numpy()
+    assert got.shape == want.shape == (R.FWD_BATCH, R.HW, R.HW, 1)
+    assert np.isfinite(got).all() and got.std() > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=F64_ATOL)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", R.ZOO_OPT)
+def test_zoo_sharded_opt_forward_matches_the_single_process_one(ranks, world, name):
+    """The head-commute forward ('opt', what ``impl='auto'`` runs on the
+    NNConv 7x7 / 9x9 decoders at batch > 1) height-sharded, against its
+    single-process run, f64 within 1e-9."""
+    got = ranks[world]["zoo"][(name, str(torch.float64), "opt")]
+    want = R.zoo_forward(name, torch.float64, R.rgb(), impl="opt").numpy()
+    assert np.isfinite(got).all() and got.std() > 0
+    np.testing.assert_allclose(got, want, rtol=0, atol=F64_ATOL)
+
+
+@pytest.fixture(scope="module")
+def jax_zoo_space_forwards(jobs):
+    """JAX's jitted straight forward of each :data:`R.ZOO_JAX` model on
+    ``make_mesh(S, 'space')`` for S = 2, 4, the same numpy params, f32:
+    {(model, S): NHWC array}."""
+    x = jnp.asarray(R.rgb(dtype=np.float32))
+    out = {}
+    for name in R.ZOO_JAX:
+        model = jax_build(to_jax(R.CFGS[name]))
+        tree = jax.tree.map(jnp.asarray, params_to_jax(R.init(name).state_dict()))
+        for n_space in (2, 4):
+            mesh = jax_make_mesh(n_space, "space")
+            f = jax.jit(model.apply,
+                        in_shardings=(jax.tree.map(lambda _: replicate(mesh), tree),
+                                      shard_activations(mesh)),
+                        out_shardings=shard_activations(mesh))
+            out[name, n_space] = np.asarray(f(jax_put_replicated(tree, mesh),
+                                              jax_put_sharded(x, mesh)))
+    return out
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("name", R.ZOO_JAX)
+def test_zoo_sharded_forward_matches_jax_on_a_space_mesh(ranks, jax_zoo_space_forwards,
+                                                          world, name):
+    """f32 within 1e-4 of the output's scale, max(1, max|JAX|)
+    (``tests/torch_zoo.assert_close``, the zoo's bound)."""
+    got = ranks[world]["zoo"][(name, str(torch.float32))]
+    assert_close(got, jax_zoo_space_forwards[name, world], 1e-4)
+
+
+def test_zoo_evaluator_2d_mesh_matches_no_mesh_and_jax(ranks):
+    """The 2 x 2 Evaluator on :data:`R.ZOO_EVALUATED` (a ResNet, unfolded)
+    against the port's Evaluator without a mesh and JAX's Evaluator on
+    ``make_mesh_2d(2, 2)`` (rtol 1e-5, atol 1e-6)."""
+    name = R.ZOO_EVALUATED
+    x, d = R.eval_batch()
+    ev = Evaluator(R.MODELS[name], R.init(name), batch_size=R.EVAL_BATCH, device="cpu",
+                   fold_bn=False)
+    plain = ev(ev.put(x), ev.put(d))[1].numpy()
+    jev = JaxEvaluator(jax_build(to_jax(R.CFGS[name])),
+                       jax.tree.map(jnp.asarray, params_to_jax(R.init(name).state_dict())),
+                       batch_size=R.EVAL_BATCH, fold_bn=False, mesh=jax_make_mesh_2d(2, 2))
+    jax_rows = np.asarray(jev(jev.put(x), jev.put(d))[1])
+    got = ranks[4]["eval_zoo"]
+    for want in (plain, jax_rows):
+        fin = np.isfinite(want)
+        assert fin.any() and np.array_equal(np.isfinite(got), fin)
+        np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=1e-6)
+
+
+def test_zoo_mesh_server_answers_the_single_process_prediction(ranks):
+    """A ``space`` = 2 mesh server on :data:`R.ZOO_SERVED` (folded,
+    transposed 9x9 convs): every answer within 1e-5 of the straight
+    forward of the unfolded tree."""
+    preds = ranks[2]["serve_zoo"]
+    want = R.zoo_forward(R.ZOO_SERVED, torch.float32, np.stack(R.frames())).numpy()
+    assert len(preds) == R.SERVE_FRAMES
+    for got, ref in zip(preds, want):
+        np.testing.assert_allclose(got, ref, atol=1e-5)
+
+
+def test_world1_space_meshes_run_the_zoo_as_without_a_mesh(world1):
+    """``make_mesh(1, 'space')`` and ``make_mesh_2d(1, 1)`` give every zoo
+    forward bit for bit as without a mesh (what the card runs)."""
+    want = {name: R.zoo_forward(name, torch.float64, R.rgb()) for name in R.ZOO}
+    for mesh in (M.make_mesh(1, "space"), M.make_mesh_2d(1, 1)):
+        for name in R.ZOO:
+            got = R.zoo_forward(name, torch.float64, M.put_sharded(R.rgb(), mesh),
+                                space=mesh.partition())
+            assert torch.equal(got, want[name]), name
+
+
+@pytest.mark.parametrize("name, n_space, rows, min_rows", [
+    ("resnet18-nnconv5", 4, 8, 3),
+    ("mobilenet-nnconv9", 2, 6, 4),
+    ("mobilenet-nnconv5dw-skipadd", 4, 4, 2),
 ])
-def test_the_rest_of_the_zoo_is_refused_under_space_naming_a12c(name):
+def test_an_image_too_short_for_the_models_shards_is_refused(name, n_space, rows, min_rows):
+    """An image whose rows do not split into S shards of the model's
+    fewest rows (a 7x7-stem ResNet at 2 rows a shard) is refused by name,
+    before any collective."""
     model = from_name(name)
-    part = S.Partition(2, 0)
-    with pytest.raises(ValueError, match="ROADMAP A12c"):
-        _pick_apply(model, None, "auto", space=part)
-    with pytest.raises(ValueError, match="ROADMAP A12c"):
-        model.apply(None, torch.zeros(1, 64, 64, 3), space=part)
+    with pytest.raises(ValueError, match=f"a {rows}-row image does not split into {n_space} "
+                                         f"shards of at least {min_rows} rows"):
+        model.apply(None, torch.zeros(1, rows // n_space, 8, 3),
+                    space=S.Partition(n_space, 0))
 

@@ -8,12 +8,17 @@ ranks: the forwards at S = 4 (through replicated levels) and, on
 ``make_mesh_2d(2, 2)`` in the same job, the Evaluator and the server.
 Each world also runs the space dryrun's check on the full-width pruned
 flagship (``parallel/dryrun.py``: the S = 2 forward, the 2 x 2
-Evaluator).
+Evaluator), every sharded op of the zoo case by case (:data:`OP_CASES`)
+and the height-sharded forwards of the rest of the zoo (:data:`ZOO`: the
+MobileNet decoders other than NNConv{3,5}, and ResNets); the two-rank job
+also serves a zoo model over ``space`` = 2, the four-rank job runs the
+2 x 2 Evaluator on a ResNet.
 (A rank function must unpickle in a fresh interpreter: a module run by
 its path does, a test module under pytest-xdist's import path is
 fragile.)"""
 
 import contextlib
+import dataclasses
 import datetime
 import os
 import pickle
@@ -34,8 +39,10 @@ from fastdepth_tpu_torch.engine.server import InferenceServer  # noqa: E402
 from fastdepth_tpu_torch.models import build  # noqa: E402
 from fastdepth_tpu_torch.models import fused as F  # noqa: E402
 from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1  # noqa: E402
+from fastdepth_tpu_torch.ops import blocks as B  # noqa: E402
 from fastdepth_tpu_torch.ops.cuda import head as K4  # noqa: E402
 from fastdepth_tpu_torch.parallel import dryrun as DR  # noqa: E402
+from fastdepth_tpu_torch.parallel import spatial as S  # noqa: E402
 from fastdepth_tpu_torch.parallel.mesh import (  # noqa: E402
     fetch_global,
     make_mesh,
@@ -56,6 +63,27 @@ CFGS = {
     "nnconv5": ModelConfig(decoder="nnconv5", skip=None, encoder_channels=TINY_ENC,
                            decoder_channels=TINY_DEC),
 }
+# the rest of the zoo at the same tiny widths (the shuffle decoders
+# divide the encoder's width by 4 five times: a 1024-wide last block),
+# the ResNets at their fixed widths, the plain ones with TINY_DEC stages
+ENC_1024 = TINY_ENC[:13] + (1024,)
+ZOO_DECODERS = ("deconv3", "deconv5dw", "deconv7", "deconv9", "upconv", "upproj", "blconv3",
+                "blconv5dw", "blconv9dw", "shuffle3", "shuffle5", "shuffle9", "nnconv7dw",
+                "nnconv9")
+CFGS.update({f"mobilenet-{d}": ModelConfig(
+    decoder=d, skip=None, encoder_channels=ENC_1024 if d.startswith("shuffle") else TINY_ENC,
+    decoder_channels=TINY_DEC) for d in ZOO_DECODERS})
+CFGS.update({
+    "resnet18-nnconv5": ModelConfig(encoder="resnet18", decoder="nnconv5", skip=None,
+                                    decoder_channels=TINY_DEC),
+    "resnet18-nnconv5dw-skipadd": ModelConfig(encoder="resnet18", decoder="nnconv5dw",
+                                              skip="add"),
+    "resnet18-nnconv5-skipconcat": ModelConfig(encoder="resnet18", decoder="nnconv5",
+                                               skip="concat"),
+    "resnet50-upproj": ModelConfig(encoder="resnet50", decoder="upproj", skip=None,
+                                   decoder_channels=TINY_DEC),
+})
+ZOO = tuple(k for k in CFGS if k.startswith(("mobilenet-", "resnet")))
 MODELS = {k: build(c) for k, c in CFGS.items()}
 HW = 64
 FWD_BATCH = 2
@@ -79,7 +107,10 @@ def init(name: str = "skipadd", dtype=torch.float32):
             m.scale.data.copy_(torch.rand(c, generator=gen) + 0.5)
             m.bias.data.copy_(torch.rand(c, generator=gen) * 0.2)
     dec = params["decoder"]
-    head = dec["decode_conv6" if "decode_conv6" in dec else "final"]["pw"]
+    if "conv4" in dec:  # a shuffle decoder: its last conv stage feeds the output
+        head = dec["conv4"]["pw" if "pw" in dec["conv4"] else "conv"]
+    else:
+        head = dec["decode_conv6" if "decode_conv6" in dec else "final"]["pw"]
     head.w.data.abs_()
     head.bn.bias.data.abs_()
     return params.to(dtype)
@@ -150,6 +181,119 @@ FORWARDS = [("skipadd", "xla", torch.float64), ("skipadd", "opt", torch.float64)
             ("nnconv5", "xla", torch.float64), ("nnconv5", "opt", torch.float64)]
 
 
+# the zoo's forwards held against JAX's space mesh in f32: every new
+# halo rule (ResNet's stem, pool and strided 1x1 with the add skips and
+# the bottleneck, the unpool, transposed 9x9, bilinear with a 9x9 dw,
+# the pixel shuffle with a 9x9)
+ZOO_JAX = ("resnet18-nnconv5dw-skipadd", "resnet50-upproj", "mobilenet-deconv9",
+           "mobilenet-blconv9dw", "mobilenet-shuffle9")
+ZOO_SERVED = "mobilenet-deconv9"  # the space = 2 mesh server's model
+ZOO_EVALUATED = "resnet18-nnconv5dw-skipadd"  # the 2 x 2 Evaluator's
+ZOO_CLI = "resnet18-nnconv5"  # the checkpoint of the test module's cli.evaluate job
+
+
+# the NNConv 7x7 / 9x9 decoders through the head-commute forward too,
+# what impl='auto' runs on them at batch > 1
+ZOO_OPT = ("mobilenet-nnconv7dw", "mobilenet-nnconv9")
+
+
+def zoo_forward(name: str, dtype, x, space=None, impl: str = "xla"):
+    """A zoo model's forward of ``x``: straight on the unfolded tree
+    (``impl`` 'xla'), or 'opt' on the folded one."""
+    model, params = MODELS[name], init(name, dtype)
+    with torch.inference_mode():
+        x = torch.as_tensor(x).to(dtype)
+        if impl == "opt":
+            return F.apply_fastdepth_opt(model.fold(params), x, model.config, space=space)
+        return model.apply(params, x, space=space)
+
+
+def _zoo_forwards(mesh) -> dict:
+    """Every :data:`ZOO` forward in f64, the :data:`ZOO_JAX` ones in f32
+    and the :data:`ZOO_OPT` ones through 'opt' in f64, height-sharded
+    over ``mesh``'s space axis, gathered: {(model, dtype name[, 'opt']):
+    NHWC array}."""
+    out = {}
+    runs = ([(n, torch.float64, "xla") for n in ZOO] + [(n, torch.float32, "xla") for n in ZOO_JAX]
+            + [(n, torch.float64, "opt") for n in ZOO_OPT])
+    for name, dtype, impl in runs:
+        y = zoo_forward(name, dtype, put_sharded(rgb(), mesh), space=mesh.partition(), impl=impl)
+        key = (name, str(dtype)) + (() if impl == "xla" else (impl,))
+        out[key] = fetch_global(y, mesh, dim=0, space_dim=1)
+    return out
+
+
+# --- the sharded ops, case by case: (case, op, kernel, depthwise, input
+# rows, the partition's min_rows); each at S = 2 and 4, on levels sharded
+# and replicated, into levels sharded and replicated
+OP_BATCH, OP_C, OP_W = 2, 4, 6
+OP_CASES = (
+    [(f"tconv{k}{dw}-{r}", "tconv", k, bool(dw), r, 2)
+     for k in (3, 5, 7, 9) for dw in ("", "dw") for r in (8, 4)]
+    + [(f"{op}-{r}", op, k, False, r, 3)
+       for op, k in (("maxpool", 3), ("conv7s2", 7), ("conv1s2", 1)) for r in (24, 16, 8)]
+    + [(f"{op}-{r}", op, 0, False, r, 2) for op in ("bilinear", "unpool", "shuffle")
+       for r in (8, 4)])
+
+
+def op_operands(case):
+    """(x, w, b) of an op case, seeded, f64: ``x`` (N, C, rows, W)
+    channels_last with its top two rows negative (a zero fill of the max
+    pool's halo would show), the weights of a conv or transposed conv."""
+    name, op, k, dw, rows, _ = case
+    g = torch.Generator().manual_seed(sum(map(ord, name)))
+    x = torch.randn(OP_BATCH, OP_C, rows, OP_W, generator=g, dtype=torch.float64)
+    x[:, :, :2] = -x[:, :, :2].abs() - 1
+    w = b = None
+    if op == "tconv":
+        w = torch.randn(OP_C, 1 if dw else 3, k, k, generator=g, dtype=torch.float64)
+        b = torch.randn(OP_C if dw else 3, generator=g, dtype=torch.float64)
+    elif op.startswith("conv"):
+        w = torch.randn(3, OP_C, k, k, generator=g, dtype=torch.float64)
+        b = torch.randn(3, generator=g, dtype=torch.float64)
+    return x.contiguous(memory_format=torch.channels_last), w, b
+
+
+def run_op(case, x, level=None):
+    """The case's op of ``x``: its sharded form under ``level``, the
+    unsharded op of ``ops/blocks.py`` without one."""
+    _, op, k, dw, _, _ = case
+    _, w, b = op_operands(case)
+    if op == "tconv":
+        kw = dict(stride=2, padding=(k - 1) // 2, output_padding=k % 2,
+                  groups=OP_C if dw else 1)
+        if level is None:
+            return B.conv2d_transpose(x, w, bias=b, **kw)
+        return S.conv_transpose2d(x, w, b, level=level, **kw)
+    if op.startswith("conv"):
+        if level is None:
+            return B.conv2d(x, w, stride=2, bias=b)
+        return S.conv2d(x, w, b, level=level, stride=2)
+    plain = {"maxpool": S.max_pool_3x3_s2, "bilinear": S.upsample_bilinear2x,
+             "unpool": S.unpool_zero, "shuffle": S.pixel_shuffle}[op]
+    return plain(x, level)
+
+
+def op_level(case, world: int, rank: int, rows: int) -> S.Level:
+    """Rank ``rank``'s level of ``rows`` rows under the case's partition."""
+    return S.Level(S.Partition(world, rank, min_rows=case[5]), rows)
+
+
+def _ops(mesh) -> dict:
+    """Every :data:`OP_CASES` op on this rank's rows: {case name: [each
+    rank's output rows]} (rank 0's all-gather)."""
+    part = mesh.partition()
+    out = {}
+    for case in OP_CASES:
+        x = op_operands(case)[0]
+        level = S.Level(dataclasses.replace(part, min_rows=case[5]), x.shape[2])
+        y = run_op(case, level.take(x), level)
+        got = [None] * part.size
+        dist.all_gather_object(got, y)
+        out[case[0]] = got
+    return out
+
+
 def _forwards(mesh) -> dict:
     """Every forward of :data:`FORWARDS`, height-sharded over ``mesh``'s
     space axis, gathered: {(model, impl, dtype name): NHWC array}."""
@@ -161,10 +305,10 @@ def _forwards(mesh) -> dict:
     return out
 
 
-def _serve(mesh, **kw) -> list:
+def _serve(mesh, name: str = "skipadd", **kw) -> list:
     """The mesh server's answers to :func:`frames` (rank 0; None on the
     others, whose servers follow until rank 0 closes)."""
-    with InferenceServer(MODELS["skipadd"], init(), batch_size=SERVE_BATCH,
+    with InferenceServer(MODELS[name], init(name), batch_size=SERVE_BATCH,
                          image_size=(HW, HW), mesh=mesh, **kw) as srv:
         if dist.get_rank() != 0:
             return None
@@ -201,13 +345,13 @@ def _error(fn) -> str:
     return ""
 
 
-def _evaluate(mesh, **kw) -> np.ndarray:
+def _evaluate(mesh, name: str = "skipadd", **kw) -> np.ndarray:
     """The metric stack of :func:`eval_batch` through an Evaluator over
     ``mesh``, each rank putting its data rows."""
     x, d = eval_batch()
     n = EVAL_BATCH // mesh.size
     rows = slice(mesh.rank * n, (mesh.rank + 1) * n)
-    ev = Evaluator(MODELS["skipadd"], init(), batch_size=EVAL_BATCH, mesh=mesh, **kw)
+    ev = Evaluator(MODELS[name], init(name), batch_size=EVAL_BATCH, mesh=mesh, **kw)
     return ev.fetch(ev(ev.put(x[rows]), ev.put(d[rows]))[1], dim=1)
 
 
@@ -222,6 +366,9 @@ def scenarios(world: int) -> dict:
         out["serve_data"] = _serve(data)
         out["serve_space"] = _serve(space)
         out["serve_space_chain"] = _serve(space, chain=True)
+        out["serve_zoo"] = _serve(space, ZOO_SERVED)
+        out["ops"] = _ops(space)
+        out["zoo"] = _zoo_forwards(space)
         model = MODELS["skipadd"]
         out["refuse_chain_data"] = _error(lambda: InferenceServer(
             model, init(), batch_size=2, image_size=(HW, HW), mesh=data, chain=True))
@@ -239,6 +386,9 @@ def scenarios(world: int) -> dict:
         out["eval_straight"] = _evaluate(mesh2, fold_bn=False)
         out["eval_fused"] = _evaluate(mesh2)
         out["serve_2d"] = _serve(mesh2)
+        out["eval_zoo"] = _evaluate(mesh2, ZOO_EVALUATED, fold_bn=False)
+        out["ops"] = _ops(space)
+        out["zoo"] = _zoo_forwards(space)
         out["dryrun_eval"] = DR.space_eval(*DR.flagship(), *DR.space_inputs()[1:], mesh2)
     return out
 
