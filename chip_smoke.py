@@ -120,7 +120,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    for bit the call without one, rank 1's window times beside the whole
    level's, each rank's MAC share under the partition's replicated
    levels, and K1's whole-image five-level f32 b8 time within 5% of its
-   time before the window; world-1 make_mesh(1, 'space') and make_mesh_2d(1, 1) over NCCL
+   time before the window; every rank's tile of the zoo's 31 sharded-op
+   cases at S = 2 and 4 through the card's convolutions, in this process
+   with the halo exchange replaced by slices of the whole input
+   (parallel/halo_check.py), against the unsharded op within 1e-4 *
+   max(1, max|unsharded|); world-1 make_mesh(1, 'space') and make_mesh_2d(1, 1) over NCCL
    (Evaluator metric rows 0 apart from no mesh, K1 5 and K4 1 launches a
    forward, the eval step b8 f32 with and without them, a mesh
    InferenceServer's answers 0 apart from the server without one and the
@@ -152,7 +156,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    reduced sweep (the flagship with its 'mixed' row from the committed
    tuning/h100.* record, and mobilenet-nnconv5; b1, b32; both dtypes),
    and cli.visualize's PNGs;
-17. prints each phase's seconds, the kernels' JSON line, then the
+17. bench: python -m fastdepth_tpu_torch.bench (the root bench.py's rows
+   and JSON line on the card) in a fresh process, its line printed and
+   checked (bench.py's keys, every required row a positive number, no
+   error row), K1's and K4's launches over one forward of its bf16
+   'pallas' b32 row (5 and 1), each held against its plain version on
+   its own operands, and a second run killed with SIGTERM once its first
+   row is measured (exit 124, one JSON line with 'aborted' and that row);
+18. graft: fastdepth_tpu_torch/graft_entry.py (the root
+   __graft_entry__.py's entry points): entry()'s forward on the card
+   against the CPU's within 1e-3 * max(1, max|cpu|), dryrun_multichip(1)
+   over NCCL at world 1, and dryrun_multichip(4, device='cpu') over four
+   gloo ranks on the CPU (a 1 x 4 (data, space) mesh included);
+19. prints each phase's seconds, the kernels' JSON line, then the
    result line.
 
 Nothing here, and nothing of the port it drives, imports JAX or the JAX
@@ -3057,6 +3073,31 @@ def _space_zoo(meshes: dict, loader, card: dict) -> dict:
     return out
 
 
+def halo_tiles_check(card: dict) -> dict:
+    """The zoo's halo rules through the card's convolutions
+    (``parallel/halo_check.py``): every rank's tile of the 31 sharded-op
+    cases at S = 2 and 4, in this process (the exchange replaced by slices
+    of the whole input), against the unsharded op on the card, f32 within
+    1e-4 * max(1, max|unsharded|).  A world-1 mesh runs the unsharded ops,
+    so nothing else sends a cropped tile through cuDNN here."""
+    from fastdepth_tpu_torch.parallel import halo_check as H
+
+    t0 = time.perf_counter()
+    rows = H.check("cuda", torch.float32)
+    torch.cuda.synchronize()
+    worst = max(rows, key=lambda r: r["max_abs_err"] / r["bound"])
+    print(f"space halo tiles on {card['nvidia_smi']}: {len(H.OP_CASES)} cases x S = "
+          f"{', '.join(map(str, H.WORLDS))}, {sum(r['sharded'] for r in rows)} of {len(rows)} "
+          f"on sharded input levels; worst {worst['case']}@S={worst['world']} "
+          f"{worst['max_abs_err']:.3e} (bound {worst['bound']:.1e}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    missed = H.misses(rows)
+    if missed:
+        fail(f"halo rules on the card: {len(missed)} of {len(rows)} (case, S) miss the bound: "
+             f"{missed}")
+    return {"cases": len(H.OP_CASES), "rows": len(rows), "worst": worst}
+
+
 def _space_dryrun(*extra) -> dict:
     """``parallel/dryrun.py --space`` in a subprocess (gloo ranks on the
     CPU); its JSON report, or the run fails."""
@@ -3079,6 +3120,8 @@ def space_phase(model, params, kernels: dict, card: dict) -> dict:
     one card:
     - what the replicated levels cost each rank (replicated_work);
     - K1's row-window mode (k1_window_checks);
+    - the zoo's halo rules through cuDNN, every rank's tile in this
+      process (halo_tiles_check);
     - world-1 make_mesh(1, 'space') and make_mesh_2d(1, 1) over NCCL:
       Evaluator metric rows 0 apart from no mesh with K1 launched 5 times
       and K4 once a forward, the eval step b8 f32 with and without the
@@ -3101,7 +3144,7 @@ def space_phase(model, params, kernels: dict, card: dict) -> dict:
 
     t0 = time.perf_counter()
     out = {"replicated_work": replicated_work(model.config),
-           "k1_windows": k1_window_checks(kernels, card)}
+           "k1_windows": k1_window_checks(kernels, card), "halo_tiles": halo_tiles_check(card)}
     with tempfile.TemporaryDirectory() as tmp:
         init_group("cuda", 0, 1, store=dist.FileStore(os.path.join(tmp, "store"), 1))
         try:
@@ -3363,6 +3406,229 @@ def visualize_check(model, params) -> dict:
     return sizes
 
 
+BENCH_TIMEOUT_S = 600  # the bench's own budget (BENCH_BUDGET_S) is 420 s
+BENCH_KILL_S = 120  # the killed bench: its first row's line, then its exit
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "best_config", "detail"]
+
+
+def _bench_row_faults(detail: dict) -> list:
+    """What is wrong with a bench line's rows: an ``error: ...`` row, a
+    required row (and its b1 latency) missing or not a positive number,
+    an optional row or the train row neither measured nor skipped over
+    the budget."""
+    from fastdepth_tpu_torch import bench
+
+    bad = [f"{k}: {v}" for k, v in detail.items()
+           if isinstance(v, str) and v.startswith("error:")]
+    for required, rows in ((True, bench.REQUIRED), (False, bench.OPTIONAL)):
+        for tag, _, _, batch in rows:
+            keys = [f"{tag}_b{batch}_fps"] + ([f"{tag}_b{batch}_latency_ms"] if batch == 1
+                                              else [])
+            if not required and f"skipped_{tag}_b{batch}" in detail:
+                continue
+            bad += [f"{k}: {detail.get(k)!r}" for k in keys
+                    if not isinstance(detail.get(k), (int, float)) or not detail[k] > 0]
+    train = f"{bench.TRAIN_TAG}_b{bench.TRAIN_BATCH}"
+    if f"skipped_{train}" not in detail and not (
+            isinstance(detail.get(f"{train}_fps"), (int, float)) and detail[f"{train}_fps"] > 0):
+        bad.append(f"{train}_fps: {detail.get(f'{train}_fps', detail.get(train))!r}")
+    return bad
+
+
+def _bench_launches() -> dict:
+    """K1's and K4's launches over one forward of the bench's bf16 'pallas'
+    row (the row function the CLI times: ``bench.row_forward`` on
+    ``bench.cast``'s copy), counted in this process after a warm-up call,
+    and each of those launches held against its kernel's plain version
+    on the launch's own operands on the card (``engine.benchmark.
+    tolerance``: bf16 2^-7 * max|plain|), since K1's launch geometry
+    (threads, split-C groups, C chunk) follows the batch, and b32 runs
+    nowhere else in this script."""
+    from fastdepth_tpu_torch import bench
+    from fastdepth_tpu_torch.engine.benchmark import tolerance
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+
+    tag, dtype, impl, batch = next(r for r in bench.OPTIONAL if r[2] == "pallas")
+    model, params32 = bench.flagship()
+    params = bench.cast(model, params32, getattr(torch, dtype), "cuda")
+    fn = bench.row_forward(model, params, impl, batch)
+    x = torch.from_numpy(np.random.RandomState(0).rand(batch, *OUTPUT_HW, 3)).to(
+        "cuda", getattr(torch, dtype))
+    fn(params, x)
+    torch.cuda.synchronize()
+    calls = []
+    stage, head = K1._stage_cuda, K4._head_cuda
+
+    def kept(label, kernel, plain):
+        def launch(*args):
+            out = kernel(*args)
+            calls.append((label, plain, args, out.clone()))
+            return out
+        return launch
+    K1._stage_cuda = kept("K1", stage, K1.fused_decoder_stage_reference)
+    K4._head_cuda = kept("K4", head, K4.pointwise_head_reference)
+    try:
+        _reset(K1, K4)
+        y = fn(params, x)
+        torch.cuda.synchronize()
+        k1, k4 = _counts(K1, K4)
+    finally:
+        K1._stage_cuda, K4._head_cuda = stage, head
+    print(f"bench {tag}_b{batch} row forward ({impl} -> {bench.PORT_IMPL[impl]}): K1 {k1}, "
+          f"K4 {k4} launches a forward")
+    if (k1, k4) != (STAGES_PER_FORWARD, 1):
+        fail(f"bench {tag}_b{batch}: K1 launched {k1} and K4 {k4} times a forward, want "
+             f"{STAGES_PER_FORWARD} and 1")
+    if tuple(y.shape) != (batch, *OUTPUT_HW, 1) or not torch.isfinite(y.float()).all():
+        fail(f"bench {tag}_b{batch}: forward {tuple(y.shape)}, finite "
+             f"{bool(torch.isfinite(y.float()).all())}")
+    err = {"K1": 0.0, "K4": 0.0}
+    with torch.inference_mode():
+        for label, plain, args, got in calls:
+            want = plain(*args)
+            diff, tol = float((got.float() - want.float()).abs().max()), tolerance(want)
+            print(f"bench {tag}_b{batch} {label} {dtype} {tuple(args[0].shape)} -> "
+                  f"{tuple(got.shape)}: max|kernel - plain| {diff:.3e} (bound {tol:.3e})")
+            if not diff <= tol:
+                fail(f"bench {tag}_b{batch}: {label} at {tuple(args[0].shape)} disagrees with "
+                     f"its plain version: max|diff| {diff} > {tol}")
+            err[label] = max(err[label], diff)
+    return {"K1": k1, "K4": k4, "row": f"{tag}_b{batch}", "max_abs_err": err}
+
+
+def _bench_killed() -> dict:
+    """``python -m fastdepth_tpu_torch.bench`` sent SIGTERM once its first
+    row is measured (its first ``#   <row>: ... fps`` line): exit 124 and
+    one JSON line with ``aborted``, that row a positive number, the value
+    and best row its own, and the line's derived fields (``best_us_per_
+    frame``; the roofline ratios, since that row is ``bench.ROOFLINE_ROW``)
+    made inside the handler."""
+    import signal
+    import threading
+
+    from fastdepth_tpu_torch import bench
+
+    tag, _, _, batch = bench.REQUIRED[0]
+    row = f"{tag}_b{batch}"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "fastdepth_tpu_torch.bench"], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    measured = threading.Event()
+    err = []
+
+    def watch():
+        for text in proc.stderr:
+            err.append(text)
+            if text.startswith(f"#   {row}: ") and " fps" in text:
+                measured.set()
+    reader = threading.Thread(target=watch, daemon=True)
+    reader.start()
+    try:
+        if not measured.wait(BENCH_KILL_S):
+            fail(f"bench: no '#   {row}: ... fps' line within {BENCH_KILL_S} s")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(BENCH_KILL_S)
+        out = proc.stdout.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(BENCH_KILL_S)
+    lines = [s for s in out.splitlines() if s.strip()]
+    got = json.loads(lines[-1]) if lines else {}
+    detail = got.get("detail", {})
+    print(f"bench killed after its {row} row: exit {rc}, {len(lines)} stdout line(s), "
+          f"{time.perf_counter() - t0:.1f} s: {out.strip()}")
+    fps = detail.get(f"{row}_fps")
+    if (rc != 124 or len(lines) != 1 or "aborted" not in detail
+            or not isinstance(fps, (int, float)) or not fps > 0 or got.get("value") != fps
+            or got.get("best_config") != row or "best_us_per_frame" not in detail
+            or (row == bench.ROOFLINE_ROW
+                and not {"x_roofline_spec", "x_roofline_measured"} <= set(detail))):
+        fail(f"bench under SIGTERM after its {row} row: exit {rc}, stdout {out!r}, stderr "
+             f"{''.join(err)[-3000:]}")
+    return {"rc": rc, "line": got}
+
+
+def bench_phase(card: dict) -> dict:
+    """``python -m fastdepth_tpu_torch.bench`` (the port's counterpart of
+    the root bench.py) in a fresh process: its last stdout line, printed
+    here, has bench.py's keys, every required row a positive number, the
+    optional rows and the train row measured or skipped over the budget,
+    no ``error:`` row and a positive value; K1 5 and K4 1 launches over
+    the bf16 'pallas' row's forward, each held against its plain version
+    (:func:`_bench_launches`); and a second run killed with SIGTERM once
+    its first row is measured (:func:`_bench_killed`)."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fastdepth_tpu_torch.bench"],
+                          capture_output=True, text=True, cwd=REPO, timeout=BENCH_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    for text in proc.stderr.splitlines():
+        print(f"bench: {text}")
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        fail(f"bench exited {proc.returncode}: {proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    print(f"bench line on {card['nvidia_smi']} ({seconds:.1f} s): {lines[-1]}")
+    got = json.loads(lines[-1])
+    if list(got) != BENCH_KEYS:
+        fail(f"bench line keys {list(got)}, want bench.py's {BENCH_KEYS}")
+    bad = _bench_row_faults(got["detail"])
+    if bad or "aborted" in got["detail"] or not got["value"] > 0:
+        fail(f"bench rows: {bad}, value {got['value']}, detail {got['detail']}")
+    ratios = [k for k in ("x_roofline_spec", "x_roofline_measured") if k in got["detail"]]
+    print(f"bench: best row {got['best_config']} ({got['value']} frames/s); roofline fields "
+          + (", ".join(ratios) if ratios else "absent (bench.py's rule: only when "
+                                              "bf16_opt_b128 wins)"))
+    return {"line": got, "seconds": seconds, "launches": _bench_launches(),
+            "killed": _bench_killed()}
+
+
+def graft_phase(card: dict) -> dict:
+    """``fastdepth_tpu_torch/graft_entry.py``, the counterpart of the root
+    __graft_entry__.py: ``entry()``'s forward on the card against the CPU
+    forward of the same params, on its zeros and on seeded frames, within
+    1e-3 * max(1, max|cpu|) (f32, TF32 off); ``dryrun_multichip(1)`` on the
+    card (NCCL, world 1); ``dryrun_multichip(4, device='cpu')`` over four
+    gloo ranks on this machine's CPU (its 1 x 4 (data, space) mesh too), in
+    a fresh process."""
+    import copy
+
+    from fastdepth_tpu_torch import graft_entry as G
+
+    out = {}
+    fwd, (params, zeros) = G.entry()
+    x = torch.from_numpy(np.random.RandomState(15).rand(*zeros.shape).astype(np.float32))
+    params_cpu = copy.deepcopy(params).cpu()
+    for name, rgb in (("zeros", zeros.cpu()), ("seeded", x)):
+        got = fwd(params, rgb.cuda()).cpu()
+        want = fwd(params_cpu, rgb)
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        bound = 1e-3 * max(1.0, scale)
+        print(f"graft entry() {name} b{zeros.shape[0]} f32 on {card['nvidia_smi']}: "
+              f"{tuple(got.shape)} {got.dtype}, max|card - cpu| {err:.3e} (bound {bound:.1e}, "
+              f"max|cpu| {scale:.4f})")
+        if tuple(got.shape) != (zeros.shape[0], *OUTPUT_HW, 1) or not err <= bound:
+            fail(f"entry() {name}: {tuple(got.shape)}, max|card - cpu| {err} > {bound}")
+        out[f"entry_{name}"] = {"max_abs_err": err, "bound": bound, "max_cpu": scale}
+    t0 = time.perf_counter()
+    out["dryrun_1"] = G.dryrun_multichip(1)
+    print(f"graft dryrun_multichip(1) (NCCL, world 1): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "fastdepth_tpu_torch.graft_entry", "multichip",
+                           "4", "--device", "cpu"], capture_output=True, text=True, cwd=REPO,
+                          timeout=600)
+    ok = [s for s in proc.stdout.splitlines() if s.startswith("dryrun_multichip(4) ok:")]
+    print(f"graft dryrun_multichip(4, device='cpu') (four gloo ranks on the CPU, "
+          f"{time.perf_counter() - t0:.1f} s): {ok[0] if ok else proc.stdout[-500:]}")
+    if proc.returncode != 0 or len(ok) != 1 or "1x4 (data, space) mesh too" not in ok[0]:
+        fail(f"graft_entry multichip 4 --device cpu exited {proc.returncode}: "
+             f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    out["dryrun_4_cpu"] = ok[0]
+    return out
+
+
 KERNELS = [
     # (key, name, source, replaces); K5's and K6's replaces come from the
     # probe catalogue
@@ -3406,6 +3672,8 @@ def main() -> None:
     timed(space_phase, model, params, kernels, card)
     kernels.update(timed(probe_phase))
     timed(tools_phase, model, params, card)
+    bench = timed(bench_phase, card)
+    timed(graft_phase, card)
     # launches: each kernel's count on the f32 run of its path (K1: the
     # eval path, K2/K3: the v2/v3 forwards, K4: the deploy path, K5/K6:
     # the probe catalogue's run); ms / plain_ms: device time (events_ms
@@ -3420,7 +3688,8 @@ def main() -> None:
     # over the f32 server's counted run (serve phase); mixed_launches: over
     # the hand-mixed map's f32 validate() (tuned phase: 3 'pallas' levels);
     # bundle_launches: over the f32 bundle's cli.deploy --load-bundle run in
-    # a fresh process (bundle phase: BUNDLE_LOAD_CALLS calls)
+    # a fresh process (bundle phase: BUNDLE_LOAD_CALLS calls); bench_launches:
+    # over one forward of the bench's bf16 'pallas' b32 row (bench phase)
     launches = {"K1": e2e["f32"]["launches"], "K2": fwd["f32"]["v2"]["launches"],
                 "K3": fwd["f32"]["v3"]["launches"], "K4": dep["f32"]["k4_launches"],
                 "K5": kernels["K5"]["launches"], "K6": kernels["K6"]["launches"]}
@@ -3428,6 +3697,7 @@ def main() -> None:
     mixed_launches = {"K1": tuned["mixed hand f32"]["launches"],
                       "K4": tuned["mixed hand f32"]["k4_launches"]}
     bundle_launches = dict(zip(("K1", "K4"), bundle["f32"]["launches"]))
+    bench_launches = {k: bench["launches"][k] for k in ("K1", "K4")}
     print(f"chip_smoke: seconds by phase {json.dumps(phase_s)}")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": [{
@@ -3443,6 +3713,7 @@ def main() -> None:
         **({"serve_launches": serve_launches[key]} if key in serve_launches else {}),
         **({"mixed_launches": mixed_launches[key]} if key in mixed_launches else {}),
         **({"bundle_launches": bundle_launches[key]} if key in bundle_launches else {}),
+        **({"bench_launches": bench_launches[key]} if key in bench_launches else {}),
     } for key, name, source, replaces in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -159,6 +159,29 @@ def measured_composite_us(cfg, probe: dict, image_size: int = 224) -> float:
     return total
 
 
+def data_sheet_ceilings(probe: dict) -> Ceilings:
+    """bf16 ceilings at the published rates the calibration JSON records
+    (its ``data_sheet``): device memory, the tensor cores' bf16 rate for
+    the pointwise work and the CUDA cores' f32 rate for the depthwise
+    work, a MAC two FLOPs."""
+    ds = probe["data_sheet"]
+    return Ceilings(hbm_bps=ds["hbm_GBs"] * 1e9,
+                    pointwise_macs=ds["bf16_tensor_tflops"] * 1e12 / 2,
+                    depthwise_macs=ds["f32_tflops"] * 1e12 / 2, card=ds["source"])
+
+
+def spec_composite_us(cfg, probe: dict, image_size: int = 224) -> float:
+    """The per-frame spec-peak aggregate that the root ``bench.py`` divides
+    by for ``x_roofline_spec`` (its 37.7 us/frame is the TPU's:
+    ``docs/roofline.md``): every :func:`layer_bounds` row's bf16 bound at
+    :func:`data_sheet_ceilings`, the head row with a quarter of its bytes
+    (the head-commuted forward writes the head's output before the last
+    upsample)."""
+    ceil = data_sheet_ceilings(probe)
+    return sum(bound_seconds(hbm_e / 4 if key == "dec.head" else hbm_e, mxu, dw, 2, ceil)
+               for key, _macs, hbm_e, mxu, dw in layer_bounds(cfg, image_size)) * 1e6
+
+
 def bound_components_us(hbm_elems: int, mxu_macs: int, dw_macs: int, dtype_bytes: int,
                         ceilings: Ceilings, batch: int = 1) -> Tuple[float, float, float]:
     """(device memory, pointwise, depthwise) microseconds for a batch."""

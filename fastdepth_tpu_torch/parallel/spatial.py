@@ -26,7 +26,9 @@ every depth model of the registry (:func:`supports`):
   NCCL and gloo both carry), rows of a fill value at the image's top and
   bottom (zeros for a conv, ``-inf`` for the max pool); a negative halo
   crops the rank's own rows (a 1x1 stride-2 conv reads none of its last
-  row).
+  row).  A partition that holds its level's ``whole`` tensor reads the
+  neighbours' rows out of it instead, so one process can run every
+  rank's tile in turn (``parallel/halo_check.py``).
 * **The ops.**  :func:`conv2d` runs a k x k conv of a sharded level as
   an exchange, then ``F.conv2d`` with no padding along the height on the
   halo'd tile (cuDNN on the card, as the unsharded path); a pointwise
@@ -95,13 +97,17 @@ class Partition:
     """One rank's place on the space axis: the group's ``size`` S, this
     rank's ``rank`` s in it, the group, and the group's global ranks in
     space order (point-to-point peers are named by global rank), and the
-    fewest rows a shard of a level holds (a model's :func:`min_rows`)."""
+    fewest rows a shard of a level holds (a model's :func:`min_rows`).
+    ``whole``, where given, is the whole of the level whose halo rows and
+    gather it stands in for: no exchange then, the rows are read from it
+    (:meth:`Level.halo`)."""
 
     size: int
     rank: int
     group: Any = None
     ranks: Tuple[int, ...] = (0,)
     min_rows: int = MIN_ROWS  # the fewest rows a shard holds (min_rows(cfg))
+    whole: Optional[torch.Tensor] = dataclasses.field(default=None, compare=False, repr=False)
 
     def sharded(self, rows: int) -> bool:
         """True when a level of ``rows`` rows is split over the group."""
@@ -153,9 +159,12 @@ class Level:
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """The whole level from every rank's rows (an all-gather over the
-        space group; the tensor itself where the level is replicated)."""
+        space group, or the partition's ``whole``; the tensor itself where
+        the level is replicated)."""
         if not self.sharded:
             return x
+        if self.part.whole is not None:
+            return _like(self._whole(), x)
         t = x.contiguous()
         parts = [torch.empty_like(t) for _ in range(self.part.size)]
         dist.all_gather(parts, t, group=self.part.group)
@@ -167,35 +176,62 @@ class Level:
         and bottom): a sharded level only, whose shards hold at least as
         many rows as either halo.  A negative halo drops that many of
         the rank's own rows on its side instead."""
-        part = self.part
         lo, hi = self.bounds()
         if not self.sharded or max(above, below) > hi - lo:
             raise ValueError(f"a halo of {above} + {below} rows needs a level sharded into "
                              f"shards of at least that many rows; got {self.rows} rows over "
-                             f"{part.size} ranks")
+                             f"{self.part.size} ranks")
         n, c, h, w = x.shape
-        s = part.rank
-        ops, top, bottom = [], None, None
-        if above > 0:
-            top = x.new_full((n, c, above, w), fill)
+        top = x.new_full((n, c, above, w), fill) if above > 0 else None
+        bottom = x.new_full((n, c, below, w), fill) if below > 0 else None
+        if self.part.whole is not None:
+            self._read(top, bottom)
+        else:
+            self._exchange(x, top, bottom)
+        crop_top, crop_bottom = max(-above, 0), max(-below, 0)
+        own = x.narrow(2, crop_top, h - crop_top - crop_bottom)
+        return _like(torch.cat([t for t in (top, own, bottom) if t is not None], 2), x)
+
+    def _exchange(self, x: torch.Tensor, top: Optional[torch.Tensor],
+                  bottom: Optional[torch.Tensor]) -> None:
+        """Receive ``top`` from the rank before and ``bottom`` from the rank
+        after over the space group, sending them this rank's edge rows
+        (the image's edges keep their fill)."""
+        part, s, h = self.part, self.part.rank, x.shape[2]
+        ops = []
+        if top is not None:
             if s > 0:
                 ops.append(dist.P2POp(dist.irecv, top, part.ranks[s - 1], part.group))
             if s < part.size - 1:
-                ops.append(dist.P2POp(dist.isend, x[:, :, h - above:].contiguous(),
+                ops.append(dist.P2POp(dist.isend, x[:, :, h - top.shape[2]:].contiguous(),
                                       part.ranks[s + 1], part.group))
-        if below > 0:
-            bottom = x.new_full((n, c, below, w), fill)
+        if bottom is not None:
             if s < part.size - 1:
                 ops.append(dist.P2POp(dist.irecv, bottom, part.ranks[s + 1], part.group))
             if s > 0:
-                ops.append(dist.P2POp(dist.isend, x[:, :, :below].contiguous(),
+                ops.append(dist.P2POp(dist.isend, x[:, :, :bottom.shape[2]].contiguous(),
                                       part.ranks[s - 1], part.group))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-        crop_top, crop_bottom = max(-above, 0), max(-below, 0)
-        own = x.narrow(2, crop_top, h - crop_top - crop_bottom)
-        return _like(torch.cat([t for t in (top, own, bottom) if t is not None], 2), x)
+
+    def _read(self, top: Optional[torch.Tensor], bottom: Optional[torch.Tensor]) -> None:
+        """``top`` and ``bottom`` copied from the partition's ``whole``: the
+        rows the neighbours would send (the image's edges keep their
+        fill)."""
+        whole = self._whole()
+        lo, hi = self.bounds()
+        if top is not None and lo > 0:
+            top.copy_(whole[:, :, lo - top.shape[2]:lo])
+        if bottom is not None and hi < self.rows:
+            bottom.copy_(whole[:, :, hi:hi + bottom.shape[2]])
+
+    def _whole(self) -> torch.Tensor:
+        whole = self.part.whole
+        if whole.shape[2] != self.rows:
+            raise ValueError(f"the partition holds a {whole.shape[2]}-row level, "
+                             f"not this {self.rows}-row one")
+        return whole
 
 
 def supports(cfg) -> bool:

@@ -114,6 +114,29 @@ def test_the_walk_covers_the_parallel_slice():
         assert path in SOURCES, path
 
 
+def test_the_walk_covers_the_root_entry_points_slice():
+    for path in ("fastdepth_tpu_torch/bench.py", "fastdepth_tpu_torch/graft_entry.py",
+                 "fastdepth_tpu_torch/parallel/halo_check.py"):
+        assert path in SOURCES, path
+
+
+def test_bench_and_graft_entry_run_on_the_cpu_with_the_jax_package_blocked():
+    """The benchmark line at tiny widths on a 32^2 image and the graft
+    entry's forward, on the CPU, with both packages blocked."""
+    out = _run(TINY + """
+import contextlib, io, json
+from fastdepth_tpu_torch import bench, graft_entry
+bench.CONFIG, bench.IMAGE_SIZE, bench.CALLS, bench.TRAIN_STEPS = CFG, 32, 2, 1
+text = io.StringIO()
+with contextlib.redirect_stdout(text):
+    assert bench.main(["--device", "cpu"]) == 0
+line = json.loads(text.getvalue().splitlines()[-1])
+assert line["value"] > 0 and line["detail"]["train_bf16_b128_fps"] > 0, line
+assert graft_entry.main(["--device", "cpu"]) == 0
+""")
+    assert out.strip().endswith("entry ok: (8, 224, 224, 1) float32")
+
+
 def test_benchmark_cli_help_runs_with_the_jax_package_blocked():
     out = _run("""
 import contextlib, io
@@ -141,7 +164,7 @@ for sub in ("cli", "engine", "models", "checkpoint", "data", "ops", "ops.cuda", 
     pkg = importlib.import_module("fastdepth_tpu_torch." + sub)
     names.append(pkg.__name__)
     names += [pkg.__name__ + "." + m.name for m in pkgutil.iter_modules(pkg.__path__)]
-for n in ("config", "metrics", "viz"):
+for n in ("config", "metrics", "viz", "bench", "graft_entry"):
     names.append("fastdepth_tpu_torch." + n)
 for n in names:
     importlib.import_module(n)

@@ -1,6 +1,8 @@
 """K1, the port's fused decoder stage, against the JAX package's Pallas
 kernel (interpret mode on the CPU), and the CPU-side logic around it:
-dispatch, operand checks, launch counting and the nvcc build.
+dispatch, operand checks, launch counting and the nvcc build; on a card
+also the ``space`` axis's halo rules through cuDNN
+(``parallel/halo_check.py``).
 
 JAX is imported inside the one test that needs it, so that on a GPU host
 without JAX the card's tests run alone:
@@ -16,6 +18,7 @@ import torch
 from fastdepth_tpu_torch.ops import blocks as TB
 from fastdepth_tpu_torch.ops.cuda import _build
 from fastdepth_tpu_torch.ops.cuda import fused_decoder as K
+from fastdepth_tpu_torch.parallel import halo_check as H
 import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 
@@ -310,6 +313,25 @@ def test_custom_ops_launch_their_kernels_and_pass_opcheck_on_the_card(case):
     assert mod.LAUNCHES == before + 1
     assert out.is_contiguous(memory_format=torch.channels_last)
     torch.library.opcheck(op, args)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", H.WORLDS)
+@pytest.mark.parametrize("case", H.OP_CASES, ids=[c[0] for c in H.OP_CASES])
+def test_halo_rules_hold_through_the_cards_convolutions(world, case, monkeypatch):
+    """On a CUDA device: each rank's tile of a sharded op of the ``space``
+    axis (one process, the exchange replaced by slices of the whole
+    input: ``parallel/halo_check.py``), through the card's convolutions
+    (cuDNN), against the unsharded op on the card sliced to the rank's
+    rows: f32 within 1e-4 * max(1, max|unsharded|), the order of sums of
+    a cropped tile (TF32 off).  ``chip_smoke.space_phase`` runs the same
+    cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (on a GPU host: python -m pytest "
+                    "--noconftest tests/test_torch_kernels.py -m cuda)")
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)  # true f32 convs
+    row = H.check_case(case, world, "cuda", torch.float32)
+    assert row["ok"], row
+
 
 LEVELS = [(7, 512, 200), (14, 200, 256), (28, 256, 120), (56, 120, 56), (112, 56, 16),
           (7, 1024, 512), (9, 33, 13), (9, 33, 200)]

@@ -71,6 +71,7 @@ from fastdepth_tpu_torch.metrics import METRIC_FIELDS
 from fastdepth_tpu_torch.models import from_name
 from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
 from fastdepth_tpu_torch.parallel import dryrun as DR
+from fastdepth_tpu_torch.parallel import halo_check as H
 from fastdepth_tpu_torch.parallel import mesh as M
 from fastdepth_tpu_torch.parallel import spatial as S
 
@@ -488,6 +489,27 @@ def test_sharded_op_matches_the_unsharded_op_sliced(ranks, world, case):
         lo, hi = R.op_level(case, world, rank, want.shape[2]).bounds()
         assert y.shape == want[:, :, lo:hi].shape, (rank, y.shape)
         np.testing.assert_allclose(y.numpy(), want[:, :, lo:hi].numpy(), rtol=0, atol=1e-12,
+                                   err_msg=f"rank {rank}")
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case", R.OP_CASES, ids=[c[0] for c in R.OP_CASES])
+def test_sliced_exchange_gives_the_gloo_ranks_tiles(ranks, world, case):
+    """``parallel/halo_check.py`` runs every rank's tile in one process with
+    the exchange replaced by slices of the whole input
+    (``Partition.whole``): on the CPU in f64 each tile is what the rank
+    computed after the gloo ranks' real exchange, within 1e-12 (a rank's
+    process sums a whole-level conv on fewer threads than this one).  So
+    the card's check of the same tiles
+    (``tests/test_torch_kernels.py::test_halo_rules_hold_through_the_cards_convolutions``
+    and ``chip_smoke.space_phase``) runs the halo rules as a mesh runs
+    them."""
+    got = H.tiles(case, world, R.op_operands(case)[0])
+    real = ranks[world]["ops"][case[0]]
+    assert len(got) == len(real) == world
+    for rank, (y, want) in enumerate(zip(got, real)):
+        assert y.shape == want.shape, rank
+        np.testing.assert_allclose(y.numpy(), want.numpy(), rtol=0, atol=1e-12,
                                    err_msg=f"rank {rank}")
 
 

@@ -39,9 +39,9 @@ from fastdepth_tpu_torch.engine.server import InferenceServer  # noqa: E402
 from fastdepth_tpu_torch.models import build  # noqa: E402
 from fastdepth_tpu_torch.models import fused as F  # noqa: E402
 from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1  # noqa: E402
-from fastdepth_tpu_torch.ops import blocks as B  # noqa: E402
 from fastdepth_tpu_torch.ops.cuda import head as K4  # noqa: E402
 from fastdepth_tpu_torch.parallel import dryrun as DR  # noqa: E402
+from fastdepth_tpu_torch.parallel import halo_check as H  # noqa: E402
 from fastdepth_tpu_torch.parallel import spatial as S  # noqa: E402
 from fastdepth_tpu_torch.parallel.mesh import (  # noqa: E402
     fetch_global,
@@ -223,60 +223,9 @@ def _zoo_forwards(mesh) -> dict:
     return out
 
 
-# --- the sharded ops, case by case: (case, op, kernel, depthwise, input
-# rows, the partition's min_rows); each at S = 2 and 4, on levels sharded
-# and replicated, into levels sharded and replicated
-OP_BATCH, OP_C, OP_W = 2, 4, 6
-OP_CASES = (
-    [(f"tconv{k}{dw}-{r}", "tconv", k, bool(dw), r, 2)
-     for k in (3, 5, 7, 9) for dw in ("", "dw") for r in (8, 4)]
-    + [(f"{op}-{r}", op, k, False, r, 3)
-       for op, k in (("maxpool", 3), ("conv7s2", 7), ("conv1s2", 1)) for r in (24, 16, 8)]
-    + [(f"{op}-{r}", op, 0, False, r, 2) for op in ("bilinear", "unpool", "shuffle")
-       for r in (8, 4)])
-
-
-def op_operands(case):
-    """(x, w, b) of an op case, seeded, f64: ``x`` (N, C, rows, W)
-    channels_last with its top two rows negative (a zero fill of the max
-    pool's halo would show), the weights of a conv or transposed conv."""
-    name, op, k, dw, rows, _ = case
-    g = torch.Generator().manual_seed(sum(map(ord, name)))
-    x = torch.randn(OP_BATCH, OP_C, rows, OP_W, generator=g, dtype=torch.float64)
-    x[:, :, :2] = -x[:, :, :2].abs() - 1
-    w = b = None
-    if op == "tconv":
-        w = torch.randn(OP_C, 1 if dw else 3, k, k, generator=g, dtype=torch.float64)
-        b = torch.randn(OP_C if dw else 3, generator=g, dtype=torch.float64)
-    elif op.startswith("conv"):
-        w = torch.randn(3, OP_C, k, k, generator=g, dtype=torch.float64)
-        b = torch.randn(3, generator=g, dtype=torch.float64)
-    return x.contiguous(memory_format=torch.channels_last), w, b
-
-
-def run_op(case, x, level=None):
-    """The case's op of ``x``: its sharded form under ``level``, the
-    unsharded op of ``ops/blocks.py`` without one."""
-    _, op, k, dw, _, _ = case
-    _, w, b = op_operands(case)
-    if op == "tconv":
-        kw = dict(stride=2, padding=(k - 1) // 2, output_padding=k % 2,
-                  groups=OP_C if dw else 1)
-        if level is None:
-            return B.conv2d_transpose(x, w, bias=b, **kw)
-        return S.conv_transpose2d(x, w, b, level=level, **kw)
-    if op.startswith("conv"):
-        if level is None:
-            return B.conv2d(x, w, stride=2, bias=b)
-        return S.conv2d(x, w, b, level=level, stride=2)
-    plain = {"maxpool": S.max_pool_3x3_s2, "bilinear": S.upsample_bilinear2x,
-             "unpool": S.unpool_zero, "shuffle": S.pixel_shuffle}[op]
-    return plain(x, level)
-
-
-def op_level(case, world: int, rank: int, rows: int) -> S.Level:
-    """Rank ``rank``'s level of ``rows`` rows under the case's partition."""
-    return S.Level(S.Partition(world, rank, min_rows=case[5]), rows)
+# --- the sharded ops, case by case (parallel/halo_check.py: the cases,
+# their operands, the op sharded or not, a rank's level)
+OP_CASES, op_operands, run_op, op_level = H.OP_CASES, H.op_operands, H.run_op, H.op_level
 
 
 def _ops(mesh) -> dict:
