@@ -93,12 +93,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bf16 with K1's and K4's launches in its validation, and the step time
    at b8 and b128 in f32 and bf16 with the peak memory;
 12. input: the input pipeline's on-card half on the committed weights
-   over seeded raw frames: device augmentation (data/device_aug.py) bit
-   for bit against the host's train items and its own CPU run, the
-   device-augment train step bit for bit against the host-item step,
-   cli.train's epoch loop with --device-augment, device preprocessing
-   (Evaluator(val_pipeline=...)) against the host path with K1's and K4's
-   launches, metrics.evaluate, the pinned staging ring's wait; and the
+   over seeded raw frames: device augmentation (data/device_aug.py), in
+   both lookup forms, bit for bit against the host's train items and its
+   own CPU run, the device-augment train step bit for bit against the
+   host-item step, cli.train's epoch loop with --device-augment, device
+   preprocessing (Evaluator(val_pipeline=...)) against the host path
+   with K1's and K4's launches, metrics.evaluate, the pinned staging ring's wait; and the
    times: cli.benchmark's train_run (b8, b128; f32, bf16; host against
    device augmentation) and eval_run (b8 f32, host against device
    preprocessing), the b128 copy and augmentation against its bound, and
@@ -172,8 +172,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    counterparts of the measurement scripts) through its main at reduced
    length (soaks of 0.25 min, 512 frames a chain case, depths 1, 8, 32, a
    5-step train sweep, 64 host items, a 2-epoch rehearsal over 64 items,
-   the roofline, the frontier PNG, the halo analysis, the b1 ordering),
-   each JSON checked for its script's keys; K1 launched 5 times and K4
+   the roofline, the frontier PNG, the halo analysis, the b1 ordering,
+   the two device-augment probes at b8 and the train bench at b32), each
+   JSON checked for its script's keys; K1 launched 5 times and K4
    once a forward on the serving modules and the fused b1 rows; the soak
    server's and the chain servers' first answers against the bf16 fused
    forward of the same frame within 2^-7 + 2^-10 of its scale;
@@ -1954,9 +1955,9 @@ def input_phase(model, params, card: dict) -> dict:
     """The input pipeline's on-card half, on the flagship at 224x224 with
     the committed weights, over seeded raw 480x640 frames:
     - train values: ``data/device_aug.apply_train_augment`` on the card
-      over b8 device-augment items equals the host's train items with the
-      same seed bit for bit (rgb and depth), and the same function's CPU
-      run on the same arrays;
+      over b8 device-augment items, in both lookup forms (``lut_impl``),
+      equals the host's train items with the same seed bit for bit (rgb
+      and depth), and the same form's CPU run on the same arrays;
     - train step: one f32 b8 step from the raw arrays equals the step from
       the host items bit for bit (loss, parameters, running statistics,
       momentum), cuDNN's deterministic algorithms for both;
@@ -1982,7 +1983,7 @@ def input_phase(model, params, card: dict) -> dict:
     from fastdepth_tpu_torch.cli import train as train_cli
     from fastdepth_tpu_torch.config import TrainConfig
     from fastdepth_tpu_torch.data import BatchLoader, NYUDataset
-    from fastdepth_tpu_torch.data.device_aug import apply_train_augment
+    from fastdepth_tpu_torch.data.device_aug import LUT_IMPLS, apply_train_augment
     from fastdepth_tpu_torch.engine import Evaluator, validate
     from fastdepth_tpu_torch.engine import evaluator as E
     from fastdepth_tpu_torch.engine.benchmark import bound_us, throughput_sweep, time_pipelined
@@ -2010,25 +2011,28 @@ def input_phase(model, params, card: dict) -> dict:
         small = INPUT_TRAIN_ITEMS[BATCH]
         host_ds, aug_ds = split("train", small), split("train", small, device_augment=True)
 
-        # train values: the card's augmentation against the host items
+        # train values: the card's augmentation in both lookup forms against
+        # the host items and against the same form's CPU run
         idxs = list(range(BATCH))
         raw = _stack(aug_ds, idxs)
         x_host, d_host = (torch.from_numpy(a) for a in _stack(host_ds, idxs))
         raw_cuda = [torch.from_numpy(a).cuda() for a in raw]
-        rgb_c, depth_c = apply_train_augment(*raw_cuda, out_size=OUTPUT_HW)
-        rgb_cpu, depth_cpu = apply_train_augment(*[torch.from_numpy(a) for a in raw],
-                                                 out_size=OUTPUT_HW)
-        rgb_c, depth_c = rgb_c.cpu(), depth_c.cpu()
-        n_vals = rgb_c.numel() + depth_c.numel()
-        vs_host = _differing(rgb_c, x_host) + _differing(depth_c, d_host)
-        vs_cpu = _differing(rgb_c, rgb_cpu) + _differing(depth_c, depth_cpu)
-        print(f"input train values b{BATCH}: apply_train_augment on the card vs the host's "
-              f"train items: {vs_host} of {n_vals} values differ (bound 0); vs its CPU run: "
-              f"{vs_cpu} of {n_vals} differ (bound 0)")
-        if vs_host or vs_cpu:
-            fail(f"device augmentation differs from the host items on {vs_host} values and "
-                 f"from its CPU run on {vs_cpu}")
-        out["train_values_differing"] = {"host": vs_host, "cpu": vs_cpu, "of": n_vals}
+        out["train_values_differing"] = {}
+        for form in LUT_IMPLS:
+            rgb_c, depth_c = apply_train_augment(*raw_cuda, out_size=OUTPUT_HW, lut_impl=form)
+            rgb_cpu, depth_cpu = apply_train_augment(*[torch.from_numpy(a) for a in raw],
+                                                     out_size=OUTPUT_HW, lut_impl=form)
+            rgb_c, depth_c = rgb_c.cpu(), depth_c.cpu()
+            n_vals = rgb_c.numel() + depth_c.numel()
+            vs_host = _differing(rgb_c, x_host) + _differing(depth_c, d_host)
+            vs_cpu = _differing(rgb_c, rgb_cpu) + _differing(depth_c, depth_cpu)
+            print(f"input train values b{BATCH}: apply_train_augment(lut_impl={form!r}) on the "
+                  f"card vs the host's train items: {vs_host} of {n_vals} values differ (bound "
+                  f"0); vs its CPU run: {vs_cpu} of {n_vals} differ (bound 0)")
+            if vs_host or vs_cpu:
+                fail(f"device augmentation ({form}) differs from the host items on {vs_host} "
+                     f"values and from its CPU run on {vs_cpu}")
+            out["train_values_differing"][form] = {"host": vs_host, "cpu": vs_cpu, "of": n_vals}
 
         # train step: raw arrays against host items, one f32 step each
         tc = TrainConfig(lr=TRAIN_LR, weight_decay=1e-4)
@@ -3667,7 +3671,25 @@ SCRIPT_KEYS = {
                         "val16_cpu_row", "card"},
     "analyze_spatial_halo": {"what", "t1_b1_us", "t1_source", "note", "rows", "card"},
     "confirm_b1_opt": {"reps", "calls", "rows", "launches", "card"},
+    "probe_r5_device_gathers": {"batch", "calls", "rows", "card"},
+    "probe_r5_lut_alternatives": {"batch", "calls", "lookups_per_call", "rows", "errors", "card"},
+    "bench_train_device_aug_r5": {"batch", "calls", "dtype", "rows", "aug_cost_pct_dot",
+                                  "aug_cost_pct_gather", "card"},
 }
+# the rows of the device-augment modules: their scripts' and the port's
+# gather forms beside the dot forms
+SCRIPT_ROWS = {
+    "probe_r5_device_gathers": {"rgb_u8_gather", "rgb_u32_gather", "depth_f32_gather",
+                                "jitter_slot_2d", "jitter_slot_2d_gather", "small_lut_256",
+                                "unit_lut_take", "pil_l_compute", "full_augment",
+                                "full_augment_gather"},
+    "probe_r5_lut_alternatives": {"take_256", "onehot_dot", "select_sum", "select_sum_bt",
+                                  "onehot_dot_bt", "sat_two_dots", "block_gather_16"},
+    "bench_train_device_aug_r5": {"plain_train_fps", "device_augment_dot_train_fps",
+                                  "device_augment_gather_train_fps"},
+}
+AUG_PROBE_BATCH, AUG_PROBE_CALLS = 8, 3  # the device-augment probes in scripts_phase
+AUG_TRAIN_BATCH, AUG_TRAIN_CALLS = 32, 5  # and the train bench
 TRAIN_ROW_KEYS = {"batch", "remat", "dtype", "step_ms", "train_fps", "final_loss", "card"}
 FUSED_B1_ROWS = ("fp32 b1 fused", "bf16 b1 fused", "bf16 b1 AOT(fused)", "bf16 b1 bundle(fused)")
 
@@ -3720,16 +3742,19 @@ def scripts_phase(card: dict) -> dict:
     cases at 512 frames, the depth frontier at depths 1, 8, 32, the train
     sweep b8 / b32 x remat 0 / 1 x f32 / bf16 at 5 steps, the host sweep
     over 64 items, the rehearsal of 2 epochs over 64 items, the roofline
-    from a b128 bf16 profile, the frontier PNG, the halo analysis and the
-    b1 ordering.  K1 five times and K4 once a forward on the serving
-    modules and the fused b1 rows; the soak server's and the chain
+    from a b128 bf16 profile, the frontier PNG, the halo analysis, the b1
+    ordering, and the device-augment modules (the two probes at b8, 3
+    calls, no row out of memory; the train bench at b32, 5 steps; rows
+    :data:`SCRIPT_ROWS`).  K1 five times and K4 once a forward on the
+    serving modules and the fused b1 rows; the soak server's and the chain
     servers' first answers held against the bf16 fused forward
     (:func:`_served_frame_check`)."""
     from fastdepth_tpu_torch.scripts import (
         analyze_spatial_halo, bench_chain_depth_frontier, bench_chain_serving,
-        bench_host_pipeline, bench_serve_daemon, bench_train, confirm_b1_opt,
-        make_frontier_plot, make_roofline, soak_server_r4, soak_server_socket_r5,
-        soak_serving, train_rehearsal)
+        bench_host_pipeline, bench_serve_daemon, bench_train, bench_train_device_aug_r5,
+        confirm_b1_opt, make_frontier_plot, make_roofline, probe_r5_device_gathers,
+        probe_r5_lut_alternatives, soak_server_r4, soak_server_socket_r5, soak_serving,
+        train_rehearsal)
 
     smi = card["nvidia_smi"]
     out, seconds = {}, {}
@@ -3834,6 +3859,17 @@ def scripts_phase(card: dict) -> dict:
             _per_forward(f"confirm_b1_opt {name}", res["launches"][name])
         print(f"scripts confirm_b1_opt on {smi}: " + ", ".join(
             f"{r['name']} {r['us_med']} us" for r in res["rows"]))
+        for mod, b, calls in ((probe_r5_device_gathers, AUG_PROBE_BATCH, AUG_PROBE_CALLS),
+                              (probe_r5_lut_alternatives, AUG_PROBE_BATCH, AUG_PROBE_CALLS),
+                              (bench_train_device_aug_r5, AUG_TRAIN_BATCH, AUG_TRAIN_CALLS)):
+            name = mod.__name__.rsplit(".", 1)[-1]
+            res = run(mod, ["--batch", str(b), "--calls", str(calls)])
+            rows = res["rows"]
+            if (set(rows) != SCRIPT_ROWS[name] or res.get("errors")
+                    or not all(np.isfinite(v) and v > 0 for v in rows.values())):
+                fail(f"scripts {name}: rows {rows}, errors {res.get('errors')}")
+            print(f"scripts {name} b{b} on {smi}: " + ", ".join(
+                f"{k} {v}" for k, v in rows.items()))
     print(f"scripts: seconds by module {json.dumps(seconds)}")
     return out
 

@@ -1,12 +1,14 @@
 """The port's train augmentation on the device (``fastdepth_tpu_torch/data/
 device_aug.py``) and the device-augment train step, on the CPU: the
-lookups and the whole item pipeline bit for bit against the JAX
-package's gather forms and against the port's host train items, the
-device-augment step bit for bit against the host-item step and against
-JAX's device-augment step in f64, and ``cli.train --device-augment``."""
+lookups and the whole item pipeline, in both lookup forms (``lut_impl``),
+bit for bit against the JAX package's same and other form and against the
+port's host train items, the device-augment step bit for bit against the
+host-item step and against JAX's device-augment step in f64, and
+``cli.train --device-augment``."""
 
 import copy
 import dataclasses
+import functools
 import json
 import os
 
@@ -30,6 +32,7 @@ from fastdepth_tpu_torch.checkpoint import params_from_jax
 from fastdepth_tpu_torch.config import TrainConfig
 from fastdepth_tpu_torch.data import device_aug as TD
 from fastdepth_tpu_torch.data import native
+from fastdepth_tpu_torch.data import transforms as TT
 from fastdepth_tpu_torch.data.nyu import NYUDataset
 from fastdepth_tpu_torch.models import build
 from fastdepth_tpu_torch.train import sgd_init
@@ -70,11 +73,30 @@ def _t(arrays):
 
 # --- the lookups ----------------------------------------------------------
 
+LUT_IMPLS = ["dot", "gather"]
+assert tuple(LUT_IMPLS) == TD.LUT_IMPLS
+
+
+def _jax_forms(fn):
+    """``{form: jax.jit(fn with lut_impl=form)}``, compiled once a module."""
+    return {f: jax.jit(functools.partial(fn, lut_impl=f)) for f in LUT_IMPLS}
+
+
+JAX_SLOT, JAX_UNIT, JAX_AUG = (_jax_forms(f) for f in (JD._jitter_slot, JD._u8_to_unit,
+                                                       JD.apply_train_augment))
+HOST_ENHANCE = {TD.KIND_BRIGHTNESS: TT.adjust_brightness_fast,
+                TD.KIND_CONTRAST: TT.adjust_contrast_fast,
+                TD.KIND_SATURATION: TT.adjust_saturation_fast}
+
+
 @pytest.mark.parametrize("kind", [TD.KIND_NONE, TD.KIND_BRIGHTNESS, TD.KIND_CONTRAST,
                                   TD.KIND_SATURATION])
-def test_jitter_slot_is_bit_equal_to_the_jax_gather_form(kind):
+@pytest.mark.parametrize("lut_impl", LUT_IMPLS)
+def test_jitter_slot_is_bit_equal_to_the_jax_gather_form(kind, lut_impl):
     """One slot over a seeded uint8 batch, per kind, over PIL-blend grids at
-    several factors (one factor per item) and the identity grid."""
+    several factors (one factor per item) and the identity grid, in each
+    lookup form: equal to JAX's same form and its other form, and (the
+    three enhance kinds) to the host's PIL-exact enhance of each item."""
     assert kind == getattr(JD, {0: "KIND_NONE", 1: "KIND_BRIGHTNESS", 2: "KIND_CONTRAST",
                                 3: "KIND_SATURATION"}[kind])
     rng = np.random.RandomState(kind)
@@ -82,13 +104,33 @@ def test_jitter_slot_is_bit_equal_to_the_jax_gather_form(kind):
     img = rng.randint(0, 256, (len(factors) + 1, 64 * 64, 3), dtype=np.uint8)
     tables = np.stack([JT.blend_grid(f) for f in factors] + [JT.identity_grid()])
     kinds = np.full(len(tables), kind, np.int32)
-    want = np.asarray(jax.jit(lambda *a: JD._jitter_slot(*a, lut_impl="gather"))(
-        jnp.asarray(img), jnp.asarray(tables), jnp.asarray(kinds)))
-    got = TD._jitter_slot(*_t([img, tables, kinds]))
+    got = TD._jitter_slot(*_t([img, tables, kinds]), lut_impl=lut_impl)
     assert got.dtype == torch.uint8
-    np.testing.assert_array_equal(got.numpy(), want)
+    for form in LUT_IMPLS:
+        want = np.asarray(JAX_SLOT[form](jnp.asarray(img), jnp.asarray(tables),
+                                         jnp.asarray(kinds)))
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=form)
+    if kind in HOST_ENHANCE:
+        for i, f in enumerate(factors):
+            host = HOST_ENHANCE[kind](img[i].reshape(64, 64, 3), f).reshape(-1, 3)
+            np.testing.assert_array_equal(got.numpy()[i], host, err_msg=f"factor {f}")
     # the identity grid passes its item through
     np.testing.assert_array_equal(got.numpy()[-1], img[-1])
+
+
+def test_the_dot_forms_chunking_leaves_the_values(monkeypatch):
+    """The dot slot runs DOT_CHUNK_BYTES worth of images at a time: one
+    image a chunk (a 1-byte budget) gives the bits of the whole batch in
+    one chunk."""
+    rng = np.random.RandomState(3)
+    img = rng.randint(0, 256, (3, 32 * 32, 3), dtype=np.uint8)
+    tables = np.stack([JT.blend_grid(f) for f in (0.6, 1.0, 1.4)])
+    kinds = np.array([TD.KIND_SATURATION, TD.KIND_CONTRAST, TD.KIND_BRIGHTNESS], np.int32)
+    whole = TD._jitter_slot(*_t([img, tables, kinds]), lut_impl="dot")
+    monkeypatch.setattr(TD, "DOT_CHUNK_BYTES", 1)
+    chunked = TD._jitter_slot(*_t([img, tables, kinds]), lut_impl="dot")
+    assert torch.equal(whole, chunked)
+    assert torch.equal(whole, TD._jitter_slot(*_t([img, tables, kinds]), lut_impl="gather"))
 
 
 def test_pil_l_and_the_contrast_gray_match_jax_at_the_extremes():
@@ -101,23 +143,46 @@ def test_pil_l_and_the_contrast_gray_match_jax_at_the_extremes():
     assert got.dtype == torch.int32 and int(got.max()) == 255
 
 
-def test_u8_to_unit_is_bit_equal_to_jax_and_to_the_host_table():
+@pytest.mark.parametrize("lut_impl", LUT_IMPLS)
+def test_u8_to_unit_is_bit_equal_to_jax_and_to_the_host_table(lut_impl):
+    """All 256 values, each form against the host table and both JAX forms."""
     v = np.arange(256, dtype=np.uint8)
-    got = TD._u8_to_unit(torch.from_numpy(v)).numpy()
+    got = TD._u8_to_unit(torch.from_numpy(v), lut_impl=lut_impl).numpy()
     np.testing.assert_array_equal(got, native.u8_to_unit_f32(v))
-    np.testing.assert_array_equal(
-        got, np.asarray(JD._u8_to_unit(jnp.asarray(v), lut_impl="gather")))
+    for form in LUT_IMPLS:
+        np.testing.assert_array_equal(got, np.asarray(JAX_UNIT[form](jnp.asarray(v))),
+                                      err_msg=form)
     assert got.dtype == np.float32
+
+
+def test_lut_impl_guard_names_the_argument():
+    """An unknown lookup form raises a ValueError naming ``lut_impl``, as
+    JAX's does (tests/test_device_aug.py:166)."""
+    with pytest.raises(ValueError, match="lut_impl"):
+        TD._u8_to_unit(torch.zeros(4, dtype=torch.uint8), lut_impl="mxu")
+    with pytest.raises(ValueError, match="lut_impl"):
+        TD._jitter_slot(torch.zeros(1, 8, 3, dtype=torch.uint8),
+                        torch.zeros(1, 256, 256, dtype=torch.uint8),
+                        torch.zeros(1, dtype=torch.int32), lut_impl="take")
+    with pytest.raises(ValueError, match="lut_impl"):
+        TD.apply_train_augment(*_t([np.zeros((1, 2, 2, 3), np.uint8),
+                                    np.zeros((1, 2, 2), np.float32), np.zeros((1, 4), np.int32),
+                                    np.ones(1, np.float32),
+                                    np.zeros((1, 0, 256, 256), np.uint8),
+                                    np.zeros((1, 0), np.int32)]),
+                               out_size=(2, 2), lut_impl="xla")
+    assert TD.LUT_IMPL in TD.LUT_IMPLS
 
 
 # --- the whole item pipeline ------------------------------------------------
 
 @pytest.mark.parametrize("epoch", [0, 1, 5])
-def test_apply_train_augment_equals_jax_and_the_host_items(train_root, epoch):
-    """Every item of every listed epoch: the port's augmentation over its
-    device-augment items equals the port's host train items and JAX's
-    gather form on the same arrays, bit for bit (rgb and depth); the port's
-    items equal JAX's."""
+@pytest.mark.parametrize("lut_impl", LUT_IMPLS)
+def test_apply_train_augment_equals_jax_and_the_host_items(train_root, epoch, lut_impl):
+    """Every item of every listed epoch: the port's augmentation in each
+    lookup form over its device-augment items equals the port's host train
+    items and both of JAX's forms on the same arrays, bit for bit (rgb and
+    depth); the port's items equal JAX's."""
     host = NYUDataset(train_root, split="train", seed=11)
     dev = NYUDataset(train_root, split="train", seed=11, device_augment=True)
     jdev = JaxNYUDataset(train_root, split="train", seed=11, device_augment=True)
@@ -127,13 +192,13 @@ def test_apply_train_augment_equals_jax_and_the_host_items(train_root, epoch):
     batch = _stack(dev, idxs)
     for g, w in zip(batch, _stack(jdev, idxs)):
         np.testing.assert_array_equal(g, w)
-    rgb, depth = TD.apply_train_augment(*_t(batch))
+    rgb, depth = TD.apply_train_augment(*_t(batch), lut_impl=lut_impl)
     assert rgb.shape == (3, 224, 224, 3) and depth.shape == (3, 224, 224, 1)
     assert rgb.dtype == depth.dtype == torch.float32
-    j_rgb, j_depth = jax.jit(lambda *a: JD.apply_train_augment(*a, lut_impl="gather"))(
-        *[jnp.asarray(a) for a in batch])
-    np.testing.assert_array_equal(rgb.numpy(), np.asarray(j_rgb))
-    np.testing.assert_array_equal(depth.numpy(), np.asarray(j_depth))
+    for form in LUT_IMPLS:
+        j_rgb, j_depth = JAX_AUG[form](*[jnp.asarray(a) for a in batch])
+        np.testing.assert_array_equal(rgb.numpy(), np.asarray(j_rgb), err_msg=form)
+        np.testing.assert_array_equal(depth.numpy(), np.asarray(j_depth), err_msg=form)
     for k, i in enumerate(idxs):
         h_rgb, h_depth = host[i]
         np.testing.assert_array_equal(rgb[k].numpy(), h_rgb, err_msg=f"rgb {i}")

@@ -124,7 +124,9 @@ def test_the_walk_covers_the_scripts_slice():
     for name in ("_serving", "_trees", "soak_serving", "soak_server_r4", "bench_serve_daemon",
                  "bench_chain_serving", "bench_chain_depth_frontier", "soak_server_socket_r5",
                  "bench_train", "bench_host_pipeline", "train_rehearsal", "make_roofline",
-                 "make_frontier_plot", "analyze_spatial_halo", "confirm_b1_opt"):
+                 "make_frontier_plot", "analyze_spatial_halo", "confirm_b1_opt",
+                 "probe_r5_device_gathers", "probe_r5_lut_alternatives",
+                 "bench_train_device_aug_r5"):
         assert f"fastdepth_tpu_torch/scripts/{name}.py" in SOURCES, name
 
 
@@ -368,3 +370,21 @@ print("served", server.InferenceServer.__name__)
 """)
     assert "pred shape=(64, 64, 1)" in out and '"frames": 1' in out
     assert out.strip().endswith("served InferenceServer")
+
+
+def test_the_package_data_ships_every_native_source():
+    """A non-editable install carries every file under
+    ``fastdepth_tpu_torch/csrc/``: each matches a ``package-data`` glob of
+    ``pyproject.toml`` (the CUDA kernels, their headers and the native
+    preprocessing library's ``preprocess.cpp``, which ``data/native.py``
+    builds at first use)."""
+    import fnmatch
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"]["fastdepth_tpu_torch"]
+    pkg = os.path.join(REPO, "fastdepth_tpu_torch")
+    files = sorted(os.path.relpath(p, pkg) for p in glob.glob(os.path.join(pkg, "csrc", "*")))
+    assert "csrc/preprocess.cpp" in files and any(f.endswith(".cu") for f in files)
+    unshipped = [f for f in files if not any(fnmatch.fnmatch(f, g) for g in globs)]
+    assert unshipped == []

@@ -14,6 +14,12 @@ the CPU, at the tiny widths of ``tests/test_pallas.py``:
     port's, each ~3 s in a subprocess: the same keys, both fps > 0;
 (e) the port's structured tree byte for byte the JAX script's;
 (f) both packages' host-pipeline ``main``: the same keys;
+(g) the device-augment modules (``probe_r5_device_gathers``,
+    ``probe_r5_lut_alternatives``, ``bench_train_device_aug_r5``): their
+    inputs drawn as their scripts draw them, each probe stage's output bit
+    for bit the JAX expression its script times on the same inputs, every
+    ``main`` at b1-b2 with its script's keys, and the train bench's
+    device-augment steps against the port's own;
 and the halo plan of ``analyze_spatial_halo`` against
 ``docs/spatial_halo_r3.json`` (the gloo ranks' bytes are held in
 ``tests/test_torch_spatial.py``, from ``tests/torch_spatial_ranks.py``'s
@@ -47,9 +53,12 @@ from fastdepth_tpu_torch.scripts import (
     bench_host_pipeline,
     bench_serve_daemon,
     bench_train,
+    bench_train_device_aug_r5,
     confirm_b1_opt,
     make_frontier_plot,
     make_roofline,
+    probe_r5_device_gathers,
+    probe_r5_lut_alternatives,
     soak_server_r4,
     soak_server_socket_r5,
     soak_serving,
@@ -551,3 +560,300 @@ def test_halo_plan_matches_the_jax_analysis_where_both_shard(flagship_plans, n_s
     port, want = _by_level(flagship_plans[n_shards]["by_shape"]), _by_level(jax_row["by_shape"])
     differ = {w for w in set(port) | set(want) if port.get(w) != want.get(w)}
     assert differ == PLANS_DIFFER[n_shards]
+
+
+# --- (g) the device-augment modules ------------------------------------------
+
+GATHER_KEYS = {"batch", "calls", "rows"}  # scripts/probe_r5_device_gathers.py:87
+LUT_KEYS = {"batch", "calls", "lookups_per_call", "rows",
+            "errors"}  # scripts/probe_r5_lut_alternatives.py:143-144
+AUG_TRAIN_KEYS = {"batch", "calls", "dtype", "rows", "aug_cost_pct_dot",
+                  "aug_cost_pct_gather"}  # scripts/bench_train_device_aug_r5.py:74,144
+# the scripts' rows (scripts/probe_r5_device_gathers.py:67-85,117;
+# probe_r5_lut_alternatives.py:133-141; bench_train_device_aug_r5.py:96,114,139)
+# and the port's gather forms beside the dot forms
+GATHER_ROWS = ["rgb_u8_gather", "rgb_u32_gather", "depth_f32_gather", "jitter_slot_2d",
+               "jitter_slot_2d_gather", "small_lut_256", "unit_lut_take", "pil_l_compute",
+               "full_augment", "full_augment_gather"]
+LUT_ROWS = ["take_256", "onehot_dot", "select_sum", "select_sum_bt", "onehot_dot_bt",
+            "sat_two_dots", "block_gather_16"]
+AUG_TRAIN_ROWS = {"plain_train_fps", "device_augment_dot_train_fps",
+                  "device_augment_gather_train_fps"}
+
+
+def _script_gather_inputs(b):
+    """scripts/probe_r5_device_gathers.py:52-62, 102-104, its draws as it
+    makes them."""
+    from fastdepth_tpu.data import transforms as JT
+
+    n, hw = 224 * 224, 480 * 640
+    rng = np.random.RandomState(0)
+    out = [rng.randint(0, 256, (b, hw, 3)),
+           rng.randint(0, 2**31, (b, hw), dtype=np.int64).astype(np.uint32),
+           rng.rand(b, hw), rng.randint(0, hw, (b, n)), rng.randint(0, 256, (b, n, 3)),
+           np.stack([JT.blend_grid(f) for f in rng.uniform(0.6, 1.4, b)]),
+           rng.randint(0, 256, (b, 256))]
+    out += [np.where(rng.rand(b, n) < 0.02, -1, rng.randint(0, hw, (b, n))),
+            rng.rand(b) * 0.5 + 1.0]
+    return out
+
+
+def test_the_gather_probes_inputs_are_its_scripts():
+    x = probe_r5_device_gathers.make_inputs(2)
+    names = ["rgb_u8", "rgb_u32", "depth", "idx", "vals", "tab2d", "tab1d", "flat", "scale"]
+    for name, want in zip(names, _script_gather_inputs(2)):
+        np.testing.assert_array_equal(x[name], want.astype(x[name].dtype), err_msg=name)
+    assert x["tables"].shape == (2, 3, 256, 256) and (x["tables"][:, 1] == x["tab2d"]).all()
+    assert (x["kinds3"] == [1, 2, 3]).all() and (x["kinds"] == 3).all()
+
+
+def _np(out):
+    return [np.asarray(o) for o in (out if isinstance(out, tuple) else (out,))]
+
+
+@pytest.fixture(scope="module")
+def gather_stages():
+    """The gather probe's inputs at b1 and its stages on the CPU."""
+    x = probe_r5_device_gathers.make_inputs(1)
+    return x, probe_r5_device_gathers.stages(x, "cpu")
+
+
+@pytest.mark.parametrize("tag", GATHER_ROWS)
+def test_gather_probe_stage_is_the_jax_expression_bit_for_bit(gather_stages, tag):
+    """Each stage on the CPU against the JAX expression its script times
+    (scripts/probe_r5_device_gathers.py:67-85, 107), on the same seeded
+    inputs, exactly; the port's gather rows against JAX's gather forms."""
+    from fastdepth_tpu.data import device_aug as JD
+
+    x, st = gather_stages
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    b = x["rgb_u8"].shape[0]
+    aug = (j["rgb_u8"].reshape(b, 480, 640, 3), j["depth"].reshape(b, 480, 640), j["flat"],
+           j["scale"], j["tables"], j["kinds3"])
+    vals, tab2d, kinds = j["vals"], j["tab2d"], j["kinds"]
+    # (the script's function, its arguments): arguments, not constants, so
+    # that XLA cannot fold the depth's divisor into a reciprocal
+    fn_want, args_want = {
+        "rgb_u8_gather": (lambda a, i: jnp.take_along_axis(a, i[..., None], axis=1),
+                          (j["rgb_u8"], j["idx"])),
+        "rgb_u32_gather": (lambda a, i: jnp.take_along_axis(a, i, axis=1),
+                           (j["rgb_u32"], j["idx"])),
+        "depth_f32_gather": (lambda a, i: jnp.take_along_axis(a, i, axis=1),
+                             (j["depth"], j["idx"])),
+        "jitter_slot_2d": (lambda v, t, k: JD._jitter_slot(v, t, k), (vals, tab2d, kinds)),
+        "jitter_slot_2d_gather": (lambda v, t, k: JD._jitter_slot(v, t, k, lut_impl="gather"),
+                                  (vals, tab2d, kinds)),
+        "small_lut_256": (lambda v, t: jnp.take_along_axis(
+            t, v.astype(jnp.int32).reshape(b, -1), axis=1).reshape(v.shape),
+            (vals, j["tab1d"])),
+        "unit_lut_take": (lambda v: jnp.take(JD._unit_lut(), v.astype(jnp.int32)), (vals,)),
+        "pil_l_compute": (lambda v: (JD._pil_l(v), jnp.sum(JD._pil_l(v), axis=-1)), (vals,)),
+        "full_augment": (lambda *a: JD.apply_train_augment(*a), aug),
+        "full_augment_gather": (lambda *a: JD.apply_train_augment(*a, lut_impl="gather"), aug),
+    }[tag]
+    fn, args = st[tag]
+    got = _np(fn(*args))
+    wanted = _np(jax.jit(fn_want)(*args_want))
+    if tag == "rgb_u32_gather":
+        got = [g.view(np.uint32) for g in got]
+    assert len(got) == len(wanted)
+    for g, w in zip(got, wanted):
+        assert g.shape == w.shape
+        np.testing.assert_array_equal(g, w)
+
+
+def test_the_lut_probes_inputs_are_its_scripts():
+    """scripts/probe_r5_lut_alternatives.py:57-70, its draws as it makes
+    them."""
+    b, n, npx, hw = 2, 224 * 224 * 3, 224 * 224, 480 * 640
+    rng = np.random.RandomState(0)
+    want = [rng.randint(0, 256, (b, n)), rng.rand(256), rng.rand(b, 256),
+            rng.rand(b, 256, 256), rng.randint(0, 256, (b, npx)),
+            rng.randint(0, 2**31, (b, hw), dtype=np.int64).astype(np.uint32),
+            rng.randint(0, hw - 32, (b, npx // 16)), rng.randint(0, 16, (b, npx))]
+    x = probe_r5_lut_alternatives.make_inputs(b)
+    for name, w in zip(["v", "lut", "lut_b", "grid_b", "lpx", "raw32", "starts", "offs"], want):
+        np.testing.assert_array_equal(x[name], w.astype(x[name].dtype), err_msg=name)
+
+
+def _jax_lut_stages(j, b):
+    """``{tag: (fn, args)}``: scripts/probe_r5_lut_alternatives.py:73-130,
+    the script's functions (the tables closed over, as there) and its
+    inputs as jnp arrays ``j``."""
+    n, npx = 224 * 224 * 3, 224 * 224
+    lut, lut_b, grid_b = j["lut"], j["lut_b"], j["grid_b"]
+
+    def take_256(v):
+        return jnp.take(lut, v.astype(jnp.int32))
+
+    def onehot_dot(v):
+        oh = (v[..., None] == jnp.arange(256, dtype=jnp.int32)).astype(jnp.bfloat16)
+        return oh @ lut.astype(jnp.bfloat16)
+
+    def select_sum(v):
+        vi = v.astype(jnp.int32)
+        acc = jnp.zeros(v.shape, jnp.float32)
+        for k in range(256):
+            acc = acc + lut[k] * (vi == k)
+        return acc
+
+    def select_sum_bt(v):
+        vi = v.astype(jnp.int32)
+        acc = jnp.zeros(v.shape, jnp.float32)
+        for k in range(256):
+            acc = acc + lut_b[:, k, None] * (vi == k)
+        return acc
+
+    def onehot_dot_bt(v):
+        oh = (v[..., None] == jnp.arange(256, dtype=jnp.int32)).astype(jnp.bfloat16)
+        return jnp.einsum("bpk,bk->bp", oh, lut_b.astype(jnp.bfloat16))
+
+    def sat_two_dots(lpx, v):
+        ohl = (lpx[..., None] == jnp.arange(256, dtype=jnp.int32)).astype(jnp.bfloat16)
+        rows = jnp.einsum("bpk,bkv->bpv", ohl, grid_b.astype(jnp.bfloat16))
+        vv = v.reshape(b, npx, 3).astype(jnp.int32)
+        ohv = (vv[..., None] == jnp.arange(256, dtype=jnp.int32)).astype(jnp.bfloat16)
+        return jnp.einsum("bpv,bpcv->bpc", rows, ohv)
+
+    def block_gather_16(raw32, starts, offs):
+        nblk = npx // 16
+        sl = jax.vmap(lambda a, s: jax.vmap(
+            lambda st: jax.lax.dynamic_slice(a, (st,), (32,)))(s))(raw32, starts)
+        blk16 = jnp.broadcast_to(sl.reshape(b, nblk, 1, 32), (b, nblk, 16, 32)).reshape(
+            b, npx, 32)
+        out = jnp.zeros((b, npx), jnp.uint32)
+        for jj in range(16):
+            out = out + jnp.where(offs == jj, blk16[..., jj], jnp.uint32(0))
+        return out
+
+    assert j["v"].shape == (b, n)
+    v = j["v"]
+    return {"take_256": (take_256, (v,)), "onehot_dot": (onehot_dot, (v,)),
+            "select_sum": (select_sum, (v,)), "select_sum_bt": (select_sum_bt, (v,)),
+            "onehot_dot_bt": (onehot_dot_bt, (v,)), "sat_two_dots": (sat_two_dots, (j["lpx"], v)),
+            "block_gather_16": (block_gather_16, (j["raw32"], j["starts"], j["offs"]))}
+
+
+@pytest.fixture(scope="module")
+def lut_stages():
+    """The lut probe's inputs at b1 and its stages on the CPU."""
+    x = probe_r5_lut_alternatives.make_inputs(1)
+    return x, probe_r5_lut_alternatives.stages(x, "cpu")
+
+
+@pytest.mark.parametrize("tag", LUT_ROWS)
+def test_lut_probe_stage_is_the_jax_expression_bit_for_bit(lut_stages, tag):
+    """Each formulation on the CPU against the script's JAX function on the
+    same seeded inputs: the f32 select-sums exactly, the bf16 one-hot
+    products exactly (one nonzero term a sum), the 32-bit slices bit for
+    bit."""
+    x, st = lut_stages
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    fn_want, args_want = _jax_lut_stages(j, 1)[tag]
+    want = np.asarray(jax.jit(fn_want)(*args_want))
+    fn, args = st[tag]
+    got = fn(*args)
+    got = (got.float().numpy() if got.dtype == torch.bfloat16 else got.numpy())
+    if tag == "block_gather_16":
+        got = got.view(np.uint32)
+    if want.dtype == jnp.bfloat16:
+        want = want.astype(np.float32)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_probe_r5_device_gathers_main(tmp_path, monkeypatch):
+    monkeypatch.setattr(probe_r5_device_gathers, "WARMUP", 1)
+    res = _run(probe_r5_device_gathers, ["--batch", "1", "--calls", "2"], tmp_path)
+    assert set(res) == GATHER_KEYS | {"card"} and res["card"] == "cpu"
+    assert list(res["rows"]) == GATHER_ROWS and all(v > 0 for v in res["rows"].values())
+    assert (res["batch"], res["calls"]) == (1, 2)
+    assert probe_r5_device_gathers.parse_args([]).batch == 128
+    assert probe_r5_device_gathers.parse_args([]).device == "cuda"
+
+
+def test_probe_r5_lut_alternatives_main(tmp_path, monkeypatch):
+    monkeypatch.setattr(probe_r5_device_gathers, "WARMUP", 1)
+    res = _run(probe_r5_lut_alternatives, ["--batch", "1", "--calls", "2"], tmp_path)
+    assert set(res) == LUT_KEYS | {"card"} and res["errors"] == {}
+    assert list(res["rows"]) == LUT_ROWS and all(v > 0 for v in res["rows"].values())
+    assert res["lookups_per_call"] == 224 * 224 * 3
+    assert probe_r5_lut_alternatives.parse_args([]).batch == 32
+
+
+def test_the_lut_probe_records_an_out_of_memory_row(tmp_path, monkeypatch):
+    """An OOM is a datum: it goes into ``errors`` and the other rows run;
+    any other error propagates."""
+    real = probe_r5_lut_alternatives.stages
+
+    def stages(x, device, exc=torch.OutOfMemoryError):
+        st = real(x, device)
+
+        def oom(*a):
+            raise exc("CUDA out of memory. Tried to allocate 9.9 GiB")
+        st["onehot_dot"] = (oom, ())
+        return st
+
+    monkeypatch.setattr(probe_r5_device_gathers, "WARMUP", 0)
+    monkeypatch.setattr(probe_r5_lut_alternatives, "stages", stages)
+    res = _run(probe_r5_lut_alternatives, ["--batch", "1", "--calls", "1"], tmp_path)
+    assert list(res["errors"]) == ["onehot_dot"]
+    assert res["errors"]["onehot_dot"].startswith("OutOfMemoryError: CUDA out of memory")
+    assert set(res["rows"]) == set(LUT_ROWS) - {"onehot_dot"}
+    monkeypatch.setattr(probe_r5_lut_alternatives, "stages",
+                        lambda x, d: stages(x, d, exc=RuntimeError))
+    with pytest.raises(RuntimeError):
+        _run(probe_r5_lut_alternatives, ["--batch", "1", "--calls", "1"], tmp_path)
+
+
+def test_the_train_benchs_batches_are_its_scripts():
+    """scripts/bench_train_device_aug_r5.py:72-111, its draws as it makes
+    them."""
+    from fastdepth_tpu.data import transforms as JT
+
+    b, n_out = 2, 224 * 224
+    rng = np.random.RandomState(0)
+    want = [rng.rand(b, 224, 224, 3), rng.rand(b, 224, 224, 1) * 5 + 0.5]
+    tables = np.stack([np.stack([JT.blend_grid(f) for f in rng.uniform(0.6, 1.4, 3)])
+                       for _ in range(b)])
+    want += [rng.randint(0, 256, (b, 480, 640, 3)), rng.rand(b, 480, 640) * 5 + 0.5,
+             np.where(rng.rand(b, n_out) < 0.02, -1, rng.randint(0, 480 * 640, (b, n_out))),
+             rng.rand(b) * 0.5 + 1.0, tables, np.tile(np.array([1, 2, 3]), (b, 1))]
+    plain, raw = bench_train_device_aug_r5.make_batches(b)
+    for got, w in zip(plain + raw, want):
+        np.testing.assert_array_equal(got, w.astype(got.dtype))
+
+
+def test_bench_train_device_aug_main(tiny, tmp_path, monkeypatch):
+    monkeypatch.setattr(bench_train_device_aug_r5, "WARMUP", 1)
+    res = _run(bench_train_device_aug_r5, ["--batch", "2", "--calls", "1"], tmp_path)
+    assert set(res) == AUG_TRAIN_KEYS | {"card"} and res["dtype"] == "bf16"
+    assert set(res["rows"]) == AUG_TRAIN_ROWS and all(v > 0 for v in res["rows"].values())
+    for form in ("dot", "gather"):
+        assert res[f"aug_cost_pct_{form}"] == round(
+            100.0 * (1 - res["rows"][f"device_augment_{form}_train_fps"]
+                     / res["rows"]["plain_train_fps"]), 2)
+
+
+@pytest.mark.parametrize("lut_impl", ["dot", "gather"])
+def test_the_benchs_augment_step_is_the_ports_device_augment_step(lut_impl):
+    """The bench's step in either form, one bf16 step from the same tiny
+    tree over the bench's raw batch, equals the port's own device-augment
+    step (``make_train_step(device_augment=True)``) bit for bit."""
+    import copy
+
+    from fastdepth_tpu_torch.config import TrainConfig
+    from fastdepth_tpu_torch.train import sgd_init
+    from fastdepth_tpu_torch.train.trainer import make_train_step
+
+    model, params = _tiny_flagship()
+    cfg = TrainConfig(lr=0.01)
+    _, raw = bench_train_device_aug_r5.make_batches(2)
+    raw = [torch.from_numpy(a) for a in raw]
+    s_b, l_b = bench_train_device_aug_r5.augment_step(model, cfg, lut_impl)(
+        sgd_init(copy.deepcopy(params)), *raw, 0.01)
+    s_p, l_p = make_train_step(model, cfg, compute_dtype=torch.bfloat16, device_augment=True)(
+        sgd_init(copy.deepcopy(params)), *raw, 0.01)
+    assert float(l_b) == float(l_p)
+    for (k, a), b in zip(s_b.params.state_dict().items(), s_p.params.state_dict().values()):
+        assert torch.equal(a, b), k
