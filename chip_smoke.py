@@ -93,13 +93,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bf16 with K1's and K4's launches in its validation, and the step time
    at b8 and b128 in f32 and bf16 with the peak memory;
 12. input: the input pipeline's on-card half on the committed weights
-   over seeded raw frames: device augmentation (data/device_aug.py), in
-   both lookup forms, bit for bit against the host's train items and its
-   own CPU run, the device-augment train step bit for bit against the
-   host-item step, cli.train's epoch loop with --device-augment, device
-   preprocessing (Evaluator(val_pipeline=...)) against the host path
-   with K1's and K4's launches, metrics.evaluate, the pinned staging ring's wait; and the
-   times: cli.benchmark's train_run (b8, b128; f32, bf16; host against
+   over seeded raw frames: device augmentation (data/device_aug.py), and
+   its dot form (scripts/probe_r5_device_gathers.augment_dot), bit for
+   bit against the host's train items and its own CPU run, the
+   device-augment train step bit for bit against the host-item step,
+   cli.train's epoch loop with --device-augment, device preprocessing
+   (Evaluator(val_pipeline=...)) against the host path with K1's and
+   K4's launches, metrics.evaluate, the pinned staging ring's wait; and
+   the times: cli.benchmark's train_run (b8, b128; f32, bf16; host against
    device augmentation) and eval_run (b8 f32, host against device
    preprocessing), the b128 copy and augmentation against its bound, and
    engine/benchmark.throughput_sweep;
@@ -1955,7 +1956,8 @@ def input_phase(model, params, card: dict) -> dict:
     """The input pipeline's on-card half, on the flagship at 224x224 with
     the committed weights, over seeded raw 480x640 frames:
     - train values: ``data/device_aug.apply_train_augment`` on the card
-      over b8 device-augment items, in both lookup forms (``lut_impl``),
+      over b8 device-augment items, and the JAX package's dot form of it
+      (``scripts/probe_r5_device_gathers.augment_dot``),
       equals the host's train items with the same seed bit for bit (rgb
       and depth), and the same form's CPU run on the same arrays;
     - train step: one f32 b8 step from the raw arrays equals the step from
@@ -1983,13 +1985,14 @@ def input_phase(model, params, card: dict) -> dict:
     from fastdepth_tpu_torch.cli import train as train_cli
     from fastdepth_tpu_torch.config import TrainConfig
     from fastdepth_tpu_torch.data import BatchLoader, NYUDataset
-    from fastdepth_tpu_torch.data.device_aug import LUT_IMPLS, apply_train_augment
+    from fastdepth_tpu_torch.data.device_aug import apply_train_augment
     from fastdepth_tpu_torch.engine import Evaluator, validate
     from fastdepth_tpu_torch.engine import evaluator as E
     from fastdepth_tpu_torch.engine.benchmark import bound_us, throughput_sweep, time_pipelined
     from fastdepth_tpu_torch.engine.staging import PinnedRing
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import head as K4
+    from fastdepth_tpu_torch.scripts import probe_r5_device_gathers
     from fastdepth_tpu_torch.train import sgd_init
     from fastdepth_tpu_torch.train.trainer import make_train_step
 
@@ -2011,22 +2014,24 @@ def input_phase(model, params, card: dict) -> dict:
         small = INPUT_TRAIN_ITEMS[BATCH]
         host_ds, aug_ds = split("train", small), split("train", small, device_augment=True)
 
-        # train values: the card's augmentation in both lookup forms against
-        # the host items and against the same form's CPU run
+        # train values: the card's augmentation, and the JAX package's dot
+        # form of it that the device-augment probe times, against the host
+        # items and against the same form's CPU run
         idxs = list(range(BATCH))
         raw = _stack(aug_ds, idxs)
         x_host, d_host = (torch.from_numpy(a) for a in _stack(host_ds, idxs))
         raw_cuda = [torch.from_numpy(a).cuda() for a in raw]
         out["train_values_differing"] = {}
-        for form in LUT_IMPLS:
-            rgb_c, depth_c = apply_train_augment(*raw_cuda, out_size=OUTPUT_HW, lut_impl=form)
-            rgb_cpu, depth_cpu = apply_train_augment(*[torch.from_numpy(a) for a in raw],
-                                                     out_size=OUTPUT_HW, lut_impl=form)
+        for form, augment in (("dot", probe_r5_device_gathers.augment_dot),
+                              ("gather", apply_train_augment)):
+            rgb_c, depth_c = augment(*raw_cuda, out_size=OUTPUT_HW)
+            rgb_cpu, depth_cpu = augment(*[torch.from_numpy(a) for a in raw],
+                                         out_size=OUTPUT_HW)
             rgb_c, depth_c = rgb_c.cpu(), depth_c.cpu()
             n_vals = rgb_c.numel() + depth_c.numel()
             vs_host = _differing(rgb_c, x_host) + _differing(depth_c, d_host)
             vs_cpu = _differing(rgb_c, rgb_cpu) + _differing(depth_c, depth_cpu)
-            print(f"input train values b{BATCH}: apply_train_augment(lut_impl={form!r}) on the "
+            print(f"input train values b{BATCH}: the augmentation's {form} form on the "
                   f"card vs the host's train items: {vs_host} of {n_vals} values differ (bound "
                   f"0); vs its CPU run: {vs_cpu} of {n_vals} differ (bound 0)")
             if vs_host or vs_cpu:
@@ -3674,7 +3679,8 @@ SCRIPT_KEYS = {
     "probe_r5_device_gathers": {"batch", "calls", "rows", "card"},
     "probe_r5_lut_alternatives": {"batch", "calls", "lookups_per_call", "rows", "errors", "card"},
     "bench_train_device_aug_r5": {"batch", "calls", "dtype", "rows", "aug_cost_pct_dot",
-                                  "aug_cost_pct_gather", "card"},
+                                  "aug_cost_pct_gather", "repeats", "runs",
+                                  "aug_cost_pct_runs", "card"},
 }
 # the rows of the device-augment modules: their scripts' and the port's
 # gather forms beside the dot forms
@@ -3689,7 +3695,7 @@ SCRIPT_ROWS = {
                                   "device_augment_gather_train_fps"},
 }
 AUG_PROBE_BATCH, AUG_PROBE_CALLS = 8, 3  # the device-augment probes in scripts_phase
-AUG_TRAIN_BATCH, AUG_TRAIN_CALLS = 32, 5  # and the train bench
+AUG_TRAIN_BATCH, AUG_TRAIN_CALLS, AUG_TRAIN_REPEATS = 32, 5, 2  # and the train bench
 TRAIN_ROW_KEYS = {"batch", "remat", "dtype", "step_ms", "train_fps", "final_loss", "card"}
 FUSED_B1_ROWS = ("fp32 b1 fused", "bf16 b1 fused", "bf16 b1 AOT(fused)", "bf16 b1 bundle(fused)")
 
@@ -3744,8 +3750,8 @@ def scripts_phase(card: dict) -> dict:
     over 64 items, the rehearsal of 2 epochs over 64 items, the roofline
     from a b128 bf16 profile, the frontier PNG, the halo analysis, the b1
     ordering, and the device-augment modules (the two probes at b8, 3
-    calls, no row out of memory; the train bench at b32, 5 steps; rows
-    :data:`SCRIPT_ROWS`).  K1 five times and K4 once a forward on the
+    calls, no row out of memory; the train bench at b32, 5 steps, 2
+    rounds; rows :data:`SCRIPT_ROWS`).  K1 five times and K4 once a forward on the
     serving modules and the fused b1 rows; the soak server's and the chain
     servers' first answers held against the bf16 fused forward
     (:func:`_served_frame_check`)."""
@@ -3859,11 +3865,13 @@ def scripts_phase(card: dict) -> dict:
             _per_forward(f"confirm_b1_opt {name}", res["launches"][name])
         print(f"scripts confirm_b1_opt on {smi}: " + ", ".join(
             f"{r['name']} {r['us_med']} us" for r in res["rows"]))
-        for mod, b, calls in ((probe_r5_device_gathers, AUG_PROBE_BATCH, AUG_PROBE_CALLS),
-                              (probe_r5_lut_alternatives, AUG_PROBE_BATCH, AUG_PROBE_CALLS),
-                              (bench_train_device_aug_r5, AUG_TRAIN_BATCH, AUG_TRAIN_CALLS)):
+        for mod, b, argv in (
+                (probe_r5_device_gathers, AUG_PROBE_BATCH, ["--calls", str(AUG_PROBE_CALLS)]),
+                (probe_r5_lut_alternatives, AUG_PROBE_BATCH, ["--calls", str(AUG_PROBE_CALLS)]),
+                (bench_train_device_aug_r5, AUG_TRAIN_BATCH,
+                 ["--calls", str(AUG_TRAIN_CALLS), "--repeats", str(AUG_TRAIN_REPEATS)])):
             name = mod.__name__.rsplit(".", 1)[-1]
-            res = run(mod, ["--batch", str(b), "--calls", str(calls)])
+            res = run(mod, ["--batch", str(b)] + argv)
             rows = res["rows"]
             if (set(rows) != SCRIPT_ROWS[name] or res.get("errors")
                     or not all(np.isfinite(v) and v > 0 for v in rows.values())):

@@ -1,5 +1,5 @@
 """Train augmentation on the device — counterpart of
-``fastdepth_tpu/data/device_aug.py``.
+``fastdepth_tpu/data/device_aug.py`` (its gather form).
 
 The host half of a train item (``data/pipeline.py::TrainPipeline``) is
 parameter math (drawing scale, angle, flip and the jitter plan, and
@@ -34,32 +34,18 @@ Where exactness breaks, and what this module does about it:
 The op order of ColorJitter is drawn per item, so each item carries three
 slots (grid + row kind); unused slots hold the identity grid.
 
-Lookup forms (``lut_impl``, the JAX package's names and values):
-
-* ``"gather"``: the jitter slot is one gather from the (256, 256) grid,
-  the /255 one gather from the 256-entry table;
-* ``"dot"``: the gather-free forms the JAX package chose on a TPU, where
-  a gather costs a fixed time an index.  The slot is two bf16 one-hot
-  contractions, ``onehot(row) @ grid`` selecting each pixel's row, then
-  the row dotted with ``onehot(value)``; the /255 is the select-sum
-  ``sum_k lut[k] * (v == k)`` over the table's f32 entries.  Both are
-  exact: a u8 value is exact in bf16, the one-hot factors are 0 or 1 and
-  each reduction has one nonzero term, so no order of accumulation, FMA
-  contraction or reduced-precision reduction changes a bit.  The operands
-  stay bf16 (an f32 product under TF32 would round the /255 values).
-  XLA fused the one-hots into the products; eager PyTorch makes them (at
-  b128 one slot's are 3.3 GB of row and 9.9 GB of value one-hots), so the
-  slot runs a chunk of images at a time (:data:`DOT_CHUNK_BYTES`).
-
-The default, :data:`LUT_IMPL`, is ``"gather"``, the card's faster form
-(``scripts/probe_r5_device_gathers.py`` and
-``scripts/bench_train_device_aug_r5.py`` in this package,
-``docs/probe_r5_device_gathers_h100.json`` and
+The JAX package also has gather-free forms of the lookups (its
+``lut_impl="dot"``: one-hot bf16 contractions for the slots, a select-sum
+for the /255), chosen there because a TPU gather costs a fixed time an
+index.  They give the same bits.  On the card they are far slower, so
+this module has the gather form only, and the dot forms live in the probe
+that measured them (``scripts/probe_r5_device_gathers.py`` in this
+package, ``docs/probe_r5_device_gathers_h100.json``,
 ``docs/bench_train_device_aug_h100.json``; NVIDIA H100 80GB HBM3,
-700.00 W): at b128 ``apply_train_augment`` takes 2.6607 ms as gathers
-and 220.1905 ms as dots, one jitter slot 0.716 and 63.6958 ms; the bf16
-b128 train step runs 3,827.7 frames/s after the gather form and 510.3
-after the dot form, against 3,858.9 from host items.
+700.00 W): at b128 ``apply_train_augment`` takes 2.6658 ms, the dot form
+195.4672 ms; the bf16 b128 train step runs 3,726.3 frames/s after the
+gather form and 570.0 after the dot form, against 3,916.5 from host
+items (medians of 5 rounds).
 """
 
 from __future__ import annotations
@@ -76,15 +62,6 @@ KIND_BRIGHTNESS = 1   # degenerate: black        (ImageEnhance.Brightness)
 KIND_CONTRAST = 2     # degenerate: mean-L gray  (ImageEnhance.Contrast)
 KIND_SATURATION = 3   # degenerate: per-pixel L  (ImageEnhance.Color)
 
-LUT_IMPLS = ("dot", "gather")
-LUT_IMPL = "gather"  # the default lookup form, the card's faster (module docstring)
-# the dot form's working set: a chunk of images whose one-hots, row selects
-# and value one-hots take at most this many bytes (each (pixel, 256) entry
-# holds a bool and a bf16 one-hot of the row, its bf16 row, and three bool
-# and three bf16 one-hots of the values: 14 bytes)
-DOT_CHUNK_BYTES = 2 << 30
-DOT_BYTES_PER_ENTRY = 14
-
 
 def _pil_l(img_u8: torch.Tensor) -> torch.Tensor:
     """Pillow's convert('L') fixed point over (..., 3) uint8 -> (...) int32
@@ -93,85 +70,54 @@ def _pil_l(img_u8: torch.Tensor) -> torch.Tensor:
     return (px[..., 0] * 19595 + px[..., 1] * 38470 + px[..., 2] * 7471 + 0x8000) >> 16
 
 
-def _check_lut_impl(lut_impl: str) -> None:
-    if lut_impl not in LUT_IMPLS:
-        raise ValueError(f"lut_impl must be 'dot' or 'gather': {lut_impl!r}")
-
-
-def _jitter_slot(img_u8: torch.Tensor, table: torch.Tensor, kind: torch.Tensor,
-                 lut_impl: str = LUT_IMPL) -> torch.Tensor:
-    """One enhance slot over a (B, N, 3) uint8 batch: an integer row select
-    and a value lookup.  ``table`` (B, 256, 256) uint8 is the op's
-    host-baked PIL-blend grid; ``kind`` (B,) picks the row: the pixel's L
-    (saturation), the image's mean L (contrast) or row 0 (brightness,
-    identity).  ``lut_impl``: ``"gather"``, one table gather, or ``"dot"``,
-    two one-hot contractions (:func:`_jitter_slot_dot`)."""
-    _check_lut_impl(lut_impl)
+def _slot_rows(img_u8: torch.Tensor, kind: torch.Tensor) -> torch.Tensor:
+    """The grid row of each pixel of a (B, N, 3) uint8 batch for a slot of
+    ``kind`` (B,): its L (saturation), its image's mean L (contrast) or 0
+    (brightness, identity), (B, N) int64."""
     l_plane = _pil_l(img_u8)                                   # (B, N) int32
     n = l_plane.shape[-1]
     # ImageEnhance.Contrast: int(mean(L) + 0.5), exactly, in integers
     gray = (2 * l_plane.sum(-1, dtype=torch.int64) + n) // (2 * n)     # (B,) int64
     k = kind[:, None]
-    row = torch.where(k == KIND_SATURATION, l_plane.long(),
-                      torch.where(k == KIND_CONTRAST, gray[:, None], 0))  # (B, N) int64
-    if lut_impl == "dot":
-        return _jitter_slot_dot(img_u8, table, row)
-    idx = row[..., None] * 256 + img_u8.long()                # (B, N, 3)
+    return torch.where(k == KIND_SATURATION, l_plane.long(),
+                       torch.where(k == KIND_CONTRAST, gray[:, None], 0))
+
+
+def _jitter_slot(img_u8: torch.Tensor, table: torch.Tensor, kind: torch.Tensor) -> torch.Tensor:
+    """One enhance slot over a (B, N, 3) uint8 batch: an integer row select
+    and a value lookup.  ``table`` (B, 256, 256) uint8 is the op's
+    host-baked PIL-blend grid; ``kind`` (B,) picks the row
+    (:func:`_slot_rows`)."""
+    idx = _slot_rows(img_u8, kind)[..., None] * 256 + img_u8.long()   # (B, N, 3)
     b = img_u8.shape[0]
     return torch.gather(table.reshape(b, 256 * 256), 1, idx.reshape(b, -1)).reshape(img_u8.shape)
 
 
-def _jitter_slot_dot(img_u8: torch.Tensor, table: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
-    """The slot's lookup ``table[b, row[b, n], img_u8[b, n, c]]`` as two
-    bf16 contractions, a chunk of :data:`DOT_CHUNK_BYTES` worth of images
-    at a time: ``onehot(row) @ grid`` selects each pixel's row, then the
-    row dotted with ``onehot(value)`` selects the value."""
-    b, n, _ = img_u8.shape
-    iota = torch.arange(256, device=img_u8.device)
-    grid = table.to(torch.bfloat16)
-    out = torch.empty_like(img_u8)
-    step = max(1, DOT_CHUNK_BYTES // (n * 256 * DOT_BYTES_PER_ENTRY))
-    for i in range(0, b, step):
-        c = slice(i, i + step)
-        ohr = (row[c, :, None] == iota).to(torch.bfloat16)                      # (b', N, 256)
-        rows = torch.bmm(ohr, grid[c])                                          # (b', N, 256)
-        del ohr
-        ohv = (img_u8[c].to(torch.int32)[..., None] == iota).to(torch.bfloat16)  # (b', N, 3, 256)
-        m = ohv.shape[0] * n
-        vals = torch.bmm(ohv.reshape(m, 3, 256), rows.reshape(m, 256, 1))       # (b' N, 3, 1)
-        out[c] = vals.reshape(-1, n, 3).to(torch.uint8)
-    return out
-
-
-@functools.lru_cache(maxsize=None)
-def _unit_lut_np() -> np.ndarray:
-    """The host's u8 -> [0, 1] f32 table (``float(i) / 255.0f``, each entry
-    the correctly rounded quotient); callers only read it."""
-    from fastdepth_tpu_torch.data import native
-
-    return native.u8_to_unit_f32(np.arange(256, dtype=np.uint8))
-
-
 @functools.lru_cache(maxsize=None)
 def _unit_lut(device: torch.device) -> torch.Tensor:
-    """:func:`_unit_lut_np` on ``device``; callers only read it."""
-    return torch.from_numpy(_unit_lut_np()).to(device)
+    """The host's u8 -> [0, 1] f32 table (``float(i) / 255.0f``, each entry
+    the correctly rounded quotient) on ``device``; callers only read it."""
+    from fastdepth_tpu_torch.data import native
+
+    return torch.from_numpy(native.u8_to_unit_f32(np.arange(256, dtype=np.uint8))).to(device)
 
 
-def _u8_to_unit(img_u8: torch.Tensor, lut_impl: str = LUT_IMPL) -> torch.Tensor:
-    """uint8 -> [0, 1] f32 through :func:`_unit_lut_np`: ``"gather"``
-    looks each value up; ``"dot"`` is the select-sum ``sum_k lut[k] *
-    (v == k)`` over the table's entries as f32 constants, one add per
-    entry (``lut[0]`` is 0: the zeros it starts from)."""
-    _check_lut_impl(lut_impl)
-    if lut_impl == "gather":
-        return _unit_lut(img_u8.device)[img_u8.long()]
-    lut = _unit_lut_np()
-    vi = img_u8.to(torch.int32)
-    acc = torch.zeros(img_u8.shape, dtype=torch.float32, device=img_u8.device)
-    for k in range(1, 256):
-        acc.add_(vi == k, alpha=float(lut[k]))
-    return acc
+def _u8_to_unit(img_u8: torch.Tensor) -> torch.Tensor:
+    """uint8 -> [0, 1] f32 by lookup in :func:`_unit_lut`."""
+    return _unit_lut(img_u8.device)[img_u8.long()]
+
+
+def _spatial_gather(rgb_raw: torch.Tensor, depth_raw: torch.Tensor, flat: torch.Tensor,
+                    scale: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The geometry of :func:`apply_train_augment`: (rgb (B, N, 3) uint8,
+    depth (B, N) divided by the scale), the pad 0 in both."""
+    b = rgb_raw.shape[0]
+    mask = flat < 0
+    idx = torch.where(mask, 0, flat).long()                   # masked, then widened
+    rgb_g = torch.gather(rgb_raw.reshape(b, -1, 3), 1, idx[..., None].expand(-1, -1, 3))
+    rgb_g = rgb_g.masked_fill(mask[..., None], 0)
+    depth_g = torch.gather(depth_raw.reshape(b, -1), 1, idx)
+    return rgb_g, torch.where(mask, 0.0, depth_g / scale[:, None])
 
 
 def apply_train_augment(
@@ -182,7 +128,6 @@ def apply_train_augment(
     tables: torch.Tensor,
     kinds: torch.Tensor,
     out_size: Tuple[int, int] = (224, 224),
-    lut_impl: str = LUT_IMPL,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The train item's pixel pipeline on the tensors' device.
 
@@ -195,23 +140,12 @@ def apply_train_augment(
       tables    (B, S, 256, 256) uint8 jitter slot value grids,
       kinds     (B, S)           int32 jitter slot row kinds (KIND_*).
 
-    ``lut_impl`` picks how the jitter slots and the /255 look their values
-    up: ``"gather"`` (table gathers, the default) or ``"dot"`` (one-hot
-    contractions and a select-sum); both give the same bits.
-
     Returns (rgb (B, oh, ow, 3) f32 in [0, 1], depth (B, oh, ow, 1) in
     ``depth_raw``'s dtype), NHWC, bit for bit the host's
     ``TrainPipeline.__call__`` + ColorJitter items."""
-    _check_lut_impl(lut_impl)
     b = rgb_raw.shape[0]
     oh, ow = out_size
-    mask = flat < 0
-    idx = torch.where(mask, 0, flat).long()                   # masked, then widened
-    rgb_g = torch.gather(rgb_raw.reshape(b, -1, 3), 1, idx[..., None].expand(-1, -1, 3))
-    rgb_g = rgb_g.masked_fill(mask[..., None], 0)
-    depth_g = torch.gather(depth_raw.reshape(b, -1), 1, idx)
-    depth_g = torch.where(mask, 0.0, depth_g / scale[:, None])
+    rgb_g, depth_g = _spatial_gather(rgb_raw, depth_raw, flat, scale)
     for s in range(kinds.shape[1]):
-        rgb_g = _jitter_slot(rgb_g, tables[:, s], kinds[:, s], lut_impl=lut_impl)
-    return (_u8_to_unit(rgb_g, lut_impl=lut_impl).reshape(b, oh, ow, 3),
-            depth_g.reshape(b, oh, ow, 1))
+        rgb_g = _jitter_slot(rgb_g, tables[:, s], kinds[:, s])
+    return _u8_to_unit(rgb_g).reshape(b, oh, ow, 3), depth_g.reshape(b, oh, ow, 1)

@@ -6,45 +6,57 @@ Rows, frames/s of the whole bf16 train step (forward, backward, SGD with
 momentum) of the pruned flagship at random weights, on batches staged on
 the card once and stepped again and again:
 
-  plain_train_fps                  ``step(state, rgb224, depth224, lr)``: the
-                                   host made the items
-  device_augment_dot_train_fps     the step after ``data/device_aug.
-                                   apply_train_augment(lut_impl="dot")`` on raw
+  plain_train_fps                  ``make_train_step``'s step on (rgb224,
+                                   depth224): the host made the items
+  device_augment_dot_train_fps     the same step after ``probe_r5_device_gathers.
+                                   augment_dot`` (JAX's ``lut_impl="dot"``) on raw
                                    480x640 frames, gather maps and jitter grids
-  device_augment_gather_train_fps  the same with ``lut_impl="gather"``
+  device_augment_gather_train_fps  ``make_train_step(device_augment=True)``'s
+                                   step, the port's: ``data/device_aug.
+                                   apply_train_augment``, then the same step
 
-The device-augment steps are the port's ``make_train_step`` wrapped
-around ``apply_train_augment`` with the form named, as the script's
-``_GatherTrainer`` wraps JAX's, and cast to the masters' dtype as the
-port's own device-augment step does.  ``aug_cost_pct_<form>`` is the share
-of the plain rate the augmentation takes: ``100 * (1 - aug / plain)``.
-Each row: 3 warm-up steps, then ``--calls`` steps timed as one span
-(``engine/benchmark.time_pipelined``, CUDA events on the card).
+All three steps come from ``make_train_step``, each on its own copy of
+the weights; the dot step wraps the plain one as the port's
+device-augment step does (the augmented batch cast to the masters'
+dtype), as the script's ``_GatherTrainer`` wraps JAX's.  A row is 3
+warm-up steps, then ``--calls`` steps timed as one span
+(``engine/benchmark.time_pipelined``, CUDA events on the card).  The rows
+are timed ``--repeats`` rounds, the order reversed every other round
+(plain, gather, dot; dot, gather, plain), so that plain and gather run
+next to each other in both orders; ``runs`` holds every round's rate and
+``rows`` each row's median.  ``aug_cost_pct_<form>`` is the share of the
+plain rate the augmentation takes, ``100 * (1 - aug / plain)`` from the
+medians, and ``aug_cost_pct_runs`` the same share round by round, against
+that round's plain rate: a cost smaller than their spread is not resolved.
 
     python -m fastdepth_tpu_torch.scripts.bench_train_device_aug_r5 [--batch 128]
-        [--calls 20] [--device cuda|cpu] [--out PATH]
+        [--calls 20] [--repeats 5] [--device cuda|cpu] [--out PATH]
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import statistics
 
 import numpy as np
 import torch
 
 from fastdepth_tpu_torch.scripts import _serving as S
-from fastdepth_tpu_torch.scripts.probe_r5_device_gathers import RAW_HW
+from fastdepth_tpu_torch.scripts.probe_r5_device_gathers import RAW_HW, augment_dot
 
 LR = 0.01
 WARMUP = 3
 FORMS = ("dot", "gather")
+ORDER = ("plain_train_fps", "device_augment_gather_train_fps", "device_augment_dot_train_fps")
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--batch", type=int, default=128)
     p.add_argument("--calls", type=int, default=20)
+    p.add_argument("--repeats", type=int, default=5)
     S.add_common(p, "bench_train_device_aug_h100.json")
     return p.parse_args(argv)
 
@@ -73,32 +85,32 @@ def make_batches(b: int, out_size=(224, 224), seed: int = 0):
     return plain, raw
 
 
-def augment_step(model, cfg, lut_impl: str, compute_dtype=torch.bfloat16):
-    """``aug_step(state, rgb_raw, depth_raw, flat, scale, tables, kinds, lr)``:
-    ``apply_train_augment(lut_impl=...)`` on the raw batch, then the port's
-    train step on the augmented batch in the masters' dtype."""
-    from fastdepth_tpu_torch.data.device_aug import apply_train_augment
+def make_steps(model, cfg, compute_dtype=torch.bfloat16) -> dict:
+    """``{row: step}``: the plain step and the two device-augment steps,
+    all from ``make_train_step``."""
     from fastdepth_tpu_torch.train.trainer import make_train_step
 
-    base = make_train_step(model, cfg, compute_dtype=compute_dtype)
+    plain = make_train_step(model, cfg, compute_dtype=compute_dtype)
     out_size = tuple(model.config.output_size)
 
-    def aug_step(state, rgb_raw, depth_raw, flat, scale, tables, kinds, lr):
-        rgb, depth = apply_train_augment(rgb_raw, depth_raw, flat, scale, tables, kinds,
-                                         out_size=out_size, lut_impl=lut_impl)
+    def dot(state, rgb_raw, depth_raw, flat, scale, tables, kinds, lr):
+        rgb, depth = augment_dot(rgb_raw, depth_raw, flat, scale, tables, kinds,
+                                 out_size=out_size)
         dtype = state.flat.params.dtype
-        return base(state, rgb.to(dtype), depth.to(dtype), lr)
+        return plain(state, rgb.to(dtype), depth.to(dtype), lr)
 
-    return aug_step
+    return {"plain_train_fps": plain, "device_augment_dot_train_fps": dot,
+            "device_augment_gather_train_fps": make_train_step(
+                model, cfg, compute_dtype=compute_dtype, device_augment=True)}
 
 
-def train_fps(trainer, step, args, calls: int, device: str) -> float:
-    """Frames/s of ``step`` on ``trainer``'s state over the staged ``args``:
-    :data:`WARMUP` steps, then ``calls`` timed as one span."""
+def train_fps(step, state, args, calls: int, device: str) -> float:
+    """Frames/s of ``step`` on ``state`` (updated in place) over the staged
+    ``args``: :data:`WARMUP` steps, then ``calls`` timed as one span."""
     from fastdepth_tpu_torch.engine.benchmark import time_pipelined
 
     def one():
-        trainer.state, _ = step(trainer.state, *args, LR)
+        step(state, *args, LR)
 
     mean_s = time_pipelined(one, warmup=WARMUP, calls=calls, device=device)["mean_s"]
     return args[0].shape[0] / mean_s
@@ -106,33 +118,34 @@ def train_fps(trainer, step, args, calls: int, device: str) -> float:
 
 def main(argv=None) -> dict:
     from fastdepth_tpu_torch.config import TrainConfig
-    from fastdepth_tpu_torch.train import Trainer
+    from fastdepth_tpu_torch.train import sgd_init
 
     args = parse_args(argv)
     card = S.check_device(args.device)
     b = args.batch
     model, params = S.flagship()
-    cfg = TrainConfig(lr=LR)
-    results = {"batch": b, "calls": args.calls, "dtype": "bf16", "rows": {}}
+    results = {"batch": b, "calls": args.calls, "dtype": "bf16", "repeats": args.repeats,
+               "rows": {}, "runs": {}}
     plain, raw = make_batches(b, tuple(model.config.output_size))
-
-    def staged(arrays):
-        return tuple(torch.from_numpy(a).to(args.device) for a in arrays)
-
-    runs = [("plain_train_fps", None, staged(plain))]
-    raw = staged(raw)
-    runs += [(f"device_augment_{form}_train_fps", form, raw) for form in FORMS]
-    for tag, form, batch in runs:
-        trainer = Trainer(model, params, cfg, compute_dtype=torch.bfloat16, device=args.device)
-        step = trainer._step if form is None else augment_step(model, cfg, form)
-        results["rows"][tag] = round(train_fps(trainer, step, batch, args.calls,
-                                               args.device), 1)
-        print(json.dumps({tag: results["rows"][tag]}), flush=True)
-        del trainer
-    plain_fps = results["rows"]["plain_train_fps"]
+    plain, raw = (tuple(torch.from_numpy(a).to(args.device) for a in arrays)
+                  for arrays in (plain, raw))
+    steps = make_steps(model, TrainConfig(lr=LR))
+    batches = {tag: plain if tag == "plain_train_fps" else raw for tag in steps}
+    states = {tag: sgd_init(copy.deepcopy(params).to(args.device)) for tag in steps}
+    runs = {tag: [] for tag in steps}
+    for r in range(args.repeats):
+        for tag in (ORDER if r % 2 == 0 else ORDER[::-1]):
+            runs[tag].append(round(train_fps(steps[tag], states[tag], batches[tag], args.calls,
+                                             args.device), 1))
+            print(json.dumps({"round": r, tag: runs[tag][-1]}), flush=True)
+    results["runs"] = runs
+    results["rows"] = rows = {tag: statistics.median(v) for tag, v in runs.items()}
     for form in FORMS:
+        aug = f"device_augment_{form}_train_fps"
         results[f"aug_cost_pct_{form}"] = round(
-            100.0 * (1 - results["rows"][f"device_augment_{form}_train_fps"] / plain_fps), 2)
+            100.0 * (1 - rows[aug] / rows["plain_train_fps"]), 2)
+        results.setdefault("aug_cost_pct_runs", {})[form] = [
+            round(100.0 * (1 - a / p), 2) for a, p in zip(runs[aug], runs["plain_train_fps"])]
     print(json.dumps({k: v for k, v in results.items() if "pct" in k}), flush=True)
     results["card"] = card
     S.write_json(args.out, results)

@@ -9,11 +9,14 @@ eager PyTorch on the card, where each is its kernels one after another:
     take_256         ``lut[v]``, the lookup itself
     onehot_dot       ``onehot(v) @ lut`` in bf16, the one-hot materialised
     select_sum       ``sum_k lut[k] * (v == k)`` over 256 f32 constants
+                     (``probe_r5_device_gathers.select_sum``, its /255)
     select_sum_bt    per-image tables (B, 256): ``sum_k lut_b[:, k] * (v == k)``
     onehot_dot_bt    per-image tables, one batched product
   (256, 256) per-image grids (the saturation slot):
     sat_two_dots     ``onehot(L) @ grid`` selects the rows, then
                      ``rows . onehot(v)`` the values, in bf16
+                     (``probe_r5_device_gathers.two_dots``, its slot, here
+                     on the whole batch at once)
   the spatial gather packed in slices:
     block_gather_16  a gather of one 32-element slice per 16 output pixels
                      (``starts[..., None] + arange(32)``), then a 16-way
@@ -40,7 +43,8 @@ import numpy as np
 import torch
 
 from fastdepth_tpu_torch.scripts import _serving as S
-from fastdepth_tpu_torch.scripts.probe_r5_device_gathers import RAW_HW, OUT_HW, time_ms
+from fastdepth_tpu_torch.scripts.probe_r5_device_gathers import (
+    OUT_HW, RAW_HW, onehot, select_sum, time_ms, two_dots)
 
 NPX = OUT_HW[0] * OUT_HW[1]
 N = NPX * 3  # lookups an image (the rgb channels)
@@ -72,12 +76,6 @@ def make_inputs(b: int, seed: int = 0) -> dict:
             "offs": rng.randint(0, BLOCK, (b, NPX)).astype(np.int32)}
 
 
-def _onehot(v: torch.Tensor) -> torch.Tensor:
-    """``(v[..., None] == arange(256))`` in bf16, ``v`` compared as int32."""
-    return (v.to(torch.int32)[..., None]
-            == torch.arange(256, dtype=torch.int32, device=v.device)).to(torch.bfloat16)
-
-
 def stages(x: dict, device: str) -> dict:
     """``{tag: (fn, args)}``: each row's function and its arguments on
     ``device``, built from :func:`make_inputs`."""
@@ -87,20 +85,14 @@ def stages(x: dict, device: str) -> dict:
     b = x["v"].shape[0]
     lut, lut_b = t(x["lut"]), t(x["lut_b"])
     lut_host = x["lut"].tolist()  # the table's entries as f32 constants
+    lpx = t(x["lpx"])
     grid_b = t(x["grid_b"])
 
     def take_256(v):
         return lut[v.long()]
 
     def onehot_dot(v):
-        return _onehot(v) @ lut.to(torch.bfloat16)
-
-    def select_sum(v):
-        vi = v.to(torch.int32)
-        acc = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
-        for k in range(256):
-            acc.add_(vi == k, alpha=lut_host[k])
-        return acc
+        return onehot(v) @ lut.to(torch.bfloat16)
 
     def select_sum_bt(v):
         vi = v.to(torch.int32)
@@ -110,12 +102,7 @@ def stages(x: dict, device: str) -> dict:
         return acc
 
     def onehot_dot_bt(v):
-        return torch.bmm(_onehot(v), lut_b.to(torch.bfloat16)[..., None])[..., 0]
-
-    def sat_two_dots(lpx, v):
-        rows = torch.bmm(_onehot(lpx), grid_b.to(torch.bfloat16))            # (B, npx, 256)
-        ohv = _onehot(v.reshape(b * NPX, 3))                                  # (B npx, 3, 256)
-        return torch.bmm(ohv, rows.reshape(b * NPX, 256, 1)).reshape(b, NPX, 3)
+        return torch.bmm(onehot(v), lut_b.to(torch.bfloat16)[..., None])[..., 0]
 
     def block_gather_16(raw32, starts, offs):
         # one SLICE-element slice per BLOCK output pixels, then a BLOCK-way
@@ -130,9 +117,10 @@ def stages(x: dict, device: str) -> dict:
 
     v = t(x["v"])
     return {"take_256": (take_256, (v,)), "onehot_dot": (onehot_dot, (v,)),
-            "select_sum": (select_sum, (v,)), "select_sum_bt": (select_sum_bt, (v,)),
-            "onehot_dot_bt": (onehot_dot_bt, (v,)),
-            "sat_two_dots": (sat_two_dots, (t(x["lpx"]), v)),
+            "select_sum": (lambda v: select_sum(v, lut_host), (v,)),
+            "select_sum_bt": (select_sum_bt, (v,)), "onehot_dot_bt": (onehot_dot_bt, (v,)),
+            "sat_two_dots": (lambda lpx, v: two_dots(lpx, v.reshape(b, NPX, 3), grid_b),
+                             (lpx, v)),
             "block_gather_16": (block_gather_16, (t(x["raw32"].view(np.int32)),
                                                   t(x["starts"]), t(x["offs"])))}
 

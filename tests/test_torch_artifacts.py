@@ -15,7 +15,6 @@ import numpy as np
 import pytest
 
 import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
-from fastdepth_tpu_torch.data import device_aug
 from fastdepth_tpu_torch.scripts import _serving as S
 
 DOCS = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, "docs")
@@ -151,24 +150,31 @@ def test_rehearsal_report():
 
 
 def test_device_augment_cost_derives_from_its_rows_and_picks_the_default():
-    """``aug_cost_pct_<form>`` = 100 (1 - aug / plain) on its own rows, and
-    the port's default lookup form is the one whose step is faster."""
+    """Each row is the median of its rounds, ``aug_cost_pct_<form>`` = 100
+    (1 - aug / plain) on the rows and round by round on the runs, and the
+    port's form (the gather form, the only one ``data/device_aug`` has)
+    is the one whose step is faster."""
+    import statistics
+
     d = _load("bench_train_device_aug_h100.json")
-    rows = d["rows"]
-    for form in device_aug.LUT_IMPLS:
+    rows, runs = d["rows"], d["runs"]
+    assert set(rows) == set(runs) and all(len(v) == d["repeats"] for v in runs.values())
+    for tag, fps in runs.items():
+        assert rows[tag] == statistics.median(fps), tag
+    for form in ("dot", "gather"):
+        aug = f"device_augment_{form}_train_fps"
         got = d[f"aug_cost_pct_{form}"]
-        assert abs(got - 100.0 * (1 - rows[f"device_augment_{form}_train_fps"]
-                                  / rows["plain_train_fps"])) < 0.005, form
-    faster = max(device_aug.LUT_IMPLS, key=lambda f: rows[f"device_augment_{f}_train_fps"])
-    assert device_aug.LUT_IMPL == faster
+        assert abs(got - 100.0 * (1 - rows[aug] / rows["plain_train_fps"])) < 0.005, form
+        for got, a, p in zip(d["aug_cost_pct_runs"][form], runs[aug], runs["plain_train_fps"]):
+            assert abs(got - 100.0 * (1 - a / p)) < 0.005, form
+    assert rows["device_augment_gather_train_fps"] > rows["device_augment_dot_train_fps"]
 
 
 def test_gather_probe_decomposes_the_default_augmentation():
-    """The default form's stages (the rgb and depth gathers, three jitter
+    """The port's form's stages (the rgb and depth gathers, three jitter
     slots and the /255) add up to the whole augmentation within 20%, and
     its whole is the faster of the two forms."""
     r = _load("probe_r5_device_gathers_h100.json")["rows"]
-    assert device_aug.LUT_IMPL == "gather"
     stages = (r["rgb_u8_gather"] + r["depth_f32_gather"] + 3 * r["jitter_slot_2d_gather"]
               + r["unit_lut_take"])
     assert abs(stages - r["full_augment_gather"]) / r["full_augment_gather"] < 0.20

@@ -1,8 +1,9 @@
 """The port's train augmentation on the device (``fastdepth_tpu_torch/data/
 device_aug.py``) and the device-augment train step, on the CPU: the
-lookups and the whole item pipeline, in both lookup forms (``lut_impl``),
-bit for bit against the JAX package's same and other form and against the
-port's host train items, the device-augment step bit for bit against the
+lookups and the whole item pipeline, in both of the JAX package's lookup
+forms (``lut_impl``: the port's gather form, and the dot form that
+``scripts/probe_r5_device_gathers`` times), bit for bit against the JAX
+package's same and other form and against the port's host train items, the device-augment step bit for bit against the
 host-item step and against JAX's device-augment step in f64, and
 ``cli.train --device-augment``."""
 
@@ -35,6 +36,7 @@ from fastdepth_tpu_torch.data import native
 from fastdepth_tpu_torch.data import transforms as TT
 from fastdepth_tpu_torch.data.nyu import NYUDataset
 from fastdepth_tpu_torch.models import build
+from fastdepth_tpu_torch.scripts import probe_r5_device_gathers as G
 from fastdepth_tpu_torch.train import sgd_init
 from fastdepth_tpu_torch.train.trainer import make_train_step
 
@@ -74,7 +76,9 @@ def _t(arrays):
 # --- the lookups ----------------------------------------------------------
 
 LUT_IMPLS = ["dot", "gather"]
-assert tuple(LUT_IMPLS) == TD.LUT_IMPLS
+# each form's (jitter slot, /255, whole augmentation) in the port
+PORT_FORMS = {"dot": (G.jitter_slot_dot, lambda v: G.select_sum(v, G.unit_lut()), G.augment_dot),
+              "gather": (TD._jitter_slot, TD._u8_to_unit, TD.apply_train_augment)}
 
 
 def _jax_forms(fn):
@@ -104,7 +108,7 @@ def test_jitter_slot_is_bit_equal_to_the_jax_gather_form(kind, lut_impl):
     img = rng.randint(0, 256, (len(factors) + 1, 64 * 64, 3), dtype=np.uint8)
     tables = np.stack([JT.blend_grid(f) for f in factors] + [JT.identity_grid()])
     kinds = np.full(len(tables), kind, np.int32)
-    got = TD._jitter_slot(*_t([img, tables, kinds]), lut_impl=lut_impl)
+    got = PORT_FORMS[lut_impl][0](*_t([img, tables, kinds]))
     assert got.dtype == torch.uint8
     for form in LUT_IMPLS:
         want = np.asarray(JAX_SLOT[form](jnp.asarray(img), jnp.asarray(tables),
@@ -121,16 +125,16 @@ def test_jitter_slot_is_bit_equal_to_the_jax_gather_form(kind, lut_impl):
 def test_the_dot_forms_chunking_leaves_the_values(monkeypatch):
     """The dot slot runs DOT_CHUNK_BYTES worth of images at a time: one
     image a chunk (a 1-byte budget) gives the bits of the whole batch in
-    one chunk."""
+    one chunk, and of the gather form."""
     rng = np.random.RandomState(3)
     img = rng.randint(0, 256, (3, 32 * 32, 3), dtype=np.uint8)
     tables = np.stack([JT.blend_grid(f) for f in (0.6, 1.0, 1.4)])
     kinds = np.array([TD.KIND_SATURATION, TD.KIND_CONTRAST, TD.KIND_BRIGHTNESS], np.int32)
-    whole = TD._jitter_slot(*_t([img, tables, kinds]), lut_impl="dot")
-    monkeypatch.setattr(TD, "DOT_CHUNK_BYTES", 1)
-    chunked = TD._jitter_slot(*_t([img, tables, kinds]), lut_impl="dot")
+    whole = G.jitter_slot_dot(*_t([img, tables, kinds]))
+    monkeypatch.setattr(G, "DOT_CHUNK_BYTES", 1)
+    chunked = G.jitter_slot_dot(*_t([img, tables, kinds]))
     assert torch.equal(whole, chunked)
-    assert torch.equal(whole, TD._jitter_slot(*_t([img, tables, kinds]), lut_impl="gather"))
+    assert torch.equal(whole, TD._jitter_slot(*_t([img, tables, kinds])))
 
 
 def test_pil_l_and_the_contrast_gray_match_jax_at_the_extremes():
@@ -147,31 +151,12 @@ def test_pil_l_and_the_contrast_gray_match_jax_at_the_extremes():
 def test_u8_to_unit_is_bit_equal_to_jax_and_to_the_host_table(lut_impl):
     """All 256 values, each form against the host table and both JAX forms."""
     v = np.arange(256, dtype=np.uint8)
-    got = TD._u8_to_unit(torch.from_numpy(v), lut_impl=lut_impl).numpy()
+    got = PORT_FORMS[lut_impl][1](torch.from_numpy(v)).numpy()
     np.testing.assert_array_equal(got, native.u8_to_unit_f32(v))
     for form in LUT_IMPLS:
         np.testing.assert_array_equal(got, np.asarray(JAX_UNIT[form](jnp.asarray(v))),
                                       err_msg=form)
     assert got.dtype == np.float32
-
-
-def test_lut_impl_guard_names_the_argument():
-    """An unknown lookup form raises a ValueError naming ``lut_impl``, as
-    JAX's does (tests/test_device_aug.py:166)."""
-    with pytest.raises(ValueError, match="lut_impl"):
-        TD._u8_to_unit(torch.zeros(4, dtype=torch.uint8), lut_impl="mxu")
-    with pytest.raises(ValueError, match="lut_impl"):
-        TD._jitter_slot(torch.zeros(1, 8, 3, dtype=torch.uint8),
-                        torch.zeros(1, 256, 256, dtype=torch.uint8),
-                        torch.zeros(1, dtype=torch.int32), lut_impl="take")
-    with pytest.raises(ValueError, match="lut_impl"):
-        TD.apply_train_augment(*_t([np.zeros((1, 2, 2, 3), np.uint8),
-                                    np.zeros((1, 2, 2), np.float32), np.zeros((1, 4), np.int32),
-                                    np.ones(1, np.float32),
-                                    np.zeros((1, 0, 256, 256), np.uint8),
-                                    np.zeros((1, 0), np.int32)]),
-                               out_size=(2, 2), lut_impl="xla")
-    assert TD.LUT_IMPL in TD.LUT_IMPLS
 
 
 # --- the whole item pipeline ------------------------------------------------
@@ -192,7 +177,7 @@ def test_apply_train_augment_equals_jax_and_the_host_items(train_root, epoch, lu
     batch = _stack(dev, idxs)
     for g, w in zip(batch, _stack(jdev, idxs)):
         np.testing.assert_array_equal(g, w)
-    rgb, depth = TD.apply_train_augment(*_t(batch), lut_impl=lut_impl)
+    rgb, depth = PORT_FORMS[lut_impl][2](*_t(batch))
     assert rgb.shape == (3, 224, 224, 3) and depth.shape == (3, 224, 224, 1)
     assert rgb.dtype == depth.dtype == torch.float32
     for form in LUT_IMPLS:

@@ -18,8 +18,8 @@ the CPU, at the tiny widths of ``tests/test_pallas.py``:
     ``probe_r5_lut_alternatives``, ``bench_train_device_aug_r5``): their
     inputs drawn as their scripts draw them, each probe stage's output bit
     for bit the JAX expression its script times on the same inputs, every
-    ``main`` at b1-b2 with its script's keys, and the train bench's
-    device-augment steps against the port's own;
+    ``main`` at b1-b2 with its script's keys, and the train bench's dot
+    step against its gather step, the port's own;
 and the halo plan of ``analyze_spatial_halo`` against
 ``docs/spatial_halo_r3.json`` (the gloo ranks' bytes are held in
 ``tests/test_torch_spatial.py``, from ``tests/torch_spatial_ranks.py``'s
@@ -569,6 +569,7 @@ LUT_KEYS = {"batch", "calls", "lookups_per_call", "rows",
             "errors"}  # scripts/probe_r5_lut_alternatives.py:143-144
 AUG_TRAIN_KEYS = {"batch", "calls", "dtype", "rows", "aug_cost_pct_dot",
                   "aug_cost_pct_gather"}  # scripts/bench_train_device_aug_r5.py:74,144
+AUG_TRAIN_PORT_KEYS = {"repeats", "runs", "aug_cost_pct_runs"}  # the port's rounds
 # the scripts' rows (scripts/probe_r5_device_gathers.py:67-85,117;
 # probe_r5_lut_alternatives.py:133-141; bench_train_device_aug_r5.py:96,114,139)
 # and the port's gather forms beside the dot forms
@@ -825,35 +826,45 @@ def test_the_train_benchs_batches_are_its_scripts():
 
 
 def test_bench_train_device_aug_main(tiny, tmp_path, monkeypatch):
+    """Two rounds, the order reversed in the second: each row's median of
+    its rounds, each cost from the medians and round by round."""
     monkeypatch.setattr(bench_train_device_aug_r5, "WARMUP", 1)
-    res = _run(bench_train_device_aug_r5, ["--batch", "2", "--calls", "1"], tmp_path)
-    assert set(res) == AUG_TRAIN_KEYS | {"card"} and res["dtype"] == "bf16"
+    res = _run(bench_train_device_aug_r5, ["--batch", "2", "--calls", "1", "--repeats", "2"],
+               tmp_path)
+    assert set(res) == AUG_TRAIN_KEYS | AUG_TRAIN_PORT_KEYS | {"card"} and res["dtype"] == "bf16"
     assert set(res["rows"]) == AUG_TRAIN_ROWS and all(v > 0 for v in res["rows"].values())
+    assert res["repeats"] == 2 and set(res["runs"]) == AUG_TRAIN_ROWS
+    runs, plain = res["runs"], res["runs"]["plain_train_fps"]
+    for tag, fps in runs.items():
+        assert len(fps) == 2 and res["rows"][tag] == (fps[0] + fps[1]) / 2
     for form in ("dot", "gather"):
+        aug = f"device_augment_{form}_train_fps"
         assert res[f"aug_cost_pct_{form}"] == round(
-            100.0 * (1 - res["rows"][f"device_augment_{form}_train_fps"]
-                     / res["rows"]["plain_train_fps"]), 2)
+            100.0 * (1 - res["rows"][aug] / res["rows"]["plain_train_fps"]), 2)
+        assert res["aug_cost_pct_runs"][form] == [
+            round(100.0 * (1 - a / p), 2) for a, p in zip(runs[aug], plain)]
+    assert bench_train_device_aug_r5.parse_args([]).repeats == 5
 
 
-@pytest.mark.parametrize("lut_impl", ["dot", "gather"])
-def test_the_benchs_augment_step_is_the_ports_device_augment_step(lut_impl):
-    """The bench's step in either form, one bf16 step from the same tiny
-    tree over the bench's raw batch, equals the port's own device-augment
-    step (``make_train_step(device_augment=True)``) bit for bit."""
+def test_the_benchs_dot_and_gather_steps_are_the_same_step():
+    """The bench's dot step (``augment_dot``, then the plain step) and its
+    gather step (the port's ``make_train_step(device_augment=True)``),
+    one bf16 step each from the same tiny tree over the bench's raw
+    batch: the same loss and parameters bit for bit."""
     import copy
 
     from fastdepth_tpu_torch.config import TrainConfig
     from fastdepth_tpu_torch.train import sgd_init
-    from fastdepth_tpu_torch.train.trainer import make_train_step
 
     model, params = _tiny_flagship()
-    cfg = TrainConfig(lr=0.01)
+    steps = bench_train_device_aug_r5.make_steps(model, TrainConfig(lr=0.01))
+    assert list(steps) == ["plain_train_fps", "device_augment_dot_train_fps",
+                           "device_augment_gather_train_fps"]
     _, raw = bench_train_device_aug_r5.make_batches(2)
     raw = [torch.from_numpy(a) for a in raw]
-    s_b, l_b = bench_train_device_aug_r5.augment_step(model, cfg, lut_impl)(
-        sgd_init(copy.deepcopy(params)), *raw, 0.01)
-    s_p, l_p = make_train_step(model, cfg, compute_dtype=torch.bfloat16, device_augment=True)(
-        sgd_init(copy.deepcopy(params)), *raw, 0.01)
-    assert float(l_b) == float(l_p)
-    for (k, a), b in zip(s_b.params.state_dict().items(), s_p.params.state_dict().values()):
+    s_d, l_d = steps["device_augment_dot_train_fps"](sgd_init(copy.deepcopy(params)), *raw, 0.01)
+    s_g, l_g = steps["device_augment_gather_train_fps"](sgd_init(copy.deepcopy(params)), *raw,
+                                                        0.01)
+    assert float(l_d) == float(l_g)
+    for (k, a), b in zip(s_d.params.state_dict().items(), s_g.params.state_dict().values()):
         assert torch.equal(a, b), k
