@@ -29,6 +29,7 @@ import torch
 from torch import nn
 from torch.utils import _pytree as pytree
 
+from fastdepth_tpu_torch.engine import profiler as P
 from fastdepth_tpu_torch.models import fused as F
 from fastdepth_tpu_torch.models.registry import Model
 from fastdepth_tpu_torch.parallel import spatial as S
@@ -181,16 +182,18 @@ def compile_forward(
     package's fixed-shape executable does.
 
     On CUDA the kernels are built (it raises if they cannot be) and the
-    forward runs once at the fixed shape before this returns."""
+    forward runs once at the fixed shape before this returns.  A call of
+    ``fn`` is one ``engine/profiler.STEP`` span."""
     params, apply = _prepare(model, params, batch_size=batch_size, dtype=dtype,
                              fold_bn=fold_bn, impl=impl, device=device, tuning=tuning)
     shape = (batch_size, *image_size, 3)
 
     @torch.inference_mode()
     def forward(p, x: torch.Tensor) -> torch.Tensor:
-        if tuple(x.shape) != shape:
-            raise ValueError(f"compiled for input {shape}, got {tuple(x.shape)}")
-        return apply(p, x.to(dtype)).float()
+        with P.annotate(P.STEP):
+            if tuple(x.shape) != shape:
+                raise ValueError(f"compiled for input {shape}, got {tuple(x.shape)}")
+            return apply(p, x.to(dtype)).float()
 
     dev = torch.device(device)
     if dev.type == "cuda":

@@ -27,6 +27,7 @@ import torch
 
 from fastdepth_tpu_torch import viz
 from fastdepth_tpu_torch import metrics as M
+from fastdepth_tpu_torch.engine import profiler as P
 from fastdepth_tpu_torch.engine.aot import _prepare, normalize
 from fastdepth_tpu_torch.engine.staging import PinnedRing
 from fastdepth_tpu_torch.models.registry import Model
@@ -142,19 +143,22 @@ class Evaluator:
     @torch.inference_mode()
     def __call__(self, rgb: torch.Tensor, depth: torch.Tensor):
         """(pred (N, H, W, 1) f32, metrics (len(METRIC_FIELDS), N)), both on
-        the device and not waited for."""
-        if self._gather is not None:
-            # both tensors are gathered: each must be a raw frame
-            for name, t in (("rgb", rgb), ("depth", depth)):
-                self._check_raw(name, t)
-            rows, cols = self._gather
-            rgb = rgb.index_select(1, rows).index_select(2, cols)
-            depth = depth.index_select(1, rows).index_select(2, cols)
-        rgb = normalize(rgb, self.dtype) if rgb.dtype == torch.uint8 else rgb.to(self.dtype)
-        pred = self._apply(self.params, rgb).float()
-        metrics = M.evaluate_batch(pred, depth,
-                                   None if self._space is None else self.mesh.space_group)
-        return pred, torch.stack([metrics[f] for f in M.METRIC_FIELDS])
+        the device and not waited for.  Spans (``engine/profiler``): the
+        call, and its metrics."""
+        with P.annotate(P.STEP):
+            if self._gather is not None:
+                # both tensors are gathered: each must be a raw frame
+                for name, t in (("rgb", rgb), ("depth", depth)):
+                    self._check_raw(name, t)
+                rows, cols = self._gather
+                rgb = rgb.index_select(1, rows).index_select(2, cols)
+                depth = depth.index_select(1, rows).index_select(2, cols)
+            rgb = normalize(rgb, self.dtype) if rgb.dtype == torch.uint8 else rgb.to(self.dtype)
+            pred = self._apply(self.params, rgb).float()
+            with P.annotate(P.METRICS):
+                metrics = M.evaluate_batch(
+                    pred, depth, None if self._space is None else self.mesh.space_group)
+                return pred, torch.stack([metrics[f] for f in M.METRIC_FIELDS])
 
 
 def validate(

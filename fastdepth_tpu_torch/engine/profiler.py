@@ -4,15 +4,43 @@
 card's kernels when CUDA is available (CUPTI).  The trace is written as
 a Chrome trace (``trace.json``, viewable in Perfetto) and a table of
 time by op (``ops.txt``).  Timing itself lives in ``engine/benchmark.py``.
+
+The program marks its layers with :func:`annotate`, five spans in all,
+each a ``record_function`` range of its host thread in a
+``torch.profiler`` trace, in which the kernels launched inside it are
+found by their launches' correlation ids:
+
+* :data:`STEP` (``fastdepth.step``): one call of ``Evaluator`` or of the
+  forward ``engine/aot.compile_forward`` returns, from entry to return;
+* :data:`ENCODER` (``fastdepth.encoder``): the encoder pass
+  (``models/mobilenet.apply_encoder``, ``models/resnet.apply_resnet_encoder``);
+* :data:`DECODER` (``fastdepth.decoder``): the rest of the forward: a
+  ResNet's bridge 1x1, the decoder levels and the head;
+* :data:`METRICS` (``fastdepth.metrics``): an evaluation step's metric
+  sums and their stack;
+* :data:`K1` (``fastdepth::fused_decoder_stage``): one eager K1 level,
+  under the name the op has in the dispatcher when a trace calls it.
+
+A span nests in the one open around it on the same thread; the step is
+the root.  With no profiler running a span costs one flag read.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Iterator, Optional
+from typing import ContextManager, Iterator, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
+
+STEP = "fastdepth.step"
+ENCODER = "fastdepth.encoder"
+DECODER = "fastdepth.decoder"
+METRICS = "fastdepth.metrics"
+K1 = "fastdepth::fused_decoder_stage"
+
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -35,8 +63,10 @@ def trace(out_dir: Optional[str]) -> Iterator[None]:
         f.write(prof.key_averages().table(sort_by=sort, row_limit=50))
 
 
-@contextlib.contextmanager
-def annotate(name: str) -> Iterator[None]:
-    """A named span in the trace around the block."""
-    with torch.profiler.record_function(name):
-        yield
+def annotate(name: str) -> ContextManager:
+    """A named span in the trace around the block while a profiler
+    runs; otherwise a shared no-op, after one read of the flag that
+    ``torch.profiler`` sets, and no call into the dispatcher."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name)

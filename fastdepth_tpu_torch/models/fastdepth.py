@@ -17,6 +17,7 @@ import torch
 from torch import nn
 
 from fastdepth_tpu_torch.config import ModelConfig
+from fastdepth_tpu_torch.engine import profiler as P
 from fastdepth_tpu_torch.models import decoders as D
 from fastdepth_tpu_torch.models import layers as L
 from fastdepth_tpu_torch.models import mobilenet as MN
@@ -67,7 +68,8 @@ def apply_fastdepth(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig, *,
     (``('encoder', 'conv3', 'dw', 'bn')``, ``('decoder', 'decode_conv2',
     'pw', 'bn')``).  ``space``: the forward is height-sharded over that
     partition; ``x`` and the result hold this rank's rows of the image
-    (:func:`parallel.spatial.input_level`)."""
+    (:func:`parallel.spatial.input_level`).  The encoder and the rest are
+    one ``engine/profiler`` span each."""
     lv = S.input_level(space, x, cfg)
     feats, tapped = MN.apply_encoder(
         params["encoder"], B.from_nhwc(x), relu6=cfg.encoder_relu6,
@@ -76,24 +78,25 @@ def apply_fastdepth(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig, *,
     y = feats
     lv = MN.output_level(lv)
     dec = params["decoder"]
-    for i in range(1, 6):
-        p = dec[f"decode_conv{i}"]
-        path = ("decoder", f"decode_conv{i}")
-        if cfg.decoder_depthwise:
-            y = L.apply_conv_bn(y, p["dw"], depthwise=True, train=train, stats=stats,
-                                path=path + ("dw",), space=lv)
-            y = L.apply_conv_bn(y, p["pw"], train=train, stats=stats, path=path + ("pw",),
-                                space=lv)
-        else:
-            y = L.apply_conv_bn(y, p["conv"], train=train, stats=stats, path=path + ("conv",),
-                                space=lv)
-        y, lv = S.upsample(y, lv)
-        # skip fusion AFTER the upsample (models.py:720-729)
-        if cfg.skip and i in SKIP_AFTER:
-            t = tapped[SKIP_AFTER[i]]
-            y = y + t if cfg.skip == "add" else torch.cat([y, t], dim=1)
-    return B.to_nhwc(L.apply_conv_bn(y, dec["decode_conv6"]["pw"], train=train, stats=stats,
-                                     path=("decoder", "decode_conv6", "pw")))
+    with P.annotate(P.DECODER):
+        for i in range(1, 6):
+            p = dec[f"decode_conv{i}"]
+            path = ("decoder", f"decode_conv{i}")
+            if cfg.decoder_depthwise:
+                y = L.apply_conv_bn(y, p["dw"], depthwise=True, train=train, stats=stats,
+                                    path=path + ("dw",), space=lv)
+                y = L.apply_conv_bn(y, p["pw"], train=train, stats=stats,
+                                    path=path + ("pw",), space=lv)
+            else:
+                y = L.apply_conv_bn(y, p["conv"], train=train, stats=stats,
+                                    path=path + ("conv",), space=lv)
+            y, lv = S.upsample(y, lv)
+            # skip fusion AFTER the upsample (models.py:720-729)
+            if cfg.skip and i in SKIP_AFTER:
+                t = tapped[SKIP_AFTER[i]]
+                y = y + t if cfg.skip == "add" else torch.cat([y, t], dim=1)
+        return B.to_nhwc(L.apply_conv_bn(y, dec["decode_conv6"]["pw"], train=train,
+                                         stats=stats, path=("decoder", "decode_conv6", "pw")))
 
 
 def make_mobilenet_decoder(cfg: ModelConfig, *, folded: bool = False) -> nn.ModuleDict:
@@ -115,6 +118,7 @@ def apply_mobilenet_decoder(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelCo
     lv = S.input_level(space, x, cfg)
     feats, _ = MN.apply_encoder(params["encoder"], B.from_nhwc(x), relu6=cfg.encoder_relu6,
                                 train=train, stats=L.sub_stats(stats, "encoder"), space=lv)
-    return B.to_nhwc(D.apply_decoder(params["decoder"], cfg.decoder, feats, train=train,
-                                     stats=L.sub_stats(stats, "decoder"),
-                                     space=MN.output_level(lv)))
+    with P.annotate(P.DECODER):
+        return B.to_nhwc(D.apply_decoder(params["decoder"], cfg.decoder, feats, train=train,
+                                         stats=L.sub_stats(stats, "decoder"),
+                                         space=MN.output_level(lv)))

@@ -36,6 +36,7 @@ import torch
 from torch import nn
 
 from fastdepth_tpu_torch.config import ModelConfig
+from fastdepth_tpu_torch.engine import profiler as P
 from fastdepth_tpu_torch.models import mobilenet as MN
 from fastdepth_tpu_torch.models.fastdepth import SKIP_AFTER, SKIP_TAPS
 from fastdepth_tpu_torch.ops import blocks as B
@@ -93,7 +94,8 @@ def attach_kernel_weights(params: nn.ModuleDict) -> None:
 def _fused_forward(params, x, cfg, stage, space=None):
     """Guard + encoder pass, decoder levels 1-5 through
     ``stage(i, y, p, skip, level)`` (``level`` that of ``y`` under
-    ``space``, else None), then the head through K4 (NHWC in and out)."""
+    ``space``, else None), then the head through K4 (NHWC in and out);
+    the levels and the head are one ``engine/profiler.DECODER`` span."""
     if not supports_fused(cfg):
         raise ValueError(
             "fused path supports the MobileNet nnconv5dw skip-add family; "
@@ -106,12 +108,13 @@ def _fused_forward(params, x, cfg, stage, space=None):
     y, tapped = MN.apply_encoder(params["encoder"], B.from_nhwc(x),
                                  relu6=cfg.encoder_relu6, taps=SKIP_TAPS, space=lv)
     lv = MN.output_level(lv)
-    for i in range(1, 6):
-        skip = tapped[SKIP_AFTER[i]] if i in SKIP_AFTER else None
-        y = stage(i, y, dec[f"decode_conv{i}"], skip, lv)
-        lv = lv and lv.up()
-    head = dec["decode_conv6"]
-    return B.to_nhwc(pointwise_head(y, head.k4_w, head["pw"].b))
+    with P.annotate(P.DECODER):
+        for i in range(1, 6):
+            skip = tapped[SKIP_AFTER[i]] if i in SKIP_AFTER else None
+            y = stage(i, y, dec[f"decode_conv{i}"], skip, lv)
+            lv = lv and lv.up()
+        head = dec["decode_conv6"]
+        return B.to_nhwc(pointwise_head(y, head.k4_w, head["pw"].b))
 
 
 def _k1_stage(i, y, p, skip, level):
@@ -201,7 +204,8 @@ def apply_fastdepth_opt(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig
     runs BEFORE the final x2 upsample, on a quarter of the pixels.  Valid
     for the NNConv family (nearest upsample), skip models and plain
     MobileNet + nnconv decoders alike, with folded params.  ``space``:
-    height-sharded (module docstring)."""
+    height-sharded (module docstring).  The decoder levels and the head
+    are one ``engine/profiler.DECODER`` span."""
     if not supports_opt(cfg):
         raise ValueError(
             "opt path supports MobileNet encoders with nnconv decoders; "
@@ -222,19 +226,20 @@ def apply_fastdepth_opt(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig
     # models.py:683-698), the plain ones stage1..5 + final (models/decoders.py)
     skip_naming = "decode_conv1" in dec
     y = feats
-    for i in range(1, 6):
-        p = dec[f"decode_conv{i}" if skip_naming else f"stage{i}"]
-        if cfg.decoder_depthwise:
-            y = B.relu(conv(y, p["dw"].w, p["dw"].b, depthwise=True))
-            y = B.relu(conv(y, p["pw"].w, p["pw"].b))
-        else:
-            y = B.relu(conv(y, p["conv"].w, p["conv"].b))
-        if i == 5:
-            break  # the head commutes with the final upsample
-        y, lv = S.upsample(y, lv)
-        if cfg.skip and i in SKIP_AFTER:
-            t = tapped[SKIP_AFTER[i]]
-            y = y + t if cfg.skip == "add" else torch.cat([y, t], dim=1)
-    head = dec["decode_conv6" if skip_naming else "final"]["pw"]
-    y = B.relu(B.conv2d(y, head.w, bias=head.b))
-    return B.to_nhwc(S.upsample(y, lv)[0])
+    with P.annotate(P.DECODER):
+        for i in range(1, 6):
+            p = dec[f"decode_conv{i}" if skip_naming else f"stage{i}"]
+            if cfg.decoder_depthwise:
+                y = B.relu(conv(y, p["dw"].w, p["dw"].b, depthwise=True))
+                y = B.relu(conv(y, p["pw"].w, p["pw"].b))
+            else:
+                y = B.relu(conv(y, p["conv"].w, p["conv"].b))
+            if i == 5:
+                break  # the head commutes with the final upsample
+            y, lv = S.upsample(y, lv)
+            if cfg.skip and i in SKIP_AFTER:
+                t = tapped[SKIP_AFTER[i]]
+                y = y + t if cfg.skip == "add" else torch.cat([y, t], dim=1)
+        head = dec["decode_conv6" if skip_naming else "final"]["pw"]
+        y = B.relu(B.conv2d(y, head.w, bias=head.b))
+        return B.to_nhwc(S.upsample(y, lv)[0])

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from fastdepth_tpu_torch.config import MOBILENET_STRIDES, MOBILENET_V1_CHANNELS
+from fastdepth_tpu_torch.engine import profiler as P
 from fastdepth_tpu_torch.models import layers as L
 from fastdepth_tpu_torch.ops import blocks as B
 from fastdepth_tpu_torch.ops import init as I
@@ -46,24 +47,26 @@ def apply_encoder(params: nn.ModuleDict, x: torch.Tensor, *, relu6: bool = True,
     paths are ``('conv0', 'bn')`` and ``('convK', 'dw'|'pw', 'bn')``.
     ``space``: the level of ``x`` in a height-sharded forward; every
     activation, the taps too, is then this rank's rows of its level
-    (``parallel/spatial.py``)."""
+    (``parallel/spatial.py``).  The pass is one ``engine/profiler.ENCODER``
+    span."""
     act = B.relu6 if relu6 else B.relu
     tapped: Dict[int, torch.Tensor] = {}
-    x = L.apply_conv_bn(x, params["conv0"], stride=2, act=act, train=train, stats=stats,
-                        path=("conv0",), space=space)
-    space = space and space.down()
-    if 0 in taps:
-        tapped[0] = x
-    for i in range(1, 14):
-        p = params[f"conv{i}"]
-        stride = MOBILENET_STRIDES[i - 1]
-        x = L.apply_conv_bn(x, p["dw"], stride=stride, act=act, depthwise=True, train=train,
-                            stats=stats, path=(f"conv{i}", "dw"), space=space)
-        space = space and space.down(stride=stride)
-        x = L.apply_conv_bn(x, p["pw"], act=act, train=train, stats=stats,
-                            path=(f"conv{i}", "pw"), space=space)
-        if i in taps:
-            tapped[i] = x
+    with P.annotate(P.ENCODER):
+        x = L.apply_conv_bn(x, params["conv0"], stride=2, act=act, train=train, stats=stats,
+                            path=("conv0",), space=space)
+        space = space and space.down()
+        if 0 in taps:
+            tapped[0] = x
+        for i in range(1, 14):
+            p = params[f"conv{i}"]
+            stride = MOBILENET_STRIDES[i - 1]
+            x = L.apply_conv_bn(x, p["dw"], stride=stride, act=act, depthwise=True,
+                                train=train, stats=stats, path=(f"conv{i}", "dw"), space=space)
+            space = space and space.down(stride=stride)
+            x = L.apply_conv_bn(x, p["pw"], act=act, train=train, stats=stats,
+                                path=(f"conv{i}", "pw"), space=space)
+            if i in taps:
+                tapped[i] = x
     return x, tapped
 
 

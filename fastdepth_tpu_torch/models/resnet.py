@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from fastdepth_tpu_torch.config import ModelConfig
+from fastdepth_tpu_torch.engine import profiler as P
 from fastdepth_tpu_torch.models import decoders as D
 from fastdepth_tpu_torch.models import layers as L
 from fastdepth_tpu_torch.ops import blocks as B
@@ -121,21 +122,23 @@ def apply_resnet_encoder(params: nn.ModuleDict, x: torch.Tensor, layers: int, *,
     statistics under ``('conv1', 'bn')``, ``('layer1', 'block0', 'conv1',
     'bn')``.  ``space``: the level of ``x`` in a height-sharded forward;
     the features and the taps are then this rank's rows of their levels
-    (:func:`output_level`)."""
+    (:func:`output_level`).  The pass is one ``engine/profiler.ENCODER``
+    span."""
     bottleneck = layers in BOTTLENECK
-    x1 = L.apply_conv_bn(x, params["conv1"], stride=2, padding=3, train=train, stats=stats,
-                         path=("conv1",), space=space)
-    space = space and space.down(7, 2, 3)
-    y = S.max_pool_3x3_s2(x1, space)
-    space = space and space.down()
-    taps = [x1]
-    for s, n in enumerate(RESNET_LAYERS[layers], start=1):
-        stage = params[f"layer{s}"]
-        for b in range(n):
-            y = _apply_block(y, stage[f"block{b}"], _stride(s, b), bottleneck, train=train,
-                             stats=stats, path=(f"layer{s}", f"block{b}"), space=space)
-            space = space and space.down(stride=_stride(s, b))
-        taps.append(y)
+    with P.annotate(P.ENCODER):
+        x1 = L.apply_conv_bn(x, params["conv1"], stride=2, padding=3, train=train,
+                             stats=stats, path=("conv1",), space=space)
+        space = space and space.down(7, 2, 3)
+        y = S.max_pool_3x3_s2(x1, space)
+        space = space and space.down()
+        taps = [x1]
+        for s, n in enumerate(RESNET_LAYERS[layers], start=1):
+            stage = params[f"layer{s}"]
+            for b in range(n):
+                y = _apply_block(y, stage[f"block{b}"], _stride(s, b), bottleneck, train=train,
+                                 stats=stats, path=(f"layer{s}", f"block{b}"), space=space)
+                space = space and space.down(stride=_stride(s, b))
+            taps.append(y)
     return y, taps
 
 
@@ -205,13 +208,24 @@ def apply_resnet_depth(params: nn.ModuleDict, x: torch.Tensor, cfg: ModelConfig,
     """NHWC forward; statistics under ``('encoder', ...)`` and
     ``('decoder', ...)`` as in JAX.  ``space``: the forward is
     height-sharded over that partition; ``x`` and the result hold this
-    rank's rows of the image (``parallel.spatial.input_level``)."""
+    rank's rows of the image (``parallel.spatial.input_level``).  All
+    after the encoder, the bridge 1x1 on, is one
+    ``engine/profiler.DECODER`` span."""
     layers = resnet_depth(cfg)
     lv = S.input_level(space, x, cfg)
-    feats, (x1, x3, x4, x5, x6) = apply_resnet_encoder(
+    feats, taps = apply_resnet_encoder(
         params["encoder"], B.from_nhwc(x), layers, train=train,
         stats=L.sub_stats(stats, "encoder"), space=lv)
-    lv = output_level(lv)
+    with P.annotate(P.DECODER):
+        return _apply_resnet_decoder(params, feats, taps, cfg, train=train, stats=stats,
+                                     lv=output_level(lv))
+
+
+def _apply_resnet_decoder(params, feats, taps, cfg, *, train, stats, lv):
+    """:func:`apply_resnet_depth` after the encoder: the bridge 1x1 to
+    1024, the decoder levels and the head, from the encoder's features
+    and taps at ``lv``, the encoder's output level (None unsharded)."""
+    x1, x3, x4, x5, x6 = taps
     x7 = B.conv2d(feats, params["conv2"].w, bias=params["conv2"].b)  # 1x1: local
     dec = params["decoder"]
     if cfg.skip is None:

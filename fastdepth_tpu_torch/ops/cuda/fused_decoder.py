@@ -50,6 +50,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from fastdepth_tpu_torch.engine.profiler import K1 as K1_SPAN
+from fastdepth_tpu_torch.engine.profiler import annotate
 from fastdepth_tpu_torch.ops.cuda import _build
 
 LAUNCHES = 0
@@ -386,7 +388,8 @@ def fused_decoder_stage(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
     (``torch.export``, ``torch.compile``) the call goes through the custom
     op ``fastdepth::fused_decoder_stage`` (:data:`STAGE_OP`), one node in
     the graph; an eager call goes straight to the op's implementation
-    for its device, without the dispatcher's host time (PERF.md §6)."""
+    for its device, without the dispatcher's host time (PERF.md §6),
+    inside a profiler span of the op's name (``engine/profiler.K1``)."""
     rows = x.shape[-2]
     window = (0, rows, 0, 2 * rows) if window is None else tuple(int(v) for v in window)
     check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, "K1", window[3] - window[2])
@@ -394,7 +397,8 @@ def fused_decoder_stage(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
     if torch.compiler.is_compiling():
         return STAGE_OP(x, dw_w, dw_b, pw_w, pw_b, skip, list(window))
     impl = _stage_cpu if use_plain_version("K1", x) else _stage_cuda
-    return impl(x, dw_w, dw_b, pw_w, pw_b, skip, window)
+    with annotate(K1_SPAN):
+        return impl(x, dw_w, dw_b, pw_w, pw_b, skip, window)
 
 
 def _stage_cpu(x, dw_w, dw_b, pw_w, pw_b, skip, window):
