@@ -29,7 +29,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    8, held against the straight forward, with their launch counts;
 6. deploy path: cli.deploy.main on a seeded 224x224 rgb npy, f32 and
    --bf16, with randomized-input timing; its saved prediction against the
-   straight forward, and K1's and K4's launches on every call; then the
+   straight forward, and K1's and K4's launches on every call (a call
+   that replays compile_forward's CUDA graph counts its launches in
+   engine.aot.GRAPH_REPLAYS, every call after the compile replays); then the
    deploy CLI in f32 in a fresh process, whose TF32 flags start at
    PyTorch's defaults: it must turn TF32 off and its prediction must
    agree with the straight forward (TF32 off) within 1e-3;
@@ -210,6 +212,9 @@ BATCH = 8
 DEPLOY_BATCH = 1  # the deploy runner's forward
 E2E_BATCHES = 4
 STAGES_PER_FORWARD = 5
+# compile_forward's runs of the forward on CUDA beyond its warm run: the
+# side-stream warm-up and the capture of its CUDA graph
+CAPTURE_RUNS = 2
 
 DEPLOY_WARMUP, DEPLOY_RUN = 10, 50
 SERVE_FRAMES, SERVE_DEPTH, SERVE_LONE, SERVE_TIMED = 64, 32, 8, 2  # timed: extra streams
@@ -561,9 +566,13 @@ def forwards_phase(model, params) -> dict:
 def deploy_phase(model, params) -> dict:
     """cli.deploy.main on a seeded 224x224 rgb npy with the trained
     weights, f32 and --bf16, with randomized-input timing.  Every call of
-    the forward launches K1 five times and K4 once; the f32 prediction is
-    held against the straight forward (1e-3)."""
+    the forward launches K1 five times and K4 once: the compile's three
+    runs (warm-up, side-stream warm-up, capture) through their wrappers,
+    every later call, each a replay of the graph, in
+    ``engine.aot.GRAPH_REPLAYS``; the f32 prediction is held against the
+    straight forward (1e-3)."""
     from fastdepth_tpu_torch.cli import deploy
+    from fastdepth_tpu_torch.engine import aot
     from fastdepth_tpu_torch.engine.aot import compile_forward
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import head as K4
@@ -579,6 +588,7 @@ def deploy_phase(model, params) -> dict:
         for name, extra in (("f32", []), ("bf16", ["--bf16"])):
             out_fp = os.path.join(tmp, f"pred_{name}.npy")
             _reset(K1, K4)
+            aot.GRAPH_REPLAYS = 0
             log = io.StringIO()
             with contextlib.redirect_stdout(log):
                 deploy.main(["--model", WEIGHTS, "--input-fp", in_fp, "--output-fp", out_fp,
@@ -588,9 +598,13 @@ def deploy_phase(model, params) -> dict:
             for line in log.getvalue().splitlines():
                 print(f"deploy {name}: {line}")
             k1, k4 = _counts(K1, K4)
-            if (k1, k4) != (STAGES_PER_FORWARD * calls, calls):
-                fail(f"deploy {name}: K1 launched {k1} and K4 {k4} times over {calls} "
-                     f"calls, want {STAGES_PER_FORWARD} and 1 per call")
+            replays = aot.GRAPH_REPLAYS
+            if replays != calls - 1 or (k1 + STAGES_PER_FORWARD * replays, k4 + replays) != (
+                    STAGES_PER_FORWARD * (calls + CAPTURE_RUNS), calls + CAPTURE_RUNS):
+                fail(f"deploy {name}: K1 launched {k1} and K4 {k4} times and the graph "
+                     f"replayed {replays} times over {calls} calls, want {STAGES_PER_FORWARD} "
+                     f"and 1 per call and per capture run, every call after the compile a "
+                     f"replay")
             pred = np.load(out_fp)
             if pred.shape != (1, 1, *OUTPUT_HW) or not np.isfinite(pred).all():
                 fail(f"deploy {name}: saved prediction of shape {pred.shape}, finite: "
@@ -598,7 +612,7 @@ def deploy_phase(model, params) -> dict:
             timed = re.search(r"\[timed\] mean=([\d.]+) ms  median=([\d.]+) ms", log.getvalue())
             rand = re.search(r"\[randomized\] mean=([\d.]+) ms  median=([\d.]+) ms",
                              log.getvalue())
-            out[name] = {"launches": k1, "k4_launches": k4, "calls": calls,
+            out[name] = {"launches": k1, "k4_launches": k4, "replays": replays, "calls": calls,
                          "timed_median_ms": float(timed.group(2)),
                          "randomized_median_ms": float(rand.group(2))}
             if name == "f32":
@@ -626,7 +640,8 @@ def fresh_deploy_f32(in_fp: str, out_fp: str, want: np.ndarray, extra=(),
     whose TF32 flags start at PyTorch's defaults (cuDNN's on): the CLI
     must turn both off, its saved prediction must agree with ``want``,
     the straight forward with TF32 off, within 1e-3, and K1 and K4 must
-    have launched ``per_call`` times a call of the forward."""
+    have launched ``per_call`` times a call of the forward and a capture
+    run, a replay of the graph counting as a call."""
     argv = ["--model", WEIGHTS, "--input-fp", in_fp, "--output-fp", out_fp, "--warmup", "2",
             "--run", "5", "--device", "cuda", *extra]
     code = ("import json, torch\n"
@@ -634,10 +649,12 @@ def fresh_deploy_f32(in_fp: str, out_fp: str, want: np.ndarray, extra=(),
             "    return [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]\n"
             "before = flags()\n"
             "from fastdepth_tpu_torch.cli import deploy\n"
+            "from fastdepth_tpu_torch.engine import aot\n"
             "from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1, head as K4\n"
             f"deploy.main({argv!r})\n"
             "print('TF32 ' + json.dumps({'before': before, 'after': flags(),\n"
-            "                            'launches': [K1.LAUNCHES, K4.LAUNCHES]}))\n")
+            "                            'launches': [K1.LAUNCHES, K4.LAUNCHES],\n"
+            "                            'replays': aot.GRAPH_REPLAYS}))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                        timeout=300)
     if r.returncode != 0:
@@ -645,21 +662,24 @@ def fresh_deploy_f32(in_fp: str, out_fp: str, want: np.ndarray, extra=(),
     flags = json.loads(r.stdout.rsplit("TF32 ", 1)[1])
     pred = np.load(out_fp)
     err = float(np.abs(pred - want).max())
-    launches = flags["launches"]
+    launches, replays = flags["launches"], flags["replays"]
     print(f"{label}, fresh process: TF32 flags (cudnn, matmul) {flags['before']} before, "
-          f"{flags['after']} after; K1 {launches[0]}, K4 {launches[1]} launches over "
-          f"{FRESH_DEPLOY_CALLS} calls; saved prediction vs straight forward max|diff| "
-          f"{err:.3e} (bound 1e-3)")
+          f"{flags['after']} after; K1 {launches[0]}, K4 {launches[1]} launches and "
+          f"{replays} graph replays over {FRESH_DEPLOY_CALLS} calls; saved prediction vs "
+          f"straight forward max|diff| {err:.3e} (bound 1e-3)")
     if flags["after"] != [False, False]:
         fail(f"{label} left TF32 on: {flags['after']}")
     if not err <= 1e-3:
         fail(f"fresh-process {label} disagrees with the straight forward: {err}")
-    if launches != [per_call[0] * FRESH_DEPLOY_CALLS, per_call[1] * FRESH_DEPLOY_CALLS]:
-        fail(f"{label}: K1 {launches[0]} and K4 {launches[1]} launches over "
-             f"{FRESH_DEPLOY_CALLS} calls, want {per_call[0]} and {per_call[1]} a call")
+    runs = FRESH_DEPLOY_CALLS + CAPTURE_RUNS
+    if replays != FRESH_DEPLOY_CALLS - 1 or [n + k * replays for n, k in zip(
+            launches, per_call)] != [per_call[0] * runs, per_call[1] * runs]:
+        fail(f"{label}: K1 {launches[0]} and K4 {launches[1]} launches and {replays} graph "
+             f"replays over {FRESH_DEPLOY_CALLS} calls, want {per_call[0]} and "
+             f"{per_call[1]} a call and a capture run, every call after the compile a replay")
     return {"tf32_before": flags["before"], "tf32_after": flags["after"],
             "max_abs_err_vs_straight": err, "launches": launches[0],
-            "k4_launches": launches[1], "calls": FRESH_DEPLOY_CALLS}
+            "k4_launches": launches[1], "replays": replays, "calls": FRESH_DEPLOY_CALLS}
 
 
 def _serve_one(srv, tmp: str, name: str, inputs, lone_inputs,
@@ -3702,11 +3722,14 @@ FUSED_B1_ROWS = ("fp32 b1 fused", "bf16 b1 fused", "bf16 b1 AOT(fused)", "bf16 b
 
 def _per_forward(label: str, launches: dict) -> None:
     """K1 five times and K4 once a forward, over a positive number of
-    forwards (``_serve_one``'s rule)."""
-    n = launches["forwards"]
-    if not (n > 0 and (launches["K1"], launches["K4"]) == (STAGES_PER_FORWARD * n, n)):
-        fail(f"scripts {label}: K1 launched {launches['K1']} and K4 {launches['K4']} times over "
-             f"{n} forwards, want {STAGES_PER_FORWARD} and 1 a forward")
+    forwards (``_serve_one``'s rule); a replay of compile_forward's graph
+    is a forward whose launches its wrappers do not count."""
+    n, replays = launches["forwards"], launches["replays"]
+    if not (n > 0 and (launches["K1"] + STAGES_PER_FORWARD * replays,
+                       launches["K4"] + replays) == (STAGES_PER_FORWARD * n, n)):
+        fail(f"scripts {label}: K1 launched {launches['K1']} and K4 {launches['K4']} times "
+             f"with {replays} graph replays over {n} forwards, want {STAGES_PER_FORWARD} and "
+             "1 a forward")
 
 
 def _served_frame_check(label: str, answers, card: dict) -> float:

@@ -3,8 +3,9 @@
 (reference deploy/tx2_run_tvm.py:7-91).
 
 It loads a checkpoint, prepares the forward for the fixed input shape at
-batch 1 (``engine/aot.compile_forward``: fold, cast, kernels built and
-run once), feeds a golden npy input, saves the prediction npy in the
+batch 1 (``engine/aot.compile_forward``: fold, cast, kernels built, run
+once and, on CUDA, captured in a CUDA graph that each call replays),
+feeds a golden npy input, saves the prediction npy in the
 reference's NCHW layout, and reports warmup + repeat timings (also with
 fresh random inputs).  ``--save-bundle PREFIX`` also writes the deploy
 artifact pair ``PREFIX.pt2`` + ``PREFIX.npz`` (``engine/aot.save_bundle``:

@@ -5,7 +5,11 @@ JAX compiles the forward ahead of time for one input shape.  PyTorch runs
 eagerly, so :func:`compile_forward` does what is left of that on the
 card: it folds and casts the params once, picks the forward, builds the
 kernels and runs the forward once at the fixed shape, so that the first
-timed call neither builds nor allocates.
+timed call neither builds nor allocates.  On CUDA it then captures the
+forward at that shape in one CUDA graph, which a call replays: one graph
+launch in place of the chain of small kernel launches that binds a
+batch-1 forward on the host.  The graph is fixed at compile time, as
+JAX's executable is.
 
 :func:`save_bundle` writes the deploy artifact pair, the counterpart of
 JAX's StableHLO blob + npz and of the reference's TVM deploy_lib /
@@ -15,15 +19,15 @@ program whose decoder levels and head are the custom-op nodes
 ``fastdepth::fused_decoder_stage`` (K1) and ``fastdepth::pointwise_head``
 (K4), and ``<prefix>.npz``, the folded, cast params in the JAX package's
 checkpoint format.  The params are an input of the program, not
-constants in it.  :func:`load_bundle` reads the pair back.  A CUDA graph
-of the forward is still to come (ROADMAP A8).
+constants in it.  :func:`load_bundle` reads the pair back.
 """
 
 from __future__ import annotations
 
 import copy
 import os
-from typing import Callable, Dict, Tuple, Union
+import threading
+from typing import Callable, Dict, NamedTuple, Tuple, Union
 
 import torch
 from torch import nn
@@ -35,6 +39,8 @@ from fastdepth_tpu_torch.models.registry import Model
 from fastdepth_tpu_torch.parallel import spatial as S
 
 IMPLS = ("auto", "fused", "opt", "xla", "mixed")
+
+GRAPH_REPLAYS = 0  # calls of a compile_forward forward that replayed its CUDA graph
 
 
 def strict_f32() -> None:
@@ -181,28 +187,83 @@ def compile_forward(
     ``(batch_size, H, W, 1)``; any other input shape raises, as the JAX
     package's fixed-shape executable does.
 
-    On CUDA the kernels are built (it raises if they cannot be) and the
-    forward runs once at the fixed shape before this returns.  A call of
-    ``fn`` is one ``engine/profiler.STEP`` span."""
+    On CUDA the kernels are built (it raises if they cannot be), the
+    forward runs once at the fixed shape, once more on a side stream, and
+    is then captured in one CUDA graph on an f32 input buffer of that
+    shape (a capture that fails raises).  The graph keeps the TF32 flags of the
+    capture (off in f32: :func:`_prepare`) and the kernels the eager
+    forward runs, K1 and K4 among them.  A call replays it when ``p`` is
+    ``params_prepared`` itself (in-place updates of its tensors are seen)
+    and ``rgb`` is f32 on the compiled device: ``rgb`` is copied into the
+    graph's input, the graph replayed and its output cloned, so that no
+    two calls share an answer's memory, all three on the current stream
+    and under a lock.  Any other call (another tree, another dtype, the
+    CPU) runs the forward eagerly.  A replay does not run K1's and K4's
+    Python wrappers, so their ``LAUNCHES`` do not move: it counts in
+    :data:`GRAPH_REPLAYS` instead.
+
+    A call of ``fn`` is one ``engine/profiler.STEP`` span; a replay is
+    one ``engine/profiler.GRAPH`` span inside it."""
     params, apply = _prepare(model, params, batch_size=batch_size, dtype=dtype,
                              fold_bn=fold_bn, impl=impl, device=device, tuning=tuning)
     shape = (batch_size, *image_size, 3)
 
+    def run(p, x: torch.Tensor) -> torch.Tensor:
+        return apply(p, x.to(dtype)).float()
+
+    dev = torch.device(device)
+    graph = _capture(run, params, shape, dev) if dev.type == "cuda" else None
+    lock = threading.Lock()
+
     @torch.inference_mode()
     def forward(p, x: torch.Tensor) -> torch.Tensor:
+        global GRAPH_REPLAYS
         with P.annotate(P.STEP):
             if tuple(x.shape) != shape:
                 raise ValueError(f"compiled for input {shape}, got {tuple(x.shape)}")
-            return apply(p, x.to(dtype)).float()
+            if (graph is None or p is not params or x.dtype != torch.float32
+                    or x.device != graph.x.device):
+                return run(p, x)
+            with lock:
+                graph.x.copy_(x)
+                with P.annotate(P.GRAPH):
+                    graph.graph.replay()
+                GRAPH_REPLAYS += 1
+                return graph.out.clone()
 
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        from fastdepth_tpu_torch.ops.cuda import _build
-
-        _build.load()
-        forward(params, torch.zeros(shape, device=dev))
-        torch.cuda.synchronize(dev)
     return forward, params
+
+
+class _Graph(NamedTuple):
+    """A captured forward: the graph, its f32 input buffer and its output."""
+
+    graph: torch.cuda.CUDAGraph
+    x: torch.Tensor
+    out: torch.Tensor
+
+
+@torch.inference_mode()
+def _capture(run: Callable, params, shape: Tuple[int, ...], dev: torch.device) -> _Graph:
+    """Builds the kernels, runs ``run(params, x)`` once on the current
+    stream and once on a side stream (CUDA graphs want their warm-up off
+    the capture stream, as ``engine/benchmark.time_graph`` does), then
+    captures it on an f32 ``x`` of ``shape``."""
+    from fastdepth_tpu_torch.ops.cuda import _build
+
+    _build.load()
+    with torch.cuda.device(dev):
+        x = torch.zeros(shape, device=dev)
+        run(params, x)
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            run(params, x)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = run(params, x)
+    return _Graph(graph, x, out)
 
 
 def flops_estimate(model: Model, params, *, batch_size: int = 1,

@@ -37,7 +37,10 @@ PyTorch version of the same math; its CUDA kernel launches K1 or raises;
 any other device raises.  :func:`fused_decoder_stage` checks the
 operands, then calls the op under a trace and the same implementation
 directly in eager mode.  ``LAUNCHES`` counts the launches of K1 and
-nothing else.
+nothing else, in the Python that makes them: a replay of
+``engine/aot.compile_forward``'s CUDA graph runs its K1 launches without
+it, so a count through that forward is the capture's launches plus
+``engine.aot.GRAPH_REPLAYS`` times the forward's.
 """
 
 from __future__ import annotations

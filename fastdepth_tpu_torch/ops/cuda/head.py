@@ -10,7 +10,10 @@ Dispatch: K4 is the custom op ``fastdepth::pointwise_head``
 :func:`pointwise_head_reference`, its CUDA kernel launches K4 or raises.
 :func:`pointwise_head` checks the operands, then calls the op under a
 trace and its implementation directly in eager mode.  ``LAUNCHES``
-counts the launches of K4 and nothing else.
+counts the launches of K4 and nothing else, in the Python that makes
+them: a replay of ``engine/aot.compile_forward``'s CUDA graph runs its
+K4 launch without it, so a count through that forward is the capture's
+launches plus ``engine.aot.GRAPH_REPLAYS``.
 """
 
 from __future__ import annotations

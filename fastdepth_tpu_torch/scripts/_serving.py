@@ -122,19 +122,23 @@ def knee(rows):
 
 
 def kernel_counts():
-    """(K1, K4) launches so far in this process (0 on the CPU, where the
-    plain versions run)."""
+    """(K1, K4) launches and replays of ``compile_forward``'s CUDA graph
+    so far in this process (0 on the CPU, where the plain versions run
+    and nothing is captured).  A replay runs K1 and K4 without their
+    wrappers, which count the launches."""
+    from fastdepth_tpu_torch.engine import aot
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import head as K4
 
-    return K1.LAUNCHES, K4.LAUNCHES
+    return K1.LAUNCHES, K4.LAUNCHES, aot.GRAPH_REPLAYS
 
 
 def launches(before, forwards: int) -> dict:
-    """K1's and K4's launches since ``before`` (:func:`kernel_counts`) over
-    ``forwards`` forwards."""
-    k1, k4 = kernel_counts()
-    return {"K1": k1 - before[0], "K4": k4 - before[1], "forwards": int(forwards)}
+    """K1's and K4's launches and the graph's replays since ``before``
+    (:func:`kernel_counts`) over ``forwards`` forwards."""
+    k1, k4, replays = kernel_counts()
+    return {"K1": k1 - before[0], "K4": k4 - before[1], "replays": replays - before[2],
+            "forwards": int(forwards)}
 
 
 def forwards_of(stats: dict, chain: bool) -> int:

@@ -73,7 +73,7 @@ def main(argv=None) -> dict:
     results = {"surface": "engine (InferenceServer.submit in-process), chain mode",
                "k": args.k, "hw": args.hw, "dtype": "bf16 compute, uint8 in / fp16 out",
                "rows": []}
-    counted = {"K1": 0, "K4": 0, "forwards": 0}
+    counted = {"K1": 0, "K4": 0, "replays": 0, "forwards": 0}
     for depth in (int(d) for d in args.depths.split(",")):
         srv = build_server(model, params, k=args.k, depth=depth, hw=args.hw,
                            device=args.device)

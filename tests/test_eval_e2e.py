@@ -42,7 +42,12 @@ def nyu_val_root(tmp_path_factory):
 @pytest.fixture(scope="module")
 def torch_ckpt(tmp_path_factory):
     gen = torch.Generator().manual_seed(0)
-    tm = TorchFastDepth(TINY_ENC, TINY_DEC, skip="add").eval()
+    # the layers draw their weights from the global generator: seed it here,
+    # or the weights follow whatever ran before (about 1 state in 60 gives
+    # an all-zero depth, whose metric stack holds NaN)
+    with torch.random.fork_rng():
+        torch.manual_seed(0)
+        tm = TorchFastDepth(TINY_ENC, TINY_DEC, skip="add").eval()
     randomize_bn_stats(tm, gen)
     path = tmp_path_factory.mktemp("ckpt") / "model_best.pth.tar"
     torch.save({"epoch": 7, "best_result": None, "model": tm}, path)

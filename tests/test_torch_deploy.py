@@ -1,8 +1,13 @@
 """The port's deploy runner and what it stands on (compile_forward,
 flops_estimate, the timing helpers, the profiler), on the CPU with the
-kernels' plain versions, held against the JAX deploy runner."""
+kernels' plain versions, held against the JAX deploy runner; on a card
+(``cuda``-marked), compile_forward's CUDA graph against the eager
+forward."""
 
+import copy
 import os
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -219,6 +224,194 @@ def test_compile_forward_on_cuda_without_a_card_raises(tiny_model):
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         compile_forward(*tiny_model, device="cuda")
+
+
+def test_compile_forward_on_the_cpu_stays_eager(tiny_model):
+    """Nothing is captured on the CPU: no replay is counted, no graph span
+    opens, and the answer is the eager forward's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastdepth_tpu_torch.engine import aot
+    from fastdepth_tpu_torch.engine import profiler as P
+
+    model, params = tiny_model
+    fn, prepared = aot.compile_forward(model, params, batch_size=1, image_size=(32, 32),
+                                       device="cpu")
+    x = torch.rand((1, 32, 32, 3), generator=torch.Generator().manual_seed(3))
+    before = aot.GRAPH_REPLAYS
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = fn(prepared, x)
+    names = [e.name for e in prof.events()]
+    assert names.count(P.STEP) == 1 and P.GRAPH not in names
+    assert aot.GRAPH_REPLAYS == before
+    with torch.no_grad():
+        want = aot._pick_apply(model, prepared, "auto", 1)(prepared, x)
+    assert torch.equal(got, want)
+
+
+# --- compile_forward's CUDA graph, on a card --------------------------------
+
+FLAGSHIP = "mobilenet-nnconv5dw-skipadd-pruned"
+# case -> (registry name, dtype, impl, tuning) of a b1 224x224 forward
+GRAPH_CASES = {
+    "flagship-f32": (FLAGSHIP, torch.float32, "auto", None),
+    "flagship-bf16": (FLAGSHIP, torch.bfloat16, "auto", None),
+    "flagship-mixed": (FLAGSHIP, torch.float32, "mixed",
+                       {1: "pallas", 2: "xla", 3: "pallas", 4: "xla", 5: "pallas"}),
+    "resnet50-upproj": ("resnet50-upproj", torch.float32, "auto", None),
+}
+_COMPILED = {}
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _compiled(case):
+    """(fn, prepared, eager) of a case, compiled once: ``eager(p, x)`` is
+    the forward compile_forward picked, run eagerly on ``p``."""
+    if case not in _COMPILED:
+        from fastdepth_tpu_torch.engine import aot
+        from fastdepth_tpu_torch.models.registry import from_name
+
+        name, dtype, impl, tuning = GRAPH_CASES[case]
+        model = from_name(name)
+        params = model.init(torch.Generator().manual_seed(0))
+        fn, prepared = aot.compile_forward(model, params, batch_size=1, dtype=dtype,
+                                           impl=impl, tuning=tuning, device="cuda")
+        apply = aot._pick_apply(model, prepared, impl, 1, tuning=tuning)
+
+        @torch.inference_mode()
+        def eager(p, x):
+            return apply(p, x.to(dtype)).float()
+        _COMPILED[case] = fn, prepared, eager
+    return _COMPILED[case]
+
+
+def _frame(seed):
+    return torch.rand((1, 224, 224, 3), generator=torch.Generator().manual_seed(seed)).cuda()
+
+
+def _counts():
+    from fastdepth_tpu_torch.engine import aot
+    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda import head as K4
+
+    return aot.GRAPH_REPLAYS, K1.LAUNCHES, K4.LAUNCHES
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(GRAPH_CASES))
+def test_a_replay_is_the_eager_forward_bit_for_bit_on_the_card(case):
+    """An f32 frame on the card replays the graph (counted once, K1's and
+    K4's wrappers not run) and answers what the eager forward answers."""
+    _card()
+    fn, prepared, eager = _compiled(case)
+    x = _frame(1)
+    replays, k1, k4 = _counts()
+    got = fn(prepared, x)
+    assert _counts() == (replays + 1, k1, k4)
+    assert torch.equal(got, eager(prepared, x))
+
+
+@pytest.mark.cuda
+def test_the_capture_runs_the_forward_three_times_and_replays_count_one_each():
+    """compile_forward launches the flagship's five K1 levels and K4 in
+    its warm run, its side-stream warm run and the capture; then every
+    replay counts one in GRAPH_REPLAYS and none in the wrappers."""
+    _card()
+    from fastdepth_tpu_torch.engine import aot
+    from fastdepth_tpu_torch.models.registry import from_name
+
+    model = from_name(FLAGSHIP)
+    replays, k1, k4 = _counts()
+    fn, prepared = aot.compile_forward(model, model.init(torch.Generator().manual_seed(0)),
+                                       device="cuda")
+    assert _counts() == (replays, k1 + 3 * 5, k4 + 3)
+    x = _frame(4)
+    for _ in range(4):
+        fn(prepared, x)
+    assert _counts() == (replays + 4, k1 + 3 * 5, k4 + 3)
+
+
+@pytest.mark.cuda
+def test_two_replays_do_not_share_an_answer_on_the_card():
+    _card()
+    fn, prepared, eager = _compiled("flagship-f32")
+    x1, x2 = _frame(1), _frame(2)
+    a = fn(prepared, x1)
+    b = fn(prepared, x2)
+    assert a.data_ptr() != b.data_ptr()
+    assert torch.equal(a, eager(prepared, x1)) and torch.equal(b, eager(prepared, x2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("other", ["another tree", "uint8", "float64"])
+def test_another_tree_or_dtype_runs_the_eager_forward_on_the_card(other):
+    """A call the graph was not captured for (another params tree, a
+    uint8 or f64 frame) runs eagerly: K1 launched five times through its
+    wrapper, no replay, the eager answer."""
+    _card()
+    fn, prepared, eager = _compiled("flagship-f32")
+    p, x = prepared, _frame(5)
+    if other == "another tree":
+        p = copy.deepcopy(prepared)
+    elif other == "uint8":
+        x = (x * 255).to(torch.uint8)
+    else:
+        x = x.double()
+    replays, k1, k4 = _counts()
+    got = fn(p, x)
+    assert _counts() == (replays, k1 + 5, k4 + 1)
+    assert torch.equal(got, eager(p, x))
+
+
+@pytest.mark.cuda
+def test_a_replay_is_one_graph_span_inside_the_step_on_the_card():
+    _card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from fastdepth_tpu_torch.engine import profiler as P
+
+    fn, prepared, _ = _compiled("flagship-f32")
+    x = _frame(6)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn(prepared, x)
+    spans = {e.name: e.time_range for e in prof.events() if e.name in (P.STEP, P.GRAPH)}
+    assert set(spans) == {P.STEP, P.GRAPH}
+    assert spans[P.STEP].start <= spans[P.GRAPH].start <= spans[P.GRAPH].end <= spans[
+        P.STEP].end
+    assert not {P.ENCODER, P.DECODER, P.K1} & {e.name for e in prof.events()}
+
+
+@pytest.mark.cuda
+def test_threads_take_turns_on_the_graphs_buffers_on_the_card():
+    """Eight threads replay the same graph on four frames, the switch
+    interval shortened: every answer is its own frame's."""
+    _card()
+    fn, prepared, eager = _compiled("flagship-f32")
+    xs = [_frame(10 + i) for i in range(4)]
+    want = [eager(prepared, x) for x in xs]
+    wrong = []
+
+    def worker(i):
+        for j in range(25):
+            k = (i + j) % len(xs)
+            if not torch.equal(fn(prepared, xs[k]), want[k]):
+                wrong.append((i, j))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and wrong == []
 
 
 def test_flops_estimate_counts_the_convolutions(tiny_model):

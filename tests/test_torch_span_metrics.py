@@ -16,7 +16,8 @@ from perfbench import trace as T
 from perfbench.work import mobilenet_skipadd, resnet_upproj
 
 NEW = ("encoder_mfu_pct", "decoder_mfu_pct", "metrics_us_per_frame",
-       "decoder_roofline_pct.spans", "launch_idle_pct.throughput", "launch_idle_pct.latency")
+       "decoder_roofline_pct.spans", "launch_idle_pct.throughput", "launch_idle_pct.latency",
+       "graph_replay_pct.latency")
 OLD = ("device_idle_pct.throughput", "device_idle_pct.latency", "device_ms_per_frame.b1",
        "decoder_roofline_pct", "mfu_pct")
 
@@ -148,6 +149,18 @@ def test_the_new_readers_on_a_trace():
     assert read("decoder_roofline_pct.spans", flag) == pytest.approx(100 * least * 2 / 5 / 100e-6)
     for name in ("launch_idle_pct.throughput", "launch_idle_pct.latency"):
         assert read(name, flag) == pytest.approx(100 * 300e-6 / WINDOW_S)
+
+
+@pytest.mark.parametrize("graphs,want", [(4, 100.0), (2, 50.0), (0, None)])
+def test_graph_replay_share_counts_the_steps_that_replayed(graphs, want):
+    """``graph_replay_pct.latency``: the share of ``fastdepth.step`` spans
+    that hold a ``fastdepth.graph`` span; nothing where none opened."""
+    graph = harness.module("metrics", "graph_replay_pct.latency").GRAPH
+    events = [X("user_annotation", spans.STEP, 1000.0 * i, 500.0) for i in range(4)]
+    events += [X("user_annotation", graph, 1000.0 * i + 100, 200.0) for i in range(graphs)]
+    got = read("graph_replay_pct.latency", run_of("fastdepth.deploy-b1",
+                                                  span_trace(events + CARD_EVENTS)))
+    assert got == (None if want is None else pytest.approx(want))
 
 
 @pytest.mark.parametrize("name", NEW)

@@ -1,5 +1,5 @@
 """The program's profiler spans (``engine/profiler``): free with no
-profiler running, and under one the five names, nested as the layers
+profiler running, and under one the six names, nested as the layers
 are, around the forwards ``engine/aot._pick_apply`` picks for FastDepth
 and ResNet-UpProj and around an ``Evaluator`` step, with the outputs
 bit for bit those of an unprofiled run.  On the CPU: the kernels' plain
@@ -23,9 +23,10 @@ FLAGSHIP = ModelConfig(encoder_channels=TINY_ENC, decoder_channels=TINY_DEC,
                        output_size=(64, 64))
 UPPROJ = ModelConfig(encoder="resnet18", decoder="upproj", skip=None,
                      decoder_channels=(64, 32, 16, 8, 4), output_size=(64, 64))
-SPANS = (P.STEP, P.ENCODER, P.DECODER, P.METRICS, P.K1)
+SPANS = (P.STEP, P.ENCODER, P.DECODER, P.METRICS, P.K1, P.GRAPH)
 # span -> the span it nests in
-PARENT = {P.ENCODER: P.STEP, P.DECODER: P.STEP, P.METRICS: P.STEP, P.K1: P.DECODER}
+PARENT = {P.ENCODER: P.STEP, P.DECODER: P.STEP, P.METRICS: P.STEP, P.K1: P.DECODER,
+          P.GRAPH: P.STEP}
 # (config, impl, tuning) of every forward _pick_apply returns for the two families
 FORWARDS = {
     "flagship-auto": (FLAGSHIP, "auto", None),
@@ -43,7 +44,7 @@ def model_and_params(cfg, seed=0):
 
 
 def spans_of(prof):
-    """[(name, parent name or None)] of the five spans the profile
+    """[(name, parent name or None)] of the six spans the profile
     recorded, in start order: a span's parent is the innermost of them
     open around it on its thread."""
     events = sorted((e for e in prof.events() if e.name in SPANS),
