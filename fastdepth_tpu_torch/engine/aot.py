@@ -34,6 +34,7 @@ from torch import nn
 from torch.utils import _pytree as pytree
 
 from fastdepth_tpu_torch.engine import profiler as P
+from fastdepth_tpu_torch.models import dinov2_dpt as DD
 from fastdepth_tpu_torch.models import fused as F
 from fastdepth_tpu_torch.models.registry import Model
 from fastdepth_tpu_torch.parallel import spatial as S
@@ -111,12 +112,19 @@ def _pick_apply(model: Model, params, impl: str, batch_size: int = 2, space=None
     supported (the MobileNet nnconv decoders, skip or plain), else
     straight: the rest of the zoo (the other registry decoders, every
     ResNet) runs straight, never 'fused'.  That rule rests on TPU
-    measurements; an H100 benchmark will revisit both choices.
+    measurements; an H100 benchmark will revisit both choices.  The
+    DINOv2 + DPT family runs straight and refuses 'fused', 'opt',
+    'mixed' and ``space``.
     Folded-ness is read off the params tree."""
     if impl not in IMPLS:
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     check_tuning(impl, tuning)
     cfg = model.config
+    if DD.is_family(cfg) and impl in ("opt", "fused", "mixed"):
+        raise ValueError(f"impl={impl!r}: {DD.refusal('straight only')} (impl 'auto' or "
+                         "'xla'): no K1, K4 or head-commute path covers it")
+    if DD.is_family(cfg) and space is not None:
+        raise ValueError(DD.refusal(DD.WHOLE))
     if space is not None:
         S.check_model(cfg)
     folded = not F.tree_has_bn(params)

@@ -5,7 +5,7 @@ card's kernels when CUDA is available (CUPTI).  The trace is written as
 a Chrome trace (``trace.json``, viewable in Perfetto) and a table of
 time by op (``ops.txt``).  Timing itself lives in ``engine/benchmark.py``.
 
-The program marks its layers with :func:`annotate`, six spans in all,
+The program marks its layers with :func:`annotate`, seven spans in all,
 each a ``record_function`` range of its host thread in a
 ``torch.profiler`` trace, in which the kernels launched inside it are
 found by their launches' correlation ids:
@@ -13,9 +13,13 @@ found by their launches' correlation ids:
 * :data:`STEP` (``fastdepth.step``): one call of ``Evaluator`` or of the
   forward ``engine/aot.compile_forward`` returns, from entry to return;
 * :data:`ENCODER` (``fastdepth.encoder``): the encoder pass
-  (``models/mobilenet.apply_encoder``, ``models/resnet.apply_resnet_encoder``);
+  (``models/mobilenet.apply_encoder``, ``models/resnet.apply_resnet_encoder``,
+  the ViT of ``models/dinov2_dpt.py`` with its normed taps);
 * :data:`DECODER` (``fastdepth.decoder``): the rest of the forward: a
-  ResNet's bridge 1x1, the decoder levels and the head;
+  ResNet's bridge 1x1, the decoder levels and the head (DPT's whole
+  head);
+* :data:`ATTENTION` (``fastdepth.attention``): one attention product of
+  a ViT block, ``softmax(q k^T / sqrt(d)) v``, inside the encoder;
 * :data:`METRICS` (``fastdepth.metrics``): an evaluation step's metric
   sums and their stack;
 * :data:`K1` (``fastdepth::fused_decoder_stage``): one eager K1 level,
@@ -42,6 +46,7 @@ STEP = "fastdepth.step"
 ENCODER = "fastdepth.encoder"
 DECODER = "fastdepth.decoder"
 METRICS = "fastdepth.metrics"
+ATTENTION = "fastdepth.attention"
 K1 = "fastdepth::fused_decoder_stage"
 GRAPH = "fastdepth.graph"
 

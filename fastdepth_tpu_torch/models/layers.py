@@ -54,15 +54,20 @@ class BatchNorm(nn.Module):
 
 class ConvBN(nn.Module):
     """One conv leaf: ``w`` and either ``bn`` (unfolded) or ``b`` (folded,
-    or a conv with a bias and no BatchNorm, such as ResNet's ``conv2``).
-    ``w`` is OIHW, or with ``transpose`` a transposed conv's ``(Cin, Cout
-    / groups, kh, kw)``: the leaf carries that so that folding scales the
-    right axis (the JAX package's ``transpose_keys``)."""
+    or a conv with a bias and no BatchNorm, such as ResNet's ``conv2``);
+    with ``plain``, neither (a conv with no bias, such as DPT's
+    ``layer*_rn``).  ``w`` is OIHW, or with ``transpose`` a transposed
+    conv's ``(Cin, Cout / groups, kh, kw)``: the leaf carries that so
+    that folding scales the right axis (the JAX package's
+    ``transpose_keys``)."""
 
     def __init__(self, w: torch.Tensor, *, b: Optional[torch.Tensor] = None,
-                 bn: Optional[BatchNorm] = None, transpose: bool = False):
+                 bn: Optional[BatchNorm] = None, transpose: bool = False,
+                 plain: bool = False):
         super().__init__()
-        if (b is None) == (bn is None):
+        if plain and (b is not None or bn is not None):
+            raise ValueError("a plain conv leaf holds neither b nor bn")
+        if not plain and (b is None) == (bn is None):
             raise ValueError("a conv leaf holds exactly one of b (folded) or bn")
         self.w = _frozen(w)
         self.b = None if b is None else _frozen(b)
@@ -80,14 +85,58 @@ class Linear(nn.Module):
         self.b = _frozen(torch.zeros(classes))
 
 
+def apply_linear(x: torch.Tensor, p: Linear) -> torch.Tensor:
+    """``x @ w + b`` over ``x``'s last axis, one GEMM with the bias."""
+    y = torch.addmm(p.b, x.reshape(-1, x.shape[-1]), p.w)
+    return y.view(*x.shape[:-1], y.shape[-1])
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm's affine parameters over the last axis (``scale``,
+    ``bias``, named like :class:`BatchNorm`'s); it has no running
+    statistics, so nothing folds it."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.scale = _frozen(torch.ones(c))
+        self.bias = _frozen(torch.zeros(c))
+
+
+def apply_layer_norm(x: torch.Tensor, p: LayerNorm, eps: float) -> torch.Tensor:
+    return torch.nn.functional.layer_norm(x, p.scale.shape, p.scale, p.bias, eps)
+
+
+class LayerScale(nn.Module):
+    """A per-channel scale ``gamma`` on a residual branch (Touvron et al.,
+    CaiT), applied as ``x + gamma * branch``."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.gamma = _frozen(torch.ones(c))
+
+
+class Tokens(nn.Module):
+    """A vision transformer's learned tokens: the class token ``cls``
+    ``(1, 1, D)`` and the position embedding ``pos`` ``(1, 1 + patches,
+    D)``."""
+
+    def __init__(self, patches: int, dim: int):
+        super().__init__()
+        self.cls = _frozen(torch.zeros(1, 1, dim))
+        self.pos = _frozen(torch.zeros(1, 1 + patches, dim))
+
+
 def conv_leaf(w_shape: Sequence[int], *, folded: bool, transpose: bool = False,
-              groups: int = 1) -> ConvBN:
+              groups: int = 1, bias: bool = True) -> ConvBN:
     """A zero-filled leaf of the given weight shape, to be loaded from a
     state dict: OIHW, or with ``transpose`` ``(Cin, Cout / groups, kh,
     kw)``.  ``folded`` gives ``{'w','b'}`` (also the form of a conv with a
-    bias and no BatchNorm), else ``{'w','bn'}``."""
+    bias and no BatchNorm), else ``{'w','bn'}``; ``bias=False`` gives
+    ``{'w'}`` alone, a plain conv."""
     cout = w_shape[1] * groups if transpose else w_shape[0]
     w = torch.zeros(tuple(w_shape))
+    if not bias:
+        return ConvBN(w, transpose=transpose, plain=True)
     if folded:
         return ConvBN(w, b=torch.zeros(cout), transpose=transpose)
     return ConvBN(w, bn=BatchNorm(cout), transpose=transpose)

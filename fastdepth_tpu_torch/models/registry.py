@@ -5,13 +5,15 @@ Every family the JAX registry builds: the MobileNet skip family
 (MobileNetSkipAdd/Concat, pruned or not; ``models/fastdepth.py``), plain
 MobileNet + any registry decoder (``models/decoders.py``), and ResNet-18
 to -152, plain with a registry decoder or with add/concat skips
-(``models/resnet.py``).
+(``models/resnet.py``); and, beyond the JAX registry, Depth Anything V2's
+DINOv2 ViT + DPT head (``models/dinov2_dpt.py``), which has no BatchNorm
+and its own init.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple, Union
+from typing import Callable, Dict, NamedTuple, Optional, Union
 
 import torch
 from torch import nn
@@ -23,6 +25,7 @@ from fastdepth_tpu_torch.config import (
     PRUNED_DECODER_CHANNELS,
     PRUNED_ENCODER_CHANNELS,
 )
+from fastdepth_tpu_torch.models import dinov2_dpt as DD
 from fastdepth_tpu_torch.models import fastdepth as FD
 from fastdepth_tpu_torch.models import fused as F
 from fastdepth_tpu_torch.models import layers as L
@@ -37,15 +40,27 @@ def _channels_last(params: nn.ModuleDict) -> nn.ModuleDict:
     return params
 
 
-def _family(cfg: ModelConfig) -> Tuple[Callable, Callable]:
-    """(make(cfg, folded=...), apply(params, x, cfg, train=..., stats=...))
-    of the config's model family."""
+class _Family(NamedTuple):
+    """A model family's functions: ``make(cfg, folded=...)``, ``apply(params,
+    x, cfg, train=..., stats=...)`` and ``init(tree, generator)``."""
+
+    make: Callable
+    apply: Callable
+    init: Callable = I.init_tree
+
+
+def _family(cfg: ModelConfig) -> _Family:
+    """The config's model family (a DINOv2 + DPT config is checked against
+    its preset here)."""
     if cfg.encoder == "mobilenet":
         if cfg.skip is None:
-            return FD.make_mobilenet_decoder, FD.apply_mobilenet_decoder
-        return FD.make_fastdepth, FD.apply_fastdepth
+            return _Family(FD.make_mobilenet_decoder, FD.apply_mobilenet_decoder)
+        return _Family(FD.make_fastdepth, FD.apply_fastdepth)
     if cfg.encoder.startswith("resnet"):
-        return RN.make_resnet_depth, RN.apply_resnet_depth
+        return _Family(RN.make_resnet_depth, RN.apply_resnet_depth)
+    if DD.is_family(cfg):
+        DD.preset(cfg)
+        return _Family(DD.make_dinov2_dpt, DD.apply_dinov2_dpt, DD.init_dinov2_dpt)
     raise ValueError(f"unknown encoder family: {cfg.encoder!r}")
 
 
@@ -63,7 +78,7 @@ class Model:
         is, conv weights channels_last, on ``device``.  Every key must
         match (strict load)."""
         folded = not any(".bn." in k for k in state_dict)
-        params = _family(self.config)[0](self.config, folded=folded)
+        params = _family(self.config).make(self.config, folded=folded)
         params.load_state_dict(state_dict, strict=True)
         return _channels_last(params).to(device)
 
@@ -71,9 +86,10 @@ class Model:
              device: Union[str, torch.device] = "cpu") -> nn.ModuleDict:
         """A random, unfolded parameter tree (the JAX ``Model.init``):
         He-normal conv weights drawn from ``generator``, BatchNorm at its
-        defaults (``ops/init.py``), conv weights channels_last, on
-        ``device``."""
-        params = I.init_tree(_family(self.config)[0](self.config, folded=False), generator)
+        defaults (``ops/init.py``; the DINOv2 + DPT family: DINOv2's
+        init), conv weights channels_last, on ``device``."""
+        family = _family(self.config)
+        params = family.init(family.make(self.config, folded=False), generator)
         return _channels_last(params).to(device)
 
     def apply(self, params: nn.ModuleDict, x: torch.Tensor, *, train: bool = False,
@@ -84,7 +100,7 @@ class Model:
         package's paths).  ``space`` (a ``parallel.spatial.Partition``):
         height-sharded, ``x`` and the result this rank's rows (every
         family; inference only)."""
-        fn = _family(self.config)[1]
+        fn = _family(self.config).apply
         if space is None:
             return fn(params, x, self.config, train=train, stats=stats)
         return fn(params, x, self.config, train=train, stats=stats, space=space)
@@ -108,9 +124,14 @@ def build(cfg: ModelConfig) -> Model:
 
 def from_name(name: str) -> Model:
     """Parse 'mobilenet-nnconv5dw-skipadd-pruned' style names (reference
-    README.md:39-41 model naming)."""
+    README.md:39-41 model naming); 'dinov2_vitl14-dpt' is Depth Anything
+    V2's published model of that encoder at 518 x 518."""
     parts = name.split("-")
     encoder = parts[0]
+    if encoder in DD.PRESETS:
+        if parts[1:] != [DD.DECODER]:
+            raise ValueError(f"{DD.refusal(f'as {encoder}-{DD.DECODER}')}; got {name!r}")
+        return build(DD.config(encoder))
     decoder = parts[1] if len(parts) > 1 else "nnconv5dw"
     skip: Optional[str] = None
     if "skipadd" in parts:

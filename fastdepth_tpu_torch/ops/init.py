@@ -12,6 +12,10 @@ matching the reference's ``weights_init`` (reference models.py:36-50):
 * the ImageNet classifier's Linear (:func:`uniform_linear`): torch's
   default U(-1/sqrt(features), 1/sqrt(features)) for weight and bias.
 
+The BN-free DINOv2 + DPT family has its own init
+(``models/dinov2_dpt.init_dinov2_dpt``: DINOv2's, with
+:func:`trunc_normal` and these convs).
+
 Random numbers come from an explicit ``torch.Generator``; JAX keys give
 other numbers from the same seed, so the tests compare distributions and
 shapes, not values.
@@ -38,6 +42,12 @@ def he_normal_conv(shape, generator: torch.Generator) -> torch.Tensor:
     n0, _, kh, kw = shape
     std = math.sqrt(2.0 / (kh * kw * n0))
     return torch.randn(tuple(shape), generator=generator) * std
+
+
+def trunc_normal(shape, std: float, generator: torch.Generator) -> torch.Tensor:
+    """N(0, std) cut at +-2 (absolute, timm's ``trunc_normal_`` defaults,
+    which DINOv2 calls with ``std=0.02``)."""
+    return nn.init.trunc_normal_(torch.empty(tuple(shape)), std=std, generator=generator)
 
 
 def uniform_linear(features: int, classes: int, generator: torch.Generator):

@@ -17,7 +17,7 @@ from perfbench.work import mobilenet_skipadd, resnet_upproj
 
 NEW = ("encoder_mfu_pct", "decoder_mfu_pct", "metrics_us_per_frame",
        "decoder_roofline_pct.spans", "launch_idle_pct.throughput", "launch_idle_pct.latency",
-       "graph_replay_pct.latency")
+       "graph_replay_pct.latency", "attention_mfu_pct")
 OLD = ("device_idle_pct.throughput", "device_idle_pct.latency", "device_ms_per_frame.b1",
        "decoder_roofline_pct", "mfu_pct")
 
@@ -161,6 +161,20 @@ def test_graph_replay_share_counts_the_steps_that_replayed(graphs, want):
     got = read("graph_replay_pct.latency", run_of("fastdepth.deploy-b1",
                                                   span_trace(events + CARD_EVENTS)))
     assert got == (None if want is None else pytest.approx(want))
+
+
+def test_attention_mfu_reads_the_kernels_under_the_attention_span():
+    """``attention_mfu_pct``: a frame's attention FLOPs times the window's
+    frames over the kernels launched inside ``fastdepth.attention`` spans
+    (here the two encoder kernels, 300 us), over the bf16 peak; nothing
+    for a family without attention counts, or without the span."""
+    attention = harness.module("metrics", "attention_mfu_pct").ATTENTION
+    events = SPAN_EVENTS + [X("user_annotation", attention, 140.0, 100.0)] + CARD_EVENTS
+    run = run_of("dav2-vitl.batch-b64", span_trace(events, frames=64))
+    want = 100 * run.work.attention_flops(run.ctx.config) * 64 / 300e-6 / 989e12
+    assert read("attention_mfu_pct", run) == pytest.approx(want)
+    assert read("attention_mfu_pct", run_of("fastdepth.batch-b128", span_trace(events))) is None
+    assert read("attention_mfu_pct", run_of("dav2-vitl.batch-b64", span_trace())) is None
 
 
 @pytest.mark.parametrize("name", NEW)
