@@ -19,7 +19,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
    none of them) and, beside them, CUDA-event times of pipelined calls
    (which count the host's launch time when a call is shorter than it),
    and each call's bound (engine/benchmark.bound_us: bytes or operations
-   at the H100's published rates);
+   at the H100's published rates); then K7, the conv epilogue, over
+   every epilogue one forward of each benchmark path gives it (the
+   flagship's 27 encoder convs at b128 bf16 and b1 f32, ResNet-50-UpProj's
+   70 at b128 bf16, DA-V2's 29 at b64 bf16), their operands recorded
+   from the forward: bit for bit its plain version, and the whole set's
+   device time beside its byte bound, the plain version's and the
+   library's (ATen's in-place bias add_, then the residual add and the
+   activation, the ops K7 replaces);
 4. eval path: the committed trained weights (docs/rehearsal_model_r5.npz)
    -> build -> fold -> Evaluator(impl='auto') -> validate() over seeded
    raw 480x640 frames put through the shared val pipeline, at f32 and
@@ -215,6 +222,11 @@ STAGES_PER_FORWARD = 5
 # compile_forward's runs of the forward on CUDA beyond its warm run: the
 # side-stream warm-up and the capture of its CUDA graph
 CAPTURE_RUNS = 2
+# K7 launches a forward, one a folded conv (ops/cuda/epilogue.py): the
+# flagship family's encoder (its stem, 13 depthwise and 13 pointwise
+# convs) whatever runs its decoder, and ResNet-50-UpProj's 70
+EPILOGUES_PER_FORWARD = 27
+ZOO_EPILOGUES = 70
 
 DEPLOY_WARMUP, DEPLOY_RUN = 10, 50
 SERVE_FRAMES, SERVE_DEPTH, SERVE_LONE, SERVE_TIMED = 64, 32, 8, 2  # timed: extra streams
@@ -384,7 +396,118 @@ def kernel_phase() -> dict:
               f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}); events {row['events_ms']:.4f} ms, plain "
               f"{row['plain_events_ms']:.4f} ms")
+    out["K7"] = epilogue_rows()
     return out
+
+
+# the benchmark's paths whose epilogues K7's row checks and times:
+# (configuration, batch, dtype); the first is the kernel table's
+EPILOGUE_MODELS = [("fastdepth-pruned-224", 128, torch.bfloat16),
+                   ("resnet50-upproj-224", 128, torch.bfloat16),
+                   ("depth-anything-v2-vitl-518", 64, torch.bfloat16),
+                   ("fastdepth-pruned-224", 1, torch.float32)]
+
+
+def _recorded_epilogues(name: str, batch: int, dtype: torch.dtype) -> list:
+    """(y, b, residual, act) of every epilogue one forward in ``dtype`` of
+    the benchmark's configuration ``name`` (its seeded weights) gives K7,
+    each ``y`` a copy taken before K7 wrote it."""
+    from fastdepth_tpu_torch.engine.aot import _prepare
+    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
+    from perfbench import harness, program
+
+    cfg = harness.config(name)
+    model, params = program.load(cfg, program.draw_params(cfg, 2 ** 31 + 7, "cuda"), "cuda")
+    params, apply = _prepare(model, params, batch_size=batch, dtype=dtype,
+                             fold_bn=True, impl="auto", device="cuda")
+    ops, launch = [], K7.launch
+
+    def record(y, b, residual, act):
+        ops.append((y.clone(), b, residual, act))
+        return launch(y, b, residual, act)
+
+    x = torch.rand((batch, *cfg["image_size"], 3), device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(5))
+    K7.launch = record
+    try:
+        with torch.inference_mode():
+            apply(params, x.to(dtype))
+    finally:
+        K7.launch = launch
+    torch.cuda.synchronize()
+    return ops
+
+
+def epilogue_rows() -> dict:
+    """K7's row: for each of :data:`EPILOGUE_MODELS`, the recorded
+    epilogues of one forward, each K7 launch against the plain version bit
+    for bit (one launch a call), then the whole set's device time
+    (``time_graph``: the batch sets' operands exceed the L2, so each is
+    read from device memory; b1's 14 MB replays from the L2), its bound
+    (each y and residual read once, y written once, at 3.35 TB/s), the
+    plain version's and the library's time over the same set.  Returns the flagship's numbers as the
+    kernel table's (ms, plain_ms, bound_ms, library_ms, events), with
+    every model's row under ``rows``."""
+    from fastdepth_tpu_torch.engine.benchmark import bound_us, time_graph, time_pipelined
+    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
+
+    def library(y, b, residual, act):
+        y.add_(b.reshape(1, -1, 1, 1))
+        if residual is not None:
+            y = y + residual
+        return {K7.NONE: lambda v: v, K7.RELU: torch.relu,
+                K7.RELU6: lambda v: torch.clamp(v, 0, 6)}[act](y)
+
+    rows = []
+    for name, batch, dtype in EPILOGUE_MODELS:
+        ops = _recorded_epilogues(name, batch, dtype)
+        with torch.inference_mode():
+            for y, b, r, a in ops:
+                want = K7.conv_epilogue_reference(y, b, r, a)
+                before = K7.LAUNCHES
+                got = K7.conv_epilogue(y.clone(), b, r, a)
+                if K7.LAUNCHES != before + 1 or not torch.equal(got, want):
+                    fail(f"K7 {name} b{batch} {dtype}: the epilogue of y{tuple(y.shape)} "
+                         f"(residual {r is not None}, act {a}) is not its plain version bit "
+                         f"for bit (max|diff| {float((got.float() - want.float()).abs().max())})")
+            del got, want
+            nbytes = sum(y.element_size() * (y.numel() * (3 if r is not None else 2) + b.numel())
+                         for y, b, r, _ in ops)
+
+            def over_set(fn):
+                def run():
+                    for op in ops:
+                        fn(*op)
+                return run
+
+            row = {"model": name, "batch": batch, "dtype": str(dtype), "epilogues": len(ops),
+                   "residuals": sum(r is not None for _, _, r, _ in ops),
+                   "elements": sum(y.numel() for y, *_ in ops), "bytes": nbytes,
+                   "bound_ms": bound_us(nbytes)[0] / 1e3,
+                   "ms": time_graph(over_set(K7.launch), [()], calls=3) * 1e3,
+                   "plain_ms": time_graph(over_set(K7.conv_epilogue_reference), [()],
+                                          calls=3) * 1e3,
+                   "library_ms": time_graph(over_set(library), [()], calls=3) * 1e3,
+                   "events_ms": time_pipelined(over_set(K7.launch), calls=3)["mean_s"]
+                   * 1e3,
+                   "plain_events_ms": time_pipelined(over_set(K7.conv_epilogue_reference),
+                                                     calls=3)["mean_s"] * 1e3}
+        row["bound_pct"] = 100 * row["bound_ms"] / row["ms"]
+        rows.append(row)
+        print(f"K7 {'bf16' if dtype == torch.bfloat16 else 'f32'} b{batch} {name}: "
+              f"{row['epilogues']} epilogues ({row['residuals']} with a residual, "
+              f"{row['elements'] / batch:,.0f} elements a frame), each bit for bit its "
+              f"plain version; device {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"(bytes; {row['bound_pct']:.1f}% of it), plain {row['plain_ms']:.4f} ms, "
+              f"library {row['library_ms']:.4f} ms (add_ + residual + act); events "
+              f"{row['events_ms']:.4f} ms, plain {row['plain_events_ms']:.4f} ms")
+        del ops
+        torch.cuda.empty_cache()
+    first = rows[0]
+    return {"max_abs_err": 0.0, "bound_by": "bytes", "rows": rows,
+            "replaces": "none: XLA fused the bias and activation into each TPU conv",
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "events_ms",
+                                     "plain_events_ms")}}
 
 
 class _Frames:
@@ -430,8 +553,17 @@ def _reset(*mods):
         m.LAUNCHES = 0
 
 
+def _check_k7(label: str, k7: int, forwards: int, per_forward: int = EPILOGUES_PER_FORWARD):
+    """Fail unless K7 launched ``per_forward`` times a forward: a routed
+    conv lost or run twice shows here."""
+    if k7 != per_forward * forwards:
+        fail(f"{label}: K7 launched {k7} times over {forwards} forwards, want {per_forward} a "
+             "forward (one a folded conv)")
+
+
 def e2e_phase(model, params) -> dict:
     from fastdepth_tpu_torch import OUTPUT_SIZE, RAW_SIZE, Evaluator, ValPipeline, validate
+    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import head as K4
 
@@ -443,14 +575,16 @@ def e2e_phase(model, params) -> dict:
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         ev = Evaluator(model, params, batch_size=BATCH, dtype=dtype, impl="auto",
                        device="cuda")
-        _reset(K1, K4)
+        _reset(K1, K4, K7)
         avg = validate(loader, ev, print_freq=0, make_images=False,
                        log=lambda s: print(s.strip().replace("\n", " ")))
         torch.cuda.synchronize()
-        k1, k4 = _counts(K1, K4)
+        k1, k4, k7 = _counts(K1, K4, K7)
         if (k1, k4) != (STAGES_PER_FORWARD * forwards, forwards):
             fail(f"{name}: K1 launched {k1} and K4 {k4} times over {forwards} forwards, "
                  f"want {STAGES_PER_FORWARD} and 1 per forward")
+        _check_k7(name, k7, forwards)
+        print(f"eval {name}: K1 {k1}, K4 {k4}, K7 {k7} launches over {forwards} forwards")
         x, d = ev.put(rgb0), ev.put(depth0)
         pred, _ = ev(x, d)
         torch.cuda.synchronize()
@@ -461,7 +595,8 @@ def e2e_phase(model, params) -> dict:
         if name == "f32":
             _check_evaluator_uint8(ev)
         row = {k: getattr(avg, k) for k in ("rmse", "mae", "delta1", "absrel", "lg10")}
-        out[name] = {"launches": k1, "k4_launches": k4, "forwards": forwards, "metrics": row,
+        out[name] = {"launches": k1, "k4_launches": k4, "k7_launches": k7, "forwards": forwards,
+                     "metrics": row,
                      "validate_fps": 1.0 / avg.gpu_time, "step_fps": fps}
         if name == "f32":
             # the fused forward against the port's straight plain-PyTorch
@@ -516,6 +651,7 @@ def forwards_phase(model, params) -> dict:
     from fastdepth_tpu_torch.models import fused as F
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import fused_decoder_hwbc as K2
+    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
     from fastdepth_tpu_torch.ops.cuda import fused_decoder_v3 as K3
     from fastdepth_tpu_torch.ops.cuda import head as K4
 
@@ -539,11 +675,12 @@ def forwards_phase(model, params) -> dict:
             row = {}
             for fwd, (fn, mod) in forwards.items():
                 if mod is not None and fwd != "fused":
-                    _reset(mod, K4)
+                    _reset(mod, K4, K7)
                     for _ in range(runs):
                         got = fn().float()
                     torch.cuda.synchronize()
                     launches = _counts(mod, K4)
+                    _check_k7(f"{fwd} {name}", K7.LAUNCHES, runs)
                     if launches != (STAGES_PER_FORWARD * runs, runs):
                         fail(f"{fwd} {name}: launches {launches} over {runs} forwards, want "
                              f"{STAGES_PER_FORWARD} of the stage kernel and 1 of K4 each")
@@ -556,7 +693,8 @@ def forwards_phase(model, params) -> dict:
                     if dtype == torch.float32 and not err <= 1e-3:
                         fail(f"{fwd} forward disagrees with the straight forward: {err}")
                     row[fwd] = {"launches": launches[0], "k4_launches": launches[1],
-                                "forwards": runs, "max_abs_err_vs_straight": err}
+                                "k7_launches": K7.LAUNCHES, "forwards": runs,
+                                "max_abs_err_vs_straight": err}
                 row.setdefault(fwd, {})["forward_ms"] = _median_ms(lambda: fn(), ())
         print(f"forwards {name} b{BATCH}: {json.dumps(row)}")
         out[name] = row
@@ -566,14 +704,15 @@ def forwards_phase(model, params) -> dict:
 def deploy_phase(model, params) -> dict:
     """cli.deploy.main on a seeded 224x224 rgb npy with the trained
     weights, f32 and --bf16, with randomized-input timing.  Every call of
-    the forward launches K1 five times and K4 once: the compile's three
-    runs (warm-up, side-stream warm-up, capture) through their wrappers,
-    every later call, each a replay of the graph, in
+    the forward launches K1 five times, K4 once and K7 27 times: the
+    compile's three runs (warm-up, side-stream warm-up, capture) through
+    their wrappers, every later call, each a replay of the graph, in
     ``engine.aot.GRAPH_REPLAYS``; the f32 prediction is held against the
     straight forward (1e-3)."""
     from fastdepth_tpu_torch.cli import deploy
     from fastdepth_tpu_torch.engine import aot
     from fastdepth_tpu_torch.engine.aot import compile_forward
+    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import head as K4
 
@@ -587,7 +726,7 @@ def deploy_phase(model, params) -> dict:
         np.save(in_fp, rgb)
         for name, extra in (("f32", []), ("bf16", ["--bf16"])):
             out_fp = os.path.join(tmp, f"pred_{name}.npy")
-            _reset(K1, K4)
+            _reset(K1, K4, K7)
             aot.GRAPH_REPLAYS = 0
             log = io.StringIO()
             with contextlib.redirect_stdout(log):
@@ -597,8 +736,10 @@ def deploy_phase(model, params) -> dict:
             torch.cuda.synchronize()
             for line in log.getvalue().splitlines():
                 print(f"deploy {name}: {line}")
-            k1, k4 = _counts(K1, K4)
+            k1, k4, k7 = _counts(K1, K4, K7)
             replays = aot.GRAPH_REPLAYS
+            # a replay runs K7 without its Python: the eager runs count
+            _check_k7(f"deploy {name}", k7, calls + CAPTURE_RUNS - replays)
             if replays != calls - 1 or (k1 + STAGES_PER_FORWARD * replays, k4 + replays) != (
                     STAGES_PER_FORWARD * (calls + CAPTURE_RUNS), calls + CAPTURE_RUNS):
                 fail(f"deploy {name}: K1 launched {k1} and K4 {k4} times and the graph "
@@ -612,7 +753,8 @@ def deploy_phase(model, params) -> dict:
             timed = re.search(r"\[timed\] mean=([\d.]+) ms  median=([\d.]+) ms", log.getvalue())
             rand = re.search(r"\[randomized\] mean=([\d.]+) ms  median=([\d.]+) ms",
                              log.getvalue())
-            out[name] = {"launches": k1, "k4_launches": k4, "replays": replays, "calls": calls,
+            out[name] = {"launches": k1, "k4_launches": k4, "k7_launches": k7,
+                         "replays": replays, "calls": calls,
                          "timed_median_ms": float(timed.group(2)),
                          "randomized_median_ms": float(rand.group(2))}
             if name == "f32":
@@ -635,13 +777,14 @@ FRESH_DEPLOY_CALLS = 2 + 2 + 5  # compile_forward's warm run, the saved predicti
 
 
 def fresh_deploy_f32(in_fp: str, out_fp: str, want: np.ndarray, extra=(),
-                     per_call=(STAGES_PER_FORWARD, 1), label: str = "deploy f32") -> dict:
+                     per_call=(STAGES_PER_FORWARD, 1, EPILOGUES_PER_FORWARD),
+                     label: str = "deploy f32") -> dict:
     """cli.deploy.main in f32 (``extra`` flags on top) in a fresh process,
     whose TF32 flags start at PyTorch's defaults (cuDNN's on): the CLI
     must turn both off, its saved prediction must agree with ``want``,
-    the straight forward with TF32 off, within 1e-3, and K1 and K4 must
-    have launched ``per_call`` times a call of the forward and a capture
-    run, a replay of the graph counting as a call."""
+    the straight forward with TF32 off, within 1e-3, and K1, K4 and K7
+    must have launched ``per_call`` times a call of the forward and a
+    capture run, a replay of the graph counting as a call."""
     argv = ["--model", WEIGHTS, "--input-fp", in_fp, "--output-fp", out_fp, "--warmup", "2",
             "--run", "5", "--device", "cuda", *extra]
     code = ("import json, torch\n"
@@ -650,10 +793,11 @@ def fresh_deploy_f32(in_fp: str, out_fp: str, want: np.ndarray, extra=(),
             "before = flags()\n"
             "from fastdepth_tpu_torch.cli import deploy\n"
             "from fastdepth_tpu_torch.engine import aot\n"
+            "from fastdepth_tpu_torch.ops.cuda import epilogue as K7\n"
             "from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1, head as K4\n"
             f"deploy.main({argv!r})\n"
             "print('TF32 ' + json.dumps({'before': before, 'after': flags(),\n"
-            "                            'launches': [K1.LAUNCHES, K4.LAUNCHES],\n"
+            "                            'launches': [K1.LAUNCHES, K4.LAUNCHES, K7.LAUNCHES],\n"
             "                            'replays': aot.GRAPH_REPLAYS}))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                        timeout=300)
@@ -664,7 +808,8 @@ def fresh_deploy_f32(in_fp: str, out_fp: str, want: np.ndarray, extra=(),
     err = float(np.abs(pred - want).max())
     launches, replays = flags["launches"], flags["replays"]
     print(f"{label}, fresh process: TF32 flags (cudnn, matmul) {flags['before']} before, "
-          f"{flags['after']} after; K1 {launches[0]}, K4 {launches[1]} launches and "
+          f"{flags['after']} after; K1 {launches[0]}, K4 {launches[1]}, K7 {launches[2]} "
+          "launches and "
           f"{replays} graph replays over {FRESH_DEPLOY_CALLS} calls; saved prediction vs "
           f"straight forward max|diff| {err:.3e} (bound 1e-3)")
     if flags["after"] != [False, False]:
@@ -673,27 +818,30 @@ def fresh_deploy_f32(in_fp: str, out_fp: str, want: np.ndarray, extra=(),
         fail(f"fresh-process {label} disagrees with the straight forward: {err}")
     runs = FRESH_DEPLOY_CALLS + CAPTURE_RUNS
     if replays != FRESH_DEPLOY_CALLS - 1 or [n + k * replays for n, k in zip(
-            launches, per_call)] != [per_call[0] * runs, per_call[1] * runs]:
-        fail(f"{label}: K1 {launches[0]} and K4 {launches[1]} launches and {replays} graph "
-             f"replays over {FRESH_DEPLOY_CALLS} calls, want {per_call[0]} and "
-             f"{per_call[1]} a call and a capture run, every call after the compile a replay")
+            launches, per_call)] != [k * runs for k in per_call]:
+        fail(f"{label}: K1 {launches[0]}, K4 {launches[1]} and K7 {launches[2]} launches and "
+             f"{replays} graph replays over {FRESH_DEPLOY_CALLS} calls, want {per_call[0]}, "
+             f"{per_call[1]} and {per_call[2]} a call and a capture run, every call after the "
+             "compile a replay")
     return {"tf32_before": flags["before"], "tf32_after": flags["after"],
             "max_abs_err_vs_straight": err, "launches": launches[0],
-            "k4_launches": launches[1], "replays": replays, "calls": FRESH_DEPLOY_CALLS}
+            "k4_launches": launches[1], "k7_launches": launches[2], "replays": replays,
+            "calls": FRESH_DEPLOY_CALLS}
 
 
 def _serve_one(srv, tmp: str, name: str, inputs, lone_inputs,
-               per_forward=(STAGES_PER_FORWARD, 1)):
+               per_forward=(STAGES_PER_FORWARD, 1, EPILOGUES_PER_FORWARD)):
     """Drive one server through its unix socket: a warm-up request, then
-    (K1's and K4's counts set to 0 just before, read just after) the
-    stream of ``inputs`` at depth SERVE_DEPTH and SERVE_LONE lone
-    requests, then SERVE_TIMED more streams that are only timed.  K1 and
-    K4 must have launched ``per_forward`` times a forward over the counted
-    run (the flagship's 5 and 1; a zoo model's 0 and 0).  Returns (stream
-    answers, lone answers, row)."""
+    (K1's, K4's and K7's counts set to 0 just before, read just after)
+    the stream of ``inputs`` at depth SERVE_DEPTH and SERVE_LONE lone
+    requests, then SERVE_TIMED more streams that are only timed.  K1, K4
+    and K7 must have launched ``per_forward`` times a forward over the
+    counted run (the flagship's 5, 1 and 27; ResNet-50-UpProj's 0, 0 and
+    70).  Returns (stream answers, lone answers, row)."""
     import threading
 
     from fastdepth_tpu_torch.engine.server import request, request_stream, serve_unix_socket
+    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import head as K4
 
@@ -708,7 +856,7 @@ def _serve_one(srv, tmp: str, name: str, inputs, lone_inputs,
             fail(f"serve {name}: the socket never came up")
         request(sock, lone_inputs[0])  # warm-up: the first forward's set-up
         before = srv.stats()
-        _reset(K1, K4)
+        _reset(K1, K4, K7)
         t0 = time.perf_counter()
         answers = list(request_stream(sock, inputs, depth=SERVE_DEPTH))
         stream_s = [time.perf_counter() - t0]
@@ -718,7 +866,7 @@ def _serve_one(srv, tmp: str, name: str, inputs, lone_inputs,
             lone.append(request(sock, x))
             lone_ms.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
-        k1, k4 = _counts(K1, K4)
+        k1, k4, k7 = _counts(K1, K4, K7)
         after = srv.stats()
         for _ in range(SERVE_TIMED):
             t0 = time.perf_counter()
@@ -751,13 +899,13 @@ def _serve_one(srv, tmp: str, name: str, inputs, lone_inputs,
     # a batch launches K1 once a level and K4 once; chain runs a batch-1
     # forward a frame (the padded tail of a window is never run)
     forwards = frames if srv.chain else batches
-    if not ((k1, k4) == (per_forward[0] * forwards, per_forward[1] * forwards)
-            and forwards > 0):
-        fail(f"serve {name}: K1 launched {k1} and K4 {k4} times over {forwards} forwards "
-             f"({batches} batches, {frames} frames), want {per_forward[0]} and "
-             f"{per_forward[1]} a forward")
+    if not ((k1, k4, k7) == tuple(k * forwards for k in per_forward) and forwards > 0):
+        fail(f"serve {name}: K1 launched {k1}, K4 {k4} and K7 {k7} times over {forwards} "
+             f"forwards ({batches} batches, {frames} frames), want {per_forward[0]}, "
+             f"{per_forward[1]} and {per_forward[2]} a forward")
     fps = [len(inputs) / s for s in stream_s]
-    row = {"launches": k1, "k4_launches": k4, "batches": batches, "frames": frames,
+    row = {"launches": k1, "k4_launches": k4, "k7_launches": k7, "batches": batches,
+           "frames": frames,
            "stream_fps": fps, "stream_fps_median": float(np.median(fps)),
            "lone_round_trip_ms": lone_ms, "lone_round_trip_ms_median": float(np.median(lone_ms)),
            "lone_in_process_ms_median": float(np.median(inproc_ms)),
@@ -775,7 +923,8 @@ def _print_serve(label: str, row: dict, card: dict) -> None:
           f"occupancy {row['mean_occupancy']:.3f}; lone frame round trip median "
           f"{row['lone_round_trip_ms_median']:.3f} ms (in process "
           f"{row['lone_in_process_ms_median']:.3f} ms); K1 {row['launches']}, K4 "
-          f"{row['k4_launches']} launches over {row['batches']} batches / {row['frames']} "
+          f"{row['k4_launches']}, K7 {row['k7_launches']} launches over {row['batches']} "
+          f"batches / {row['frames']} "
           f"frames; max|diff| {row['max_abs_err']:.3e} (bound {row['bound']:.3e})")
 
 
@@ -904,6 +1053,7 @@ def tuned_phase(model, params, card: dict) -> dict:
     from fastdepth_tpu_torch import OUTPUT_SIZE, RAW_SIZE, Evaluator, ValPipeline, validate
     from fastdepth_tpu_torch.engine.autotune import load_tuning
     from fastdepth_tpu_torch.engine.server import InferenceServer
+    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import head as K4
 
@@ -928,14 +1078,16 @@ def tuned_phase(model, params, card: dict) -> dict:
             n_pallas = sum(w == "pallas" for w in winners.values())
             ev = Evaluator(model, params, batch_size=BATCH, dtype=dtype, impl="mixed",
                            tuning=maps[name], device="cuda")
-            _reset(K1, K4)
+            _reset(K1, K4, K7)
             avg = validate(loader, ev, print_freq=0, make_images=False, log=lambda *a: None)
             torch.cuda.synchronize()
-            k1, k4 = _counts(K1, K4)
+            k1, k4, k7 = _counts(K1, K4, K7)
             if (k1, k4) != (n_pallas * forwards, forwards):
                 fail(f"{label}: K1 launched {k1} and K4 {k4} times over {forwards} forwards, "
                      f"want {n_pallas} (its 'pallas' levels) and 1 per forward")
-            row = {"winners": winners, "launches": k1, "k4_launches": k4, "forwards": forwards,
+            _check_k7(label, k7, forwards)  # an 'xla' level's convs are plain ops
+            row = {"winners": winners, "launches": k1, "k4_launches": k4, "k7_launches": k7,
+                   "forwards": forwards,
                    "metrics": {k: getattr(avg, k) for k in ("rmse", "mae", "delta1", "absrel",
                                                            "lg10")}}
             if dtype == torch.float32:
@@ -975,7 +1127,7 @@ def tuned_phase(model, params, card: dict) -> dict:
         n32 = sum(w == "pallas" for w in load_tuning(path, torch.float32).values())
         out["deploy_mixed_f32"] = fresh_deploy_f32(
             in_fp, os.path.join(tmp, "pred_mixed.npy"), straight,
-            extra=("--impl", "mixed", "--tuning", path), per_call=(n32, 1),
+            extra=("--impl", "mixed", "--tuning", path), per_call=(n32, 1, EPILOGUES_PER_FORWARD),
             label="deploy --impl mixed f32")
 
         # the server with the tuned record against the mixed Evaluator
@@ -991,10 +1143,10 @@ def tuned_phase(model, params, card: dict) -> dict:
         try:
             srv.submit(frames[0]).result(timeout=60)  # warm-up
             before = srv.stats()["batches"]
-            _reset(K1, K4)
+            _reset(K1, K4, K7)
             answers = np.stack([f.result(timeout=60) for f in [srv.submit(fr) for fr in frames]])
             torch.cuda.synchronize()
-            k1, k4 = _counts(K1, K4)
+            k1, k4, k7 = _counts(K1, K4, K7)
             batches = srv.stats()["batches"] - before
         finally:
             srv.close()
@@ -1005,7 +1157,9 @@ def tuned_phase(model, params, card: dict) -> dict:
         if (k1, k4) != (n32 * batches, batches) or not err <= 1e-5:
             fail(f"tuned server: K1 {k1}, K4 {k4} over {batches} batches (want {n32} and 1 "
                  f"a batch), max|diff| {err}")
-        out["serve_mixed"] = {"launches": k1, "k4_launches": k4, "batches": batches,
+        _check_k7("tuned server", k7, batches)
+        out["serve_mixed"] = {"launches": k1, "k4_launches": k4, "k7_launches": k7,
+                              "batches": batches,
                               "max_abs_err_vs_evaluator": err}
     print(f"tuned phase: {time.perf_counter() - t_phase:.1f} s")
     return out
@@ -1028,17 +1182,18 @@ def _bundle_loads_in_a_fresh_process(runs, in_fp: str) -> dict:
             "def flags():\n"
             "    return [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]\n"
             "from fastdepth_tpu_torch.cli import deploy\n"
+            "from fastdepth_tpu_torch.ops.cuda import epilogue as K7\n"
             "from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1, head as K4\n"
             "out = {}\n"
             f"for name, prefix, out_fp in {[tuple(r) for r in runs]!r}:\n"
-            "    K1.LAUNCHES = K4.LAUNCHES = 0\n"
+            "    K1.LAUNCHES = K4.LAUNCHES = K7.LAUNCHES = 0\n"
             "    before = flags()\n"
             "    deploy.main(['--load-bundle', prefix, '--input-fp', " + repr(in_fp) + ",\n"
             "                 '--output-fp', out_fp, '--warmup', '2', '--run', '5',\n"
             "                 '--device', 'cuda'])\n"
             "    torch.cuda.synchronize()\n"
             "    out[name] = {'tf32_before': before, 'tf32_after': flags(),\n"
-            "                 'launches': [K1.LAUNCHES, K4.LAUNCHES]}\n"
+            "                 'launches': [K1.LAUNCHES, K4.LAUNCHES, K7.LAUNCHES]}\n"
             "print('BUNDLES ' + json.dumps(out))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                        timeout=300)
@@ -1152,6 +1307,7 @@ def bundle_phase(model, params, card: dict) -> dict:
     from fastdepth_tpu_torch.engine.aot import compile_forward, load_bundle, save_bundle
     from fastdepth_tpu_torch.engine.autotune import load_tuning
     from fastdepth_tpu_torch.engine.benchmark import time_fn
+    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import head as K4
 
@@ -1186,12 +1342,14 @@ def bundle_phase(model, params, card: dict) -> dict:
             row.update(calls=BUNDLE_LOAD_CALLS, max_abs_err_vs_checkpoint=err, bound=bound)
             print(f"bundle {name} b{DEPLOY_BATCH} {OUTPUT_HW[0]}^2 on {card['nvidia_smi']}: "
                   f"--load-bundle in a fresh process: TF32 flags {row['tf32_before']} before, "
-                  f"{row['tf32_after']} after; K1 {row['launches'][0]}, K4 {row['launches'][1]} "
-                  f"launches over {BUNDLE_LOAD_CALLS} calls; loaded prediction vs the "
+                  f"{row['tf32_after']} after; K1 {row['launches'][0]}, K4 {row['launches'][1]}, "
+                  f"K7 {row['launches'][2]} launches over {BUNDLE_LOAD_CALLS} calls; loaded "
+                  "prediction vs the "
                   f"checkpoint run's max|diff| {err:.3e} (bound {bound:.3e})")
-            if row["launches"] != [per_call * BUNDLE_LOAD_CALLS, BUNDLE_LOAD_CALLS]:
+            if row["launches"][:2] != [per_call * BUNDLE_LOAD_CALLS, BUNDLE_LOAD_CALLS]:
                 fail(f"bundle {name}: K1 {row['launches'][0]} and K4 {row['launches'][1]} "
                      f"launches over {BUNDLE_LOAD_CALLS} calls, want {per_call} and 1 a call")
+            _check_k7(f"bundle {name}", row["launches"][2], BUNDLE_LOAD_CALLS)
             if name != "bf16" and row["tf32_after"] != [False, False]:
                 fail(f"bundle {name}: the f32 load left TF32 on: {row['tf32_after']}")
             if got_pred.shape != (1, 1, *OUTPUT_HW) or not err <= bound:
@@ -1207,17 +1365,18 @@ def bundle_phase(model, params, card: dict) -> dict:
         save_bundle(prefix, model, params, impl="mixed", tuning=hand, device="cuda")
         call, lp, _, _ = load_bundle(prefix, device="cuda")
         fn, p = compile_forward(model, params, impl="mixed", tuning=hand, device="cuda")
-        _reset(K1, K4)
+        _reset(K1, K4, K7)
         got = call(lp, x)
         torch.cuda.synchronize()
-        k1, k4 = _counts(K1, K4)
+        k1, k4, k7 = _counts(K1, K4, K7)
+        _check_k7("bundle mixed hand f32", k7, 1)
         err = float((got - fn(p, x)).abs().max())
         n_hand = sum(w == "pallas" for w in hand.values())
         print(f"bundle mixed hand f32: K1 {k1}, K4 {k4} launches a call (want {n_hand} and 1); "
               f"vs compile_forward max|diff| {err:.3e} (bound 1e-5)")
         if (k1, k4) != (n_hand, 1) or not err <= 1e-5:
             fail(f"bundle mixed hand: K1 {k1}, K4 {k4}, max|diff| {err}")
-        out["mixed hand f32"] = {"winners": hand, "launches": [k1, k4], "max_abs_err": err}
+        out["mixed hand f32"] = {"winners": hand, "launches": [k1, k4, k7], "max_abs_err": err}
 
         # resnet50-upproj at full width, random weights: the straight path
         zmodel, zparams = _zoo_model("resnet50-upproj")
@@ -1225,10 +1384,11 @@ def bundle_phase(model, params, card: dict) -> dict:
         save_bundle(prefix, zmodel, zparams, device="cuda")
         call, lp, _, _ = load_bundle(prefix, device="cuda")
         fn, p = compile_forward(zmodel, zparams, device="cuda")
-        _reset(K1, K4)
+        _reset(K1, K4, K7)
         got = call(lp, x)
         torch.cuda.synchronize()
-        k1, k4 = _counts(K1, K4)
+        k1, k4, k7 = _counts(K1, K4, K7)
+        _check_k7("bundle resnet50-upproj f32", k7, 1, ZOO_EPILOGUES)
         want = fn(p, x)
         err = float((got - want).abs().max())
         bound = 1e-5 * max(1.0, float(want.abs().max()))
@@ -1237,7 +1397,8 @@ def bundle_phase(model, params, card: dict) -> dict:
               f"{float(want.abs().max()):.3e}")
         if (k1, k4) != (0, 0) or not err <= bound:
             fail(f"bundle resnet50-upproj: K1 {k1}, K4 {k4}, max|diff| {err} > {bound}")
-        out["resnet50-upproj f32"] = {"launches": [k1, k4], "max_abs_err": err, "bound": bound}
+        out["resnet50-upproj f32"] = {"launches": [k1, k4, k7], "max_abs_err": err,
+                                      "bound": bound}
         del zparams, lp, p, call, fn
 
         # the f32 flagship: export and load seconds, then b1 in turns
@@ -1358,7 +1519,7 @@ def _zoo_model(spec, *, tiny_decoder: str = None):
 def _zoo_serve(model, params, card: dict) -> dict:
     """An InferenceServer (b8 f32) on ``model`` behind a unix socket,
     driven as the flagship's servers are (:func:`_serve_one`, K1 and K4
-    launched 0 times) on SERVE_FRAMES seeded frames: every answer within
+    launched 0 times, K7 70 a forward) on SERVE_FRAMES seeded frames: every answer within
     1e-3 * max(1, max|ref|) of the card's straight forward of the same
     frames, the first ZOO_CPU_ROWS also against the CPU's."""
     from fastdepth_tpu_torch.engine.aot import compile_forward
@@ -1373,7 +1534,8 @@ def _zoo_serve(model, params, card: dict) -> dict:
     srv = InferenceServer(model, params, batch_size=BATCH, image_size=OUTPUT_HW, device="cuda")
     with tempfile.TemporaryDirectory() as tmp:
         answers, lone, row = _serve_one(srv, tmp, "zoo", list(frames),
-                                        list(frames[:SERVE_LONE]), per_forward=(0, 0))
+                                        list(frames[:SERVE_LONE]),
+                                        per_forward=(0, 0, ZOO_EPILOGUES))
     got = np.stack(answers + lone)
     want = np.concatenate([want, want[:SERVE_LONE]])
     scale = max(1.0, float(np.abs(want).max()))
@@ -1403,6 +1565,7 @@ def _zoo_flagship(card: dict) -> dict:
     from fastdepth_tpu_torch.cli import deploy
     from fastdepth_tpu_torch.cli import train as train_cli
     from fastdepth_tpu_torch.config import TrainConfig
+    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
 
     model, params = _zoo_model("resnet50-upproj")
     out = {"params": sum(v.numel() for v in params.state_dict().values())}
@@ -1416,7 +1579,11 @@ def _zoo_flagship(card: dict) -> dict:
         ev = Evaluator(model, params, batch_size=BATCH, dtype=dtype, device="cuda")
         if next(ev.params.parameters()).device.type != "cuda":
             fail("zoo: the evaluator's params are not on the card")
+        _reset(K7)
         avg = validate(loader, ev, print_freq=0, make_images=False, log=lambda s: None)
+        torch.cuda.synchronize()
+        _check_k7(f"zoo resnet50-upproj validate {name}", K7.LAUNCHES, len(loader.batches) + 1,
+                  ZOO_EPILOGUES)  # validate() warms up on its first batch
         x, d = ev.put(rgb0), ev.put(depth0)
         pred, _ = ev(x, d)
         preds[name] = pred.cpu().numpy()
@@ -1518,9 +1685,10 @@ def _zoo_flagship(card: dict) -> dict:
 def _zoo_mobilenet_nnconv5(card: dict) -> dict:
     """mobilenet-nnconv5 (BASELINE config #2) at full width: validate() b8
     f32 through the head-commute forward, which _pick_apply must choose,
-    with K1 and K4 launched 0 times."""
+    with K1 and K4 launched 0 times and K7 27 a forward (its encoder)."""
     from fastdepth_tpu_torch import OUTPUT_SIZE, RAW_SIZE, Evaluator, ValPipeline, validate
     from fastdepth_tpu_torch.models import fused as F
+    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import head as K4
 
@@ -1532,11 +1700,12 @@ def _zoo_mobilenet_nnconv5(card: dict) -> dict:
     F.apply_fastdepth_opt = lambda *a: calls.append(1) or opt(*a)
     try:
         ev = Evaluator(model, params, batch_size=BATCH, device="cuda")
-        _reset(K1, K4)
+        _reset(K1, K4, K7)
         avg = validate(loader, ev, print_freq=0, make_images=False, log=lambda s: None)
         torch.cuda.synchronize()
-        k1, k4 = _counts(K1, K4)
+        k1, k4, k7 = _counts(K1, K4, K7)
         forwards, opt_forwards = E2E_BATCHES + 1, len(calls)
+        _check_k7("zoo mobilenet-nnconv5", k7, forwards)
         if (opt_forwards, k1, k4) != (forwards, 0, 0):
             fail(f"zoo mobilenet-nnconv5: {opt_forwards} opt forwards of {forwards}, K1 {k1}, "
                  f"K4 {k4} launches (want all forwards through opt, no kernel)")
@@ -1551,7 +1720,8 @@ def _zoo_mobilenet_nnconv5(card: dict) -> dict:
     print(f"zoo mobilenet-nnconv5 eval b{BATCH} f32 (opt) on {card['nvidia_smi']}: step "
           f"{fps:.1f} frames/s, validate() {1.0 / avg.gpu_time:.1f} frames/s; opt forwards "
           f"{opt_forwards} of {forwards}, K1 {k1}, K4 {k4}")
-    return {"opt_forwards": opt_forwards, "k1_launches": k1, "k4_launches": k4, "step_fps": fps,
+    return {"opt_forwards": opt_forwards, "k1_launches": k1, "k4_launches": k4,
+            "k7_launches": k7, "step_fps": fps,
             "max_rel_err_vs_cpu": err}
 
 
@@ -1751,6 +1921,7 @@ def train_phase(model, params) -> dict:
     from fastdepth_tpu_torch.cli import train as train_cli
     from fastdepth_tpu_torch.config import TrainConfig
     from fastdepth_tpu_torch.models import layers as L
+    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import head as K4
     from fastdepth_tpu_torch.train import Trainer, sgd_init
@@ -1832,20 +2003,22 @@ def train_phase(model, params) -> dict:
                  str(BATCH), "--workers", "4", "--print-freq", "0", "--output-dir", out_dir,
                  "--lr", str(TRAIN_LR), "--device", "cuda"] + extra)
             log = io.StringIO()
-            _reset(K1, K4)
+            _reset(K1, K4, K7)
             with contextlib.redirect_stdout(log):
                 # no comparison PNGs: they need matplotlib
                 best = train_cli.train_loop(args, model, params, train_ds, val_ds,
                                             make_images=False)
             torch.cuda.synchronize()
-            k1, k4 = _counts(K1, K4)
+            k1, k4, k7 = _counts(K1, K4, K7)
             epochs = re.findall(r"=> epoch (\d+): train loss ([-\w.]+)", log.getvalue())
             print(f"train_loop {name}: epochs {epochs}; validate RMSE {best.rmse:.4f} delta1 "
-                  f"{best.delta1:.4f}; K1 {k1}, K4 {k4} launches")
+                  f"{best.delta1:.4f}; K1 {k1}, K4 {k4}, K7 {k7} launches")
             forwards = TRAIN_EPOCHS * val_forwards
             if (k1, k4) != (STAGES_PER_FORWARD * forwards, forwards):
                 fail(f"train_loop {name}: K1 launched {k1} and K4 {k4} times over {forwards} "
                      f"validation forwards, want {STAGES_PER_FORWARD} and 1 per forward")
+            # the train steps run no K7: training keeps the separate ops
+            _check_k7(f"train_loop {name}", k7, forwards)
             losses = [float(v) for _, v in epochs]
             if len(losses) != TRAIN_EPOCHS or not all(np.isfinite(losses)):
                 fail(f"train_loop {name}: epoch losses {losses}")
@@ -2010,6 +2183,7 @@ def input_phase(model, params, card: dict) -> dict:
     from fastdepth_tpu_torch.engine import evaluator as E
     from fastdepth_tpu_torch.engine.benchmark import bound_us, throughput_sweep, time_pipelined
     from fastdepth_tpu_torch.engine.staging import PinnedRing
+    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import head as K4
     from fastdepth_tpu_torch.scripts import probe_r5_device_gathers
@@ -2110,11 +2284,12 @@ def input_phase(model, params, card: dict) -> dict:
             ev_h = Evaluator(model, params, batch_size=BATCH, dtype=dtype, device="cuda")
             ev_d = Evaluator(model, params, batch_size=BATCH, dtype=dtype, device="cuda",
                              val_pipeline=val_raw.val_pipeline)
-            _reset(K1, K4)
+            _reset(K1, K4, K7)
             avg_d = validate(raw_loader, ev_d, print_freq=0, make_images=False,
                              log=lambda s: None)
             torch.cuda.synchronize()
-            k1, k4 = _counts(K1, K4)
+            k1, k4, k7 = _counts(K1, K4, K7)
+            _check_k7(f"device preprocessing {name}", k7, forwards)
             avg_h = validate(host_loader, ev_h, print_freq=0, make_images=False,
                              log=lambda s: None)
             if (k1, k4) != (STAGES_PER_FORWARD * forwards, forwards):
@@ -2932,6 +3107,7 @@ def _space_serve(model, params, meshes: dict, card: dict, label: str = "",
     flagship: 5 and 1; ``label`` names another model in the printed
     lines)."""
     from fastdepth_tpu_torch.engine.server import InferenceServer
+    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import head as K4
 
@@ -3484,6 +3660,7 @@ def _bench_launches() -> dict:
     nowhere else in this script."""
     from fastdepth_tpu_torch import bench
     from fastdepth_tpu_torch.engine.benchmark import tolerance
+    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
     from fastdepth_tpu_torch.ops.cuda import head as K4
 
@@ -3507,12 +3684,13 @@ def _bench_launches() -> dict:
     K1._stage_cuda = kept("K1", stage, K1.fused_decoder_stage_reference)
     K4._head_cuda = kept("K4", head, K4.pointwise_head_reference)
     try:
-        _reset(K1, K4)
+        _reset(K1, K4, K7)
         y = fn(params, x)
         torch.cuda.synchronize()
-        k1, k4 = _counts(K1, K4)
+        k1, k4, k7 = _counts(K1, K4, K7)
     finally:
         K1._stage_cuda, K4._head_cuda = stage, head
+    _check_k7(f"bench {tag}_b{batch}", k7, 1)
     print(f"bench {tag}_b{batch} row forward ({impl} -> {bench.PORT_IMPL[impl]}): K1 {k1}, "
           f"K4 {k4} launches a forward")
     if (k1, k4) != (STAGES_PER_FORWARD, 1):
@@ -3532,7 +3710,7 @@ def _bench_launches() -> dict:
                 fail(f"bench {tag}_b{batch}: {label} at {tuple(args[0].shape)} disagrees with "
                      f"its plain version: max|diff| {diff} > {tol}")
             err[label] = max(err[label], diff)
-    return {"K1": k1, "K4": k4, "row": f"{tag}_b{batch}", "max_abs_err": err}
+    return {"K1": k1, "K4": k4, "K7": k7, "row": f"{tag}_b{batch}", "max_abs_err": err}
 
 
 def _bench_killed() -> dict:
@@ -3918,6 +4096,7 @@ KERNELS = [
      "fastdepth_tpu/ops/pallas/fused_decoder.py:379"),
     ("K5", "staged_copy", "fastdepth_tpu_torch/csrc/probe_copy.cu", None),
     ("K6", "staged_compute", "fastdepth_tpu_torch/csrc/probe_stage.cu", None),
+    ("K7", "conv_epilogue", "fastdepth_tpu_torch/csrc/conv_epilogue.cu", None),
 ]
 
 
@@ -3954,15 +4133,17 @@ def main() -> None:
     print(f"scripts_phase: {phase_s['scripts_phase']} s on {card['nvidia_smi']}")
     # launches: each kernel's count on the f32 run of its path (K1: the
     # eval path, K2/K3: the v2/v3 forwards, K4: the deploy path, K5/K6:
-    # the probe catalogue's run); ms / plain_ms: device time (events_ms
-    # beside it), f32, batch 8, summed over the pruned flagship's five
-    # levels (K4: its head; K5/K6: over their probe tags), with the worst
+    # the probe catalogue's run; K7: the eval path's f32 run, as K1, its
+    # count zeroed just before the run); ms /
+    # plain_ms: device time (events_ms beside it), f32, batch 8, summed
+    # over the pruned flagship's five levels (K4: its head; K5/K6: over
+    # their probe tags; K7: bf16 b128, its 27 encoder epilogues), with the worst
     # f32 error over the checked shapes; bound_ms the least time for the
     # same calls' work at the H100's published rates (summed likewise),
     # bound_by the term that binds most of it; library_ms one PyTorch call
     # per call where one computes the same function, else null (K5 and K6:
     # summed over library_tags, beside ms_over_library_tags, the kernel's
-    # own time over the same tags); serve_launches: K1's and K4's counts
+    # own time over the same tags); serve_launches: K1's, K4's and K7's counts
     # over the f32 server's counted run (serve phase); mixed_launches: over
     # the hand-mixed map's f32 validate() (tuned phase: 3 'pallas' levels);
     # bundle_launches: over the f32 bundle's cli.deploy --load-bundle run in
@@ -3971,12 +4152,15 @@ def main() -> None:
     # scripts_launches: over the soak server's run (scripts phase)
     launches = {"K1": e2e["f32"]["launches"], "K2": fwd["f32"]["v2"]["launches"],
                 "K3": fwd["f32"]["v3"]["launches"], "K4": dep["f32"]["k4_launches"],
-                "K5": kernels["K5"]["launches"], "K6": kernels["K6"]["launches"]}
-    serve_launches = {"K1": srv["f32"]["launches"], "K4": srv["f32"]["k4_launches"]}
+                "K5": kernels["K5"]["launches"], "K6": kernels["K6"]["launches"],
+                "K7": e2e["f32"]["k7_launches"]}
+    serve_launches = {"K1": srv["f32"]["launches"], "K4": srv["f32"]["k4_launches"],
+                      "K7": srv["f32"]["k7_launches"]}
     mixed_launches = {"K1": tuned["mixed hand f32"]["launches"],
-                      "K4": tuned["mixed hand f32"]["k4_launches"]}
-    bundle_launches = dict(zip(("K1", "K4"), bundle["f32"]["launches"]))
-    bench_launches = {k: bench["launches"][k] for k in ("K1", "K4")}
+                      "K4": tuned["mixed hand f32"]["k4_launches"],
+                      "K7": tuned["mixed hand f32"]["k7_launches"]}
+    bundle_launches = dict(zip(("K1", "K4", "K7"), bundle["f32"]["launches"]))
+    bench_launches = {k: bench["launches"][k] for k in ("K1", "K4", "K7")}
     scripts_launches = {k: scripts["soak_server_r4"]["launches"][k] for k in ("K1", "K4")}
     print(f"chip_smoke: seconds by phase {json.dumps(phase_s)}")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")

@@ -5,7 +5,7 @@ card's kernels when CUDA is available (CUPTI).  The trace is written as
 a Chrome trace (``trace.json``, viewable in Perfetto) and a table of
 time by op (``ops.txt``).  Timing itself lives in ``engine/benchmark.py``.
 
-The program marks its layers with :func:`annotate`, seven spans in all,
+The program marks its layers with :func:`annotate`, eight spans in all,
 each a ``record_function`` range of its host thread in a
 ``torch.profiler`` trace, in which the kernels launched inside it are
 found by their launches' correlation ids:
@@ -24,10 +24,13 @@ found by their launches' correlation ids:
   sums and their stack;
 * :data:`K1` (``fastdepth::fused_decoder_stage``): one eager K1 level,
   under the name the op has in the dispatcher when a trace calls it;
+* :data:`K7` (``fastdepth::conv_epilogue``): one eager K7 epilogue, the
+  bias, residual and activation after a routed conv, under the name the
+  op has in the dispatcher;
 * :data:`GRAPH` (``fastdepth.graph``): one replay of the CUDA graph of
   ``compile_forward``'s forward, inside its step.  A replay runs the
-  forward's kernels without its Python, so no encoder, decoder or K1
-  span opens inside it.
+  forward's kernels without its Python, so no encoder, decoder, K1 or
+  K7 span opens inside it.
 
 A span nests in the one open around it on the same thread; the step is
 the root.  With no profiler running a span costs one flag read.
@@ -48,6 +51,7 @@ DECODER = "fastdepth.decoder"
 METRICS = "fastdepth.metrics"
 ATTENTION = "fastdepth.attention"
 K1 = "fastdepth::fused_decoder_stage"
+K7 = "fastdepth::conv_epilogue"
 GRAPH = "fastdepth.graph"
 
 _OFF = contextlib.nullcontext()

@@ -28,7 +28,6 @@ from torch import nn
 
 from fastdepth_tpu_torch.config import DECODER_NAMES, UNPRUNED_DECODER_CHANNELS
 from fastdepth_tpu_torch.models import layers as L
-from fastdepth_tpu_torch.ops import blocks as B
 from fastdepth_tpu_torch.parallel import spatial as S
 
 
@@ -145,11 +144,11 @@ def apply_decoder(params: nn.ModuleDict, name: str, x: torch.Tensor, *, train: b
             space = space and space.up()
             b1 = L.apply_conv_bn(x, p["branch1_conv1"], path=path + ("branch1_conv1",),
                                  space=space, **kw)
-            b1 = L.apply_conv_bn(b1, p["branch1_conv2"], act=None,
-                                 path=path + ("branch1_conv2",), space=space, **kw)
             b2 = L.apply_conv_bn(x, p["branch2_conv"], act=None, path=path + ("branch2_conv",),
                                  space=space, **kw)
-            x = B.relu(b1 + b2)
+            # relu(b1 + b2) in branch1_conv2's epilogue
+            x = L.apply_conv_bn(b1, p["branch1_conv2"], residual=b2,
+                                path=path + ("branch1_conv2",), space=space, **kw)
         elif kind == "nnconv":
             x, space = S.upsample(_apply_conv_stage(x, p, path=path, space=space, **kw), space)
         else:  # blconv

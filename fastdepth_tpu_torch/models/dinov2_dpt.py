@@ -263,7 +263,7 @@ def _resize(x: torch.Tensor, size) -> torch.Tensor:
 
 def _rcu(p: nn.ModuleDict, x: torch.Tensor) -> torch.Tensor:
     y = L.apply_conv_bn(torch.relu(x), p["conv1"], act=torch.relu)
-    return x + L.apply_conv_bn(y, p["conv2"], act=None)
+    return L.apply_conv_bn(y, p["conv2"], act=None, residual=x)
 
 
 def _fuse(p: nn.ModuleDict, a: torch.Tensor, b: Optional[torch.Tensor], size) -> torch.Tensor:

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from fastdepth_tpu_torch.ops import blocks as B
+from fastdepth_tpu_torch.ops.cuda import epilogue as E
 from fastdepth_tpu_torch.parallel import spatial as S
 
 
@@ -170,25 +171,61 @@ def sub_stats(stats: Optional[StatsDict], prefix: str) -> Optional[StatsDict]:
     return _Prefixed()
 
 
+# the activations K7 applies, by the callables the models pass as ``act``
+_K7_ACTS = {None: E.NONE, B.relu: E.RELU, torch.relu: E.RELU, B.relu6: E.RELU6}
+# the devices whose folded convs end in K7: on CUDA ATen adds a conv's
+# bias as a pass of its own after cuDNN's conv; the CPU's conv adds it
+# inside, so there K7 would only add passes
+K7_DEVICES = ("cuda",)
+
+
+def _k7_act(x: torch.Tensor, p: ConvBN, act: Optional[Callable], train: bool,
+            space: Optional[S.Level], residual: Optional[torch.Tensor]) -> Optional[int]:
+    """K7's code for ``act`` where the conv's epilogue goes through K7
+    (``ops/cuda/epilogue.py``), else None: a folded leaf (``b``, no
+    ``bn``), for inference (not ``train``, no operand requiring grad),
+    not height-sharded, an activation K7 has, and f32 or bf16 operands of
+    one dtype on a device of :data:`K7_DEVICES`."""
+    code = _K7_ACTS.get(act, -1) if not train and space is None else -1
+    b = p.b if code >= 0 and p.bn is None else None
+    if b is None or x.dtype not in E.DTYPES or x.device.type not in K7_DEVICES:
+        return None
+    for t in (x, p.w, b, residual):
+        if t is not None and (t.dtype != x.dtype or t.requires_grad):
+            return None
+    return code
+
+
 def apply_conv_bn(x: torch.Tensor, p: ConvBN, *, stride: int = 1,
                   act: Optional[Callable] = B.relu, depthwise: bool = False,
                   padding: Optional[int] = None, output_padding: int = 0,
                   train: bool = False, stats: Optional[StatsDict] = None,
-                  path: Tuple[str, ...] = (), space: Optional[S.Level] = None) -> torch.Tensor:
-    """conv (+ bias) -> [BN] -> [act].  A transposed leaf (``p.transpose``)
-    runs a transposed conv (``padding`` None means 0 there,
-    ``output_padding`` as ``ConvTranspose2d``'s), grouped as its weight
-    says: ``(Cin, Cout / groups, k, k)`` against the leaf's Cout (its
-    BatchNorm's or bias's width), so a depthwise ``(C, 1, k, k)`` leaf
-    runs C groups.  With ``train`` the BatchNorm normalises by the
+                  path: Tuple[str, ...] = (), space: Optional[S.Level] = None,
+                  residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """conv (+ bias) -> [BN] -> [+ residual] -> [act].  A transposed leaf
+    (``p.transpose``) runs a transposed conv (``padding`` None means 0
+    there, ``output_padding`` as ``ConvTranspose2d``'s), grouped as its
+    weight says: ``(Cin, Cout / groups, k, k)`` against the leaf's Cout
+    (its BatchNorm's or bias's width), so a depthwise ``(C, 1, k, k)``
+    leaf runs C groups.  With ``train`` the BatchNorm normalises by the
     batch's moments (the global batch's when ``stats`` is a
     :class:`TrainStats` with a group) and its new running statistics go
     to ``stats[path + ('bn',)]``.  ``space``: ``x`` holds this rank's rows
     of that level of a height-sharded forward (inference only), and the
     conv is ``parallel.spatial.conv2d`` or ``conv_transpose2d``: its halo
-    rows exchanged, the result this rank's rows of the output level."""
+    rows exchanged, the result this rank's rows of the output level.
+    ``residual``: a tensor of the output's shape added before ``act``, as
+    a residual block's sum.
+
+    A folded conv for inference on the card (:func:`_k7_act`) runs
+    without its bias, and K7 (``ops/cuda/epilogue.py``) adds the bias and
+    the residual and applies ``act`` in one pass over its channels_last
+    output, bit for bit the separate ops; every other conv takes the bias
+    in the conv and the rest as separate ops."""
     if space is not None and train:
         raise ValueError("a height-sharded conv runs for inference only")
+    k7 = _k7_act(x, p, act, train, space, residual)
+    bias = None if k7 is not None else p.b
     if p.transpose:
         cout = (p.b if p.bn is None else p.bn.mean).shape[0]
         kw = dict(stride=stride, padding=padding or 0, output_padding=output_padding,
@@ -196,13 +233,15 @@ def apply_conv_bn(x: torch.Tensor, p: ConvBN, *, stride: int = 1,
         if space is not None:
             y = S.conv_transpose2d(x, p.w, p.b, level=space, **kw)
         else:
-            y = B.conv2d_transpose(x, p.w, bias=p.b, **kw)
+            y = B.conv2d_transpose(x, p.w, bias=bias, **kw)
     elif space is not None:
         y = S.conv2d(x, p.w, p.b, level=space, stride=stride, padding=padding,
                      groups=x.shape[1] if depthwise else 1)
     else:
         conv = B.depthwise_conv2d if depthwise else B.conv2d
-        y = conv(x, p.w, stride=stride, padding=padding, bias=p.b)
+        y = conv(x, p.w, stride=stride, padding=padding, bias=bias)
+    if k7 is not None:
+        return E.launch(y, p.b, residual, k7)
     if p.bn is not None:
         if train:
             y, new_bn = B.batch_norm_train(y, p.bn, group=getattr(stats, "group", None))
@@ -210,6 +249,8 @@ def apply_conv_bn(x: torch.Tensor, p: ConvBN, *, stride: int = 1,
                 stats[path + ("bn",)] = new_bn
         else:
             y = B.batch_norm(y, p.bn)
+    if residual is not None:
+        y = y + residual
     return act(y) if act is not None else y
 
 

@@ -96,16 +96,16 @@ def _apply_block(x, p, stride, bottleneck, *, train, stats, path, space=None):
         y = L.apply_conv_bn(x, p["conv1"], path=path + ("conv1",), space=space, **kw)
         y = L.apply_conv_bn(y, p["conv2"], stride=stride, path=path + ("conv2",), space=space,
                             **kw)
-        y = L.apply_conv_bn(y, p["conv3"], act=None, path=path + ("conv3",), space=out, **kw)
     else:
         y = L.apply_conv_bn(x, p["conv1"], stride=stride, path=path + ("conv1",), space=space,
                             **kw)
-        y = L.apply_conv_bn(y, p["conv2"], act=None, path=path + ("conv2",), space=out, **kw)
     idn = x
     if "downsample" in p:
         idn = L.apply_conv_bn(x, p["downsample"], stride=stride, act=None,
                               path=path + ("downsample",), space=space, **kw)
-    return B.relu(y + idn)
+    last = "conv3" if bottleneck else "conv2"
+    # relu(y + idn) in the last conv's epilogue
+    return L.apply_conv_bn(y, p[last], residual=idn, path=path + (last,), space=out, **kw)
 
 
 def _stride(s: int, b: int) -> int:
@@ -226,7 +226,7 @@ def _apply_resnet_decoder(params, feats, taps, cfg, *, train, stats, lv):
     1024, the decoder levels and the head, from the encoder's features
     and taps at ``lv``, the encoder's output level (None unsharded)."""
     x1, x3, x4, x5, x6 = taps
-    x7 = B.conv2d(feats, params["conv2"].w, bias=params["conv2"].b)  # 1x1: local
+    x7 = L.apply_conv_bn(feats, params["conv2"], act=None)  # 1x1: local
     dec = params["decoder"]
     if cfg.skip is None:
         return B.to_nhwc(D.apply_decoder(dec, cfg.decoder, x7, train=train,

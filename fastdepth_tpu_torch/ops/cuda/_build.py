@@ -157,8 +157,13 @@ def function(name: str, argtypes) -> ctypes._CFuncPtr:
 
 
 def load() -> ctypes.CDLL:
-    """The kernels' library, built if needed, loaded once per process."""
+    """The kernels' library, built if needed, loaded once per process.
+    Loaded as a ``PyDLL``, whose calls keep the GIL, as ATen's launches
+    do: every entry only queues work on a stream, and a ``CDLL`` call
+    gives the GIL up and waits to take it back, up to the interpreter's
+    switch interval (5 ms) where another Python thread runs, as the
+    server's reader and writer do."""
     global _LIB
     if _LIB is None:
-        _LIB = ctypes.CDLL(build()[0])
+        _LIB = ctypes.PyDLL(build()[0])
     return _LIB
