@@ -166,19 +166,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    reduced sweep (the flagship with its 'mixed' row from the committed
    tuning/h100.* record, and mobilenet-nnconv5; b1, b32; both dtypes),
    and cli.visualize's PNGs;
-17. bench: python -m fastdepth_tpu_torch.bench (the root bench.py's rows
-   and JSON line on the card) in a fresh process, its line printed and
-   checked (bench.py's keys, every required row a positive number, no
-   error row), K1's and K4's launches over one forward of its bf16
-   'pallas' b32 row (5 and 1), each held against its plain version on
-   its own operands, and a second run killed with SIGTERM once its first
-   row is measured (exit 124, one JSON line with 'aborted' and that row);
-18. graft: fastdepth_tpu_torch/graft_entry.py (the root
+17. graft: fastdepth_tpu_torch/graft_entry.py (the root
    __graft_entry__.py's entry points): entry()'s forward on the card
    against the CPU's within 1e-3 * max(1, max|cpu|), dryrun_multichip(1)
    over NCCL at world 1, and dryrun_multichip(4, device='cpu') over four
    gloo ranks on the CPU (a 1 x 4 (data, space) mesh included);
-19. scripts: every module of fastdepth_tpu_torch/scripts/ (the port's
+18. scripts: every module of fastdepth_tpu_torch/scripts/ (the port's
    counterparts of the measurement scripts) through its main at reduced
    length (soaks of 0.25 min, 512 frames a chain case, depths 1, 8, 32, a
    5-step train sweep, 64 host items, a 2-epoch rehearsal over 64 items,
@@ -188,7 +181,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    once a forward on the serving modules and the fused b1 rows; the soak
    server's and the chain servers' first answers against the bf16 fused
    forward of the same frame within 2^-7 + 2^-10 of its scale;
-20. prints each phase's seconds, the kernels' JSON line, then the
+19. prints each phase's seconds, the kernels' JSON line, then the
    result line.
 
 Nothing here, and nothing of the port it drives, imports JAX or the JAX
@@ -201,6 +194,7 @@ import contextlib
 import cProfile
 import ctypes
 import io
+import itertools
 import json
 import os
 import pstats
@@ -217,6 +211,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 WEIGHTS = os.path.join(REPO, "docs", "rehearsal_model_r5.npz")
 BATCH = 8
 DEPLOY_BATCH = 1  # the deploy runner's forward
+FLAGSHIP_BATCH = 128  # the benchmark's flagship cell, fastdepth.batch-b128
 E2E_BATCHES = 4
 STAGES_PER_FORWARD = 5
 # compile_forward's runs of the forward on CUDA beyond its warm run: the
@@ -319,8 +314,10 @@ def _head_sets(n, h, c, dtype, copies, seed=1):
 def kernel_phase() -> dict:
     """K1-K3 at every decoder level of the flagship (and the unpruned
     model's first), each at the images per block its forward gives that
-    level, at the eval path's batch; K1 also at the deploy path's batch
-    1, whose launch geometry differs; K4 at the heads.  Each is held
+    level, at the eval path's batch; K1 also at the flagship cell's batch
+    128 and the deploy path's batch 1, since its launch geometry
+    (threads, split-C groups, C chunk) follows the batch; K4 at the heads
+    at the eval path's batch and the flagship cell's.  Each is held
     against its plain version (``engine.benchmark.tolerance``) and timed
     with the L2 cold; K1-K3 through ``cli.bench_decoder.level_row``.
     Returns per kernel: the worst f32 error, and the f32 times and bound
@@ -335,9 +332,9 @@ def kernel_phase() -> dict:
     from fastdepth_tpu_torch.ops.cuda import head as K4
 
     stage_kernels = [
-        ("K1", K1, K1.fused_decoder_stage, {}, (BATCH, DEPLOY_BATCH)),
-        ("K2", K2, K2.fused_decoder_stage_hwbc, F.V2_BLOCK_BATCHES, (BATCH,)),
-        ("K3", K3, K3.fused_decoder_stage_v3, F.V3_BLOCK_BATCHES, (BATCH,)),
+        ("K1", K1.fused_decoder_stage, {}, (BATCH, FLAGSHIP_BATCH, DEPLOY_BATCH)),
+        ("K2", K2.fused_decoder_stage_hwbc, F.V2_BLOCK_BATCHES, (BATCH,)),
+        ("K3", K3.fused_decoder_stage_v3, F.V3_BLOCK_BATCHES, (BATCH,)),
     ]
     keys = ("ms", "plain_ms", "events_ms", "plain_events_ms", "bound_ms")
     out = {k: {"max_abs_err": 0.0, **{key: 0.0 for key in keys}, "bound_terms": {},
@@ -369,7 +366,7 @@ def kernel_phase() -> dict:
                 row["bound_terms"][r["bound_by"]] = (row["bound_terms"].get(r["bound_by"], 0.0)
                                                      + r["bound_us"])
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        for label, mod, fn, bbs, batches in stage_kernels:
+        for label, fn, bbs, batches in stage_kernels:
             for level, h, c, cout, skip in LEVELS:
                 which, index = level[:-1], int(level[-1])
                 kwargs = {"block_batch": bbs[index]} if bbs else {}
@@ -377,18 +374,19 @@ def kernel_phase() -> dict:
                     print(f"{label} {name} b{n} {level} launch: "
                           + format_geometry(geometry(label, n, h, c, cout, name,
                                                      kwargs.get("block_batch"))))
-                    r = level_row(level, n, h, c, cout, skip, name, kernel=(mod, fn), **kwargs)
+                    r = level_row(level, n, h, c, cout, skip, name, kernel=(label, fn), **kwargs)
                     record(label, r, which == "pruned" and n == BATCH, dtype=name, batch=n,
                            model=which, H=h, C=c, Cout=cout, skip=skip, **kwargs)
-        for which, h, c in HEADS:
+        for (which, h, c), n in itertools.product(HEADS, (BATCH, FLAGSHIP_BATCH)):
             elem = torch.finfo(dtype).bits // 8
-            px = BATCH * h * h
-            sets = _head_sets(BATCH, h, c, dtype, cold_copies(elem * px * (c + 1)))
+            px = n * h * h
+            sets = _head_sets(n, h, c, dtype, cold_copies(elem * px * (c + 1)))
             r = compare_and_time(K4.pointwise_head, K4.pointwise_head_reference, sets,
-                                 counter=K4)
+                                 counter="K4")
             r["bound_us"], r["bound_by"] = bound_us(elem * (px * (c + 1) + c + 1),
                                                     2 * px * c + 2 * px)
-            record("K4", r, which == "pruned", dtype=name, batch=BATCH, model=which, H=h, C=c)
+            record("K4", r, which == "pruned" and n == BATCH, dtype=name, batch=n, model=which,
+                   H=h, C=c)
     for label, row in out.items():
         row["bound_by"] = max(row.pop("bound_terms").items(), key=lambda kv: kv[1])[0]
         print(f"{label} f32 b{BATCH} sum over the pruned flagship's "
@@ -464,9 +462,9 @@ def epilogue_rows() -> dict:
         with torch.inference_mode():
             for y, b, r, a in ops:
                 want = K7.conv_epilogue_reference(y, b, r, a)
-                before = K7.LAUNCHES
+                (before,) = _counts("K7")
                 got = K7.conv_epilogue(y.clone(), b, r, a)
-                if K7.LAUNCHES != before + 1 or not torch.equal(got, want):
+                if _counts("K7") != (before + 1,) or not torch.equal(got, want):
                     fail(f"K7 {name} b{batch} {dtype}: the epilogue of y{tuple(y.shape)} "
                          f"(residual {r is not None}, act {a}) is not its plain version bit "
                          f"for bit (max|diff| {float((got.float() - want.float()).abs().max())})")
@@ -544,13 +542,19 @@ def load_weights():
     return model, model.load(params_from_jax(tree))
 
 
-def _counts(*mods):
-    return tuple(m.LAUNCHES for m in mods)
+def _counts(*labels):
+    """The launches so far of the kernels ``labels`` ("K1" ... "K7"),
+    as ``ops/cuda/kernel.COUNTER`` counts them."""
+    from fastdepth_tpu_torch.ops.cuda.kernel import COUNTER
+
+    return tuple(COUNTER[k] for k in labels)
 
 
-def _reset(*mods):
-    for m in mods:
-        m.LAUNCHES = 0
+def _reset(*labels):
+    from fastdepth_tpu_torch.ops.cuda.kernel import COUNTER
+
+    for k in labels:
+        COUNTER[k] = 0
 
 
 def _check_k7(label: str, k7: int, forwards: int, per_forward: int = EPILOGUES_PER_FORWARD):
@@ -563,9 +567,6 @@ def _check_k7(label: str, k7: int, forwards: int, per_forward: int = EPILOGUES_P
 
 def e2e_phase(model, params) -> dict:
     from fastdepth_tpu_torch import OUTPUT_SIZE, RAW_SIZE, Evaluator, ValPipeline, validate
-    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import head as K4
 
     loader = _Frames(_frames(ValPipeline.create(raw_size=RAW_SIZE, output_size=OUTPUT_SIZE),
                              seed=0))
@@ -575,11 +576,11 @@ def e2e_phase(model, params) -> dict:
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         ev = Evaluator(model, params, batch_size=BATCH, dtype=dtype, impl="auto",
                        device="cuda")
-        _reset(K1, K4, K7)
+        _reset("K1", "K4", "K7")
         avg = validate(loader, ev, print_freq=0, make_images=False,
                        log=lambda s: print(s.strip().replace("\n", " ")))
         torch.cuda.synchronize()
-        k1, k4, k7 = _counts(K1, K4, K7)
+        k1, k4, k7 = _counts("K1", "K4", "K7")
         if (k1, k4) != (STAGES_PER_FORWARD * forwards, forwards):
             fail(f"{name}: K1 launched {k1} and K4 {k4} times over {forwards} forwards, "
                  f"want {STAGES_PER_FORWARD} and 1 per forward")
@@ -649,11 +650,6 @@ def forwards_phase(model, params) -> dict:
     (and the K1 and straight ones) per call, CUDA events."""
     from fastdepth_tpu_torch.engine.aot import _prepare
     from fastdepth_tpu_torch.models import fused as F
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder_hwbc as K2
-    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder_v3 as K3
-    from fastdepth_tpu_torch.ops.cuda import head as K4
 
     cfg = model.config
     rng = np.random.RandomState(2)
@@ -665,23 +661,23 @@ def forwards_phase(model, params) -> dict:
                         impl="xla", device="cuda")
         xd = x.to(dtype)
         forwards = {
-            "v2": (lambda: F.apply_fastdepth_fused_v2(p, xd, cfg), K2),
-            "v3": (lambda: F.apply_fastdepth_fused_v3(p, xd, cfg), K3),
-            "fused": (lambda: F.apply_fastdepth_fused(p, xd, cfg), K1),
+            "v2": (lambda: F.apply_fastdepth_fused_v2(p, xd, cfg), "K2"),
+            "v3": (lambda: F.apply_fastdepth_fused_v3(p, xd, cfg), "K3"),
+            "fused": (lambda: F.apply_fastdepth_fused(p, xd, cfg), "K1"),
             "straight": (lambda: model.apply(p, xd), None),
         }
         with torch.inference_mode():
             want = model.apply(p, xd).float()
             row = {}
-            for fwd, (fn, mod) in forwards.items():
-                if mod is not None and fwd != "fused":
-                    _reset(mod, K4, K7)
+            for fwd, (fn, stage) in forwards.items():
+                if stage is not None and fwd != "fused":
+                    _reset(stage, "K4", "K7")
                     for _ in range(runs):
                         got = fn().float()
                     torch.cuda.synchronize()
-                    launches = _counts(mod, K4)
-                    _check_k7(f"{fwd} {name}", K7.LAUNCHES, runs)
-                    if launches != (STAGES_PER_FORWARD * runs, runs):
+                    *launches, k7 = _counts(stage, "K4", "K7")
+                    _check_k7(f"{fwd} {name}", k7, runs)
+                    if launches != [STAGES_PER_FORWARD * runs, runs]:
                         fail(f"{fwd} {name}: launches {launches} over {runs} forwards, want "
                              f"{STAGES_PER_FORWARD} of the stage kernel and 1 of K4 each")
                     if tuple(got.shape) != (BATCH, *OUTPUT_HW, 1) or not torch.isfinite(got).all():
@@ -693,7 +689,7 @@ def forwards_phase(model, params) -> dict:
                     if dtype == torch.float32 and not err <= 1e-3:
                         fail(f"{fwd} forward disagrees with the straight forward: {err}")
                     row[fwd] = {"launches": launches[0], "k4_launches": launches[1],
-                                "k7_launches": K7.LAUNCHES, "forwards": runs,
+                                "k7_launches": k7, "forwards": runs,
                                 "max_abs_err_vs_straight": err}
                 row.setdefault(fwd, {})["forward_ms"] = _median_ms(lambda: fn(), ())
         print(f"forwards {name} b{BATCH}: {json.dumps(row)}")
@@ -712,9 +708,6 @@ def deploy_phase(model, params) -> dict:
     from fastdepth_tpu_torch.cli import deploy
     from fastdepth_tpu_torch.engine import aot
     from fastdepth_tpu_torch.engine.aot import compile_forward
-    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import head as K4
 
     rgb = np.random.RandomState(3).rand(*OUTPUT_HW, 3).astype(np.float32)
     # compile_forward's warm run, the saved prediction, then warmup + run
@@ -726,7 +719,7 @@ def deploy_phase(model, params) -> dict:
         np.save(in_fp, rgb)
         for name, extra in (("f32", []), ("bf16", ["--bf16"])):
             out_fp = os.path.join(tmp, f"pred_{name}.npy")
-            _reset(K1, K4, K7)
+            _reset("K1", "K4", "K7")
             aot.GRAPH_REPLAYS = 0
             log = io.StringIO()
             with contextlib.redirect_stdout(log):
@@ -736,7 +729,7 @@ def deploy_phase(model, params) -> dict:
             torch.cuda.synchronize()
             for line in log.getvalue().splitlines():
                 print(f"deploy {name}: {line}")
-            k1, k4, k7 = _counts(K1, K4, K7)
+            k1, k4, k7 = _counts("K1", "K4", "K7")
             replays = aot.GRAPH_REPLAYS
             # a replay runs K7 without its Python: the eager runs count
             _check_k7(f"deploy {name}", k7, calls + CAPTURE_RUNS - replays)
@@ -793,11 +786,10 @@ def fresh_deploy_f32(in_fp: str, out_fp: str, want: np.ndarray, extra=(),
             "before = flags()\n"
             "from fastdepth_tpu_torch.cli import deploy\n"
             "from fastdepth_tpu_torch.engine import aot\n"
-            "from fastdepth_tpu_torch.ops.cuda import epilogue as K7\n"
-            "from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1, head as K4\n"
+            "from fastdepth_tpu_torch.ops.cuda.kernel import COUNTER\n"
             f"deploy.main({argv!r})\n"
             "print('TF32 ' + json.dumps({'before': before, 'after': flags(),\n"
-            "                            'launches': [K1.LAUNCHES, K4.LAUNCHES, K7.LAUNCHES],\n"
+            "                            'launches': [COUNTER[k] for k in ('K1', 'K4', 'K7')],\n"
             "                            'replays': aot.GRAPH_REPLAYS}))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                        timeout=300)
@@ -841,9 +833,6 @@ def _serve_one(srv, tmp: str, name: str, inputs, lone_inputs,
     import threading
 
     from fastdepth_tpu_torch.engine.server import request, request_stream, serve_unix_socket
-    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import head as K4
 
     sock = os.path.join(tmp, f"{name}.sock")
     ready, stop = threading.Event(), threading.Event()
@@ -856,7 +845,7 @@ def _serve_one(srv, tmp: str, name: str, inputs, lone_inputs,
             fail(f"serve {name}: the socket never came up")
         request(sock, lone_inputs[0])  # warm-up: the first forward's set-up
         before = srv.stats()
-        _reset(K1, K4, K7)
+        _reset("K1", "K4", "K7")
         t0 = time.perf_counter()
         answers = list(request_stream(sock, inputs, depth=SERVE_DEPTH))
         stream_s = [time.perf_counter() - t0]
@@ -866,7 +855,7 @@ def _serve_one(srv, tmp: str, name: str, inputs, lone_inputs,
             lone.append(request(sock, x))
             lone_ms.append((time.perf_counter() - t0) * 1e3)
         torch.cuda.synchronize()
-        k1, k4, k7 = _counts(K1, K4, K7)
+        k1, k4, k7 = _counts("K1", "K4", "K7")
         after = srv.stats()
         for _ in range(SERVE_TIMED):
             t0 = time.perf_counter()
@@ -1053,9 +1042,6 @@ def tuned_phase(model, params, card: dict) -> dict:
     from fastdepth_tpu_torch import OUTPUT_SIZE, RAW_SIZE, Evaluator, ValPipeline, validate
     from fastdepth_tpu_torch.engine.autotune import load_tuning
     from fastdepth_tpu_torch.engine.server import InferenceServer
-    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import head as K4
 
     t_phase = time.perf_counter()
     out = {}
@@ -1078,10 +1064,10 @@ def tuned_phase(model, params, card: dict) -> dict:
             n_pallas = sum(w == "pallas" for w in winners.values())
             ev = Evaluator(model, params, batch_size=BATCH, dtype=dtype, impl="mixed",
                            tuning=maps[name], device="cuda")
-            _reset(K1, K4, K7)
+            _reset("K1", "K4", "K7")
             avg = validate(loader, ev, print_freq=0, make_images=False, log=lambda *a: None)
             torch.cuda.synchronize()
-            k1, k4, k7 = _counts(K1, K4, K7)
+            k1, k4, k7 = _counts("K1", "K4", "K7")
             if (k1, k4) != (n_pallas * forwards, forwards):
                 fail(f"{label}: K1 launched {k1} and K4 {k4} times over {forwards} forwards, "
                      f"want {n_pallas} (its 'pallas' levels) and 1 per forward")
@@ -1143,10 +1129,10 @@ def tuned_phase(model, params, card: dict) -> dict:
         try:
             srv.submit(frames[0]).result(timeout=60)  # warm-up
             before = srv.stats()["batches"]
-            _reset(K1, K4, K7)
+            _reset("K1", "K4", "K7")
             answers = np.stack([f.result(timeout=60) for f in [srv.submit(fr) for fr in frames]])
             torch.cuda.synchronize()
-            k1, k4, k7 = _counts(K1, K4, K7)
+            k1, k4, k7 = _counts("K1", "K4", "K7")
             batches = srv.stats()["batches"] - before
         finally:
             srv.close()
@@ -1182,18 +1168,17 @@ def _bundle_loads_in_a_fresh_process(runs, in_fp: str) -> dict:
             "def flags():\n"
             "    return [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]\n"
             "from fastdepth_tpu_torch.cli import deploy\n"
-            "from fastdepth_tpu_torch.ops.cuda import epilogue as K7\n"
-            "from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1, head as K4\n"
+            "from fastdepth_tpu_torch.ops.cuda.kernel import COUNTER\n"
             "out = {}\n"
             f"for name, prefix, out_fp in {[tuple(r) for r in runs]!r}:\n"
-            "    K1.LAUNCHES = K4.LAUNCHES = K7.LAUNCHES = 0\n"
+            "    COUNTER.clear()\n"
             "    before = flags()\n"
             "    deploy.main(['--load-bundle', prefix, '--input-fp', " + repr(in_fp) + ",\n"
             "                 '--output-fp', out_fp, '--warmup', '2', '--run', '5',\n"
             "                 '--device', 'cuda'])\n"
             "    torch.cuda.synchronize()\n"
             "    out[name] = {'tf32_before': before, 'tf32_after': flags(),\n"
-            "                 'launches': [K1.LAUNCHES, K4.LAUNCHES, K7.LAUNCHES]}\n"
+            "                 'launches': [COUNTER[k] for k in ('K1', 'K4', 'K7')]}\n"
             "print('BUNDLES ' + json.dumps(out))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                        timeout=300)
@@ -1223,17 +1208,19 @@ def _bundle_opchecks() -> dict:
             r0, _, o0, o1 = window
             x = x[:, :, r0:].contiguous(memory_format=torch.channels_last)
             sk = sk[:, :, o0:o1].contiguous(memory_format=torch.channels_last)
-        cases[name] = (K1, K1.STAGE_OP, (x, *w, sk, None if window is None else list(window)))
+        cases[name] = ("K1", K1.STAGE_OP.overload,
+                       (x, *w, sk, None if window is None else list(window)))
     y = torch.rand(1, 16, *OUTPUT_HW, device="cuda").contiguous(memory_format=torch.channels_last)
-    cases["K4 head"] = (K4, K4.HEAD_OP, (y, torch.randn(16, device="cuda"),
-                                         torch.randn(1, device="cuda")))
+    cases["K4 head"] = ("K4", K4.HEAD_OP.overload, (y, torch.randn(16, device="cuda"),
+                                                    torch.randn(1, device="cuda")))
     out = {}
-    for name, (mod, op, args) in cases.items():
-        before = mod.LAUNCHES
+    for name, (label, op, args) in cases.items():
+        (before,) = _counts(label)
         op(*args)
         torch.cuda.synchronize()
-        if mod.LAUNCHES != before + 1:
-            fail(f"bundle opcheck {name}: the op launched its kernel {mod.LAUNCHES - before} "
+        (after,) = _counts(label)
+        if after != before + 1:
+            fail(f"bundle opcheck {name}: the op launched its kernel {after - before} "
                  "times, want 1")
         try:
             result = torch.library.opcheck(op, args)
@@ -1261,8 +1248,8 @@ def _dispatch_cost(deploy_ms: float, card: dict) -> dict:
     x, w, _ = _k1_level_operands(1, 7, 512, 200, False, torch.float32, seed=15)
     y = torch.rand(1, 16, *OUTPUT_HW, device="cuda").contiguous(memory_format=torch.channels_last)
     hw, hb = torch.randn(16, device="cuda"), torch.randn(1, device="cuda")
-    cases = {"K1": (K1.STAGE_OP, K1._stage_cuda, (x, *w, None, None)),
-             "K4": (K4.HEAD_OP, K4._head_cuda, (y, hw, hb))}
+    cases = {"K1": (K1.STAGE_OP.overload, K1._stage_cuda, (x, *w, None, None)),
+             "K4": (K4.HEAD_OP.overload, K4._head_cuda, (y, hw, hb))}
     out = {}
     for name, (op, direct, args) in cases.items():
         us = {"op": [], "direct": []}
@@ -1307,9 +1294,6 @@ def bundle_phase(model, params, card: dict) -> dict:
     from fastdepth_tpu_torch.engine.aot import compile_forward, load_bundle, save_bundle
     from fastdepth_tpu_torch.engine.autotune import load_tuning
     from fastdepth_tpu_torch.engine.benchmark import time_fn
-    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import head as K4
 
     t_phase = time.perf_counter()
     rgb = np.random.RandomState(14).rand(*OUTPUT_HW, 3).astype(np.float32)
@@ -1365,10 +1349,10 @@ def bundle_phase(model, params, card: dict) -> dict:
         save_bundle(prefix, model, params, impl="mixed", tuning=hand, device="cuda")
         call, lp, _, _ = load_bundle(prefix, device="cuda")
         fn, p = compile_forward(model, params, impl="mixed", tuning=hand, device="cuda")
-        _reset(K1, K4, K7)
+        _reset("K1", "K4", "K7")
         got = call(lp, x)
         torch.cuda.synchronize()
-        k1, k4, k7 = _counts(K1, K4, K7)
+        k1, k4, k7 = _counts("K1", "K4", "K7")
         _check_k7("bundle mixed hand f32", k7, 1)
         err = float((got - fn(p, x)).abs().max())
         n_hand = sum(w == "pallas" for w in hand.values())
@@ -1384,10 +1368,10 @@ def bundle_phase(model, params, card: dict) -> dict:
         save_bundle(prefix, zmodel, zparams, device="cuda")
         call, lp, _, _ = load_bundle(prefix, device="cuda")
         fn, p = compile_forward(zmodel, zparams, device="cuda")
-        _reset(K1, K4, K7)
+        _reset("K1", "K4", "K7")
         got = call(lp, x)
         torch.cuda.synchronize()
-        k1, k4, k7 = _counts(K1, K4, K7)
+        k1, k4, k7 = _counts("K1", "K4", "K7")
         _check_k7("bundle resnet50-upproj f32", k7, 1, ZOO_EPILOGUES)
         want = fn(p, x)
         err = float((got - want).abs().max())
@@ -1565,7 +1549,6 @@ def _zoo_flagship(card: dict) -> dict:
     from fastdepth_tpu_torch.cli import deploy
     from fastdepth_tpu_torch.cli import train as train_cli
     from fastdepth_tpu_torch.config import TrainConfig
-    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
 
     model, params = _zoo_model("resnet50-upproj")
     out = {"params": sum(v.numel() for v in params.state_dict().values())}
@@ -1579,11 +1562,11 @@ def _zoo_flagship(card: dict) -> dict:
         ev = Evaluator(model, params, batch_size=BATCH, dtype=dtype, device="cuda")
         if next(ev.params.parameters()).device.type != "cuda":
             fail("zoo: the evaluator's params are not on the card")
-        _reset(K7)
+        _reset("K7")
         avg = validate(loader, ev, print_freq=0, make_images=False, log=lambda s: None)
         torch.cuda.synchronize()
-        _check_k7(f"zoo resnet50-upproj validate {name}", K7.LAUNCHES, len(loader.batches) + 1,
-                  ZOO_EPILOGUES)  # validate() warms up on its first batch
+        _check_k7(f"zoo resnet50-upproj validate {name}", *_counts("K7"),
+                  len(loader.batches) + 1, ZOO_EPILOGUES)  # validate() warms up on its first batch
         x, d = ev.put(rgb0), ev.put(depth0)
         pred, _ = ev(x, d)
         preds[name] = pred.cpu().numpy()
@@ -1688,9 +1671,6 @@ def _zoo_mobilenet_nnconv5(card: dict) -> dict:
     with K1 and K4 launched 0 times and K7 27 a forward (its encoder)."""
     from fastdepth_tpu_torch import OUTPUT_SIZE, RAW_SIZE, Evaluator, ValPipeline, validate
     from fastdepth_tpu_torch.models import fused as F
-    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import head as K4
 
     model, params = _zoo_model("mobilenet-nnconv5")
     loader = _Frames(_frames(ValPipeline.create(raw_size=RAW_SIZE, output_size=OUTPUT_SIZE),
@@ -1700,10 +1680,10 @@ def _zoo_mobilenet_nnconv5(card: dict) -> dict:
     F.apply_fastdepth_opt = lambda *a: calls.append(1) or opt(*a)
     try:
         ev = Evaluator(model, params, batch_size=BATCH, device="cuda")
-        _reset(K1, K4, K7)
+        _reset("K1", "K4", "K7")
         avg = validate(loader, ev, print_freq=0, make_images=False, log=lambda s: None)
         torch.cuda.synchronize()
-        k1, k4, k7 = _counts(K1, K4, K7)
+        k1, k4, k7 = _counts("K1", "K4", "K7")
         forwards, opt_forwards = E2E_BATCHES + 1, len(calls)
         _check_k7("zoo mobilenet-nnconv5", k7, forwards)
         if (opt_forwards, k1, k4) != (forwards, 0, 0):
@@ -1921,9 +1901,6 @@ def train_phase(model, params) -> dict:
     from fastdepth_tpu_torch.cli import train as train_cli
     from fastdepth_tpu_torch.config import TrainConfig
     from fastdepth_tpu_torch.models import layers as L
-    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import head as K4
     from fastdepth_tpu_torch.train import Trainer, sgd_init
     from fastdepth_tpu_torch.train.trainer import make_train_step
 
@@ -2003,13 +1980,13 @@ def train_phase(model, params) -> dict:
                  str(BATCH), "--workers", "4", "--print-freq", "0", "--output-dir", out_dir,
                  "--lr", str(TRAIN_LR), "--device", "cuda"] + extra)
             log = io.StringIO()
-            _reset(K1, K4, K7)
+            _reset("K1", "K4", "K7")
             with contextlib.redirect_stdout(log):
                 # no comparison PNGs: they need matplotlib
                 best = train_cli.train_loop(args, model, params, train_ds, val_ds,
                                             make_images=False)
             torch.cuda.synchronize()
-            k1, k4, k7 = _counts(K1, K4, K7)
+            k1, k4, k7 = _counts("K1", "K4", "K7")
             epochs = re.findall(r"=> epoch (\d+): train loss ([-\w.]+)", log.getvalue())
             print(f"train_loop {name}: epochs {epochs}; validate RMSE {best.rmse:.4f} delta1 "
                   f"{best.delta1:.4f}; K1 {k1}, K4 {k4}, K7 {k7} launches")
@@ -2183,9 +2160,6 @@ def input_phase(model, params, card: dict) -> dict:
     from fastdepth_tpu_torch.engine import evaluator as E
     from fastdepth_tpu_torch.engine.benchmark import bound_us, throughput_sweep, time_pipelined
     from fastdepth_tpu_torch.engine.staging import PinnedRing
-    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import head as K4
     from fastdepth_tpu_torch.scripts import probe_r5_device_gathers
     from fastdepth_tpu_torch.train import sgd_init
     from fastdepth_tpu_torch.train.trainer import make_train_step
@@ -2284,11 +2258,11 @@ def input_phase(model, params, card: dict) -> dict:
             ev_h = Evaluator(model, params, batch_size=BATCH, dtype=dtype, device="cuda")
             ev_d = Evaluator(model, params, batch_size=BATCH, dtype=dtype, device="cuda",
                              val_pipeline=val_raw.val_pipeline)
-            _reset(K1, K4, K7)
+            _reset("K1", "K4", "K7")
             avg_d = validate(raw_loader, ev_d, print_freq=0, make_images=False,
                              log=lambda s: None)
             torch.cuda.synchronize()
-            k1, k4, k7 = _counts(K1, K4, K7)
+            k1, k4, k7 = _counts("K1", "K4", "K7")
             _check_k7(f"device preprocessing {name}", k7, forwards)
             avg_h = validate(host_loader, ev_h, print_freq=0, make_images=False,
                              log=lambda s: None)
@@ -2739,8 +2713,6 @@ def mesh_phase(model, params, card: dict) -> dict:
 
     from fastdepth_tpu_torch import BatchLoader, Evaluator
     from fastdepth_tpu_torch.config import TrainConfig
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import head as K4
     from fastdepth_tpu_torch.parallel.distributed import init_group
     from fastdepth_tpu_torch.parallel.mesh import make_mesh
 
@@ -2781,11 +2753,11 @@ def mesh_phase(model, params, card: dict) -> dict:
             ev_m = Evaluator(model, params, batch_size=BATCH, mesh=mesh)
             ev_p = Evaluator(model, params, batch_size=BATCH, device="cuda")
             rows_m, rows_p = [], []
-            _reset(K1, K4)
+            _reset("K1", "K4")
             for rgb, depth, count in loader:
                 rows_m.append(ev_m.fetch(ev_m(ev_m.put(rgb), ev_m.put(depth))[1], dim=1))
             torch.cuda.synchronize()
-            k1, k4 = _counts(K1, K4)
+            k1, k4 = _counts("K1", "K4")
             for rgb, depth, count in loader:
                 rows_p.append(ev_p(ev_p.put(rgb), ev_p.put(depth))[1].cpu().numpy())
             forwards = len(rows_m)
@@ -3013,7 +2985,7 @@ def k1_window_checks(kernels: dict, card: dict) -> dict:
                                  s[5][:, :, o0:o1].contiguous(memory_format=torch.channels_last)
                                  if skip else None) for s in sets[:B.cold_copies(bytes_w)]]
                         r = B.compare_and_time(call, plain, [(tile, *w, sk_w)] + cold,
-                                               counter=K1)
+                                               counter="K1")
                         err, tol, ok = r["max_abs_err"], r["tol"], r["ok"]
                         rows = (o1 + 1) // 2 - o0 // 2
                         nbytes, core, tensor = B.stage_work(
@@ -3107,9 +3079,6 @@ def _space_serve(model, params, meshes: dict, card: dict, label: str = "",
     flagship: 5 and 1; ``label`` names another model in the printed
     lines)."""
     from fastdepth_tpu_torch.engine.server import InferenceServer
-    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import head as K4
 
     rng = np.random.RandomState(13)
     frames = [rng.rand(*OUTPUT_HW, 3).astype(np.float32) for _ in range(n_frames)]
@@ -3124,7 +3093,7 @@ def _space_serve(model, params, meshes: dict, card: dict, label: str = "",
             srv = servers[k]
             srv(frames[0])  # warm-up
             b0 = srv.stats()["batches"]
-            _reset(K1, K4)
+            _reset("K1", "K4")
             passes = []
             for _ in range(n_passes):
                 t0 = time.perf_counter()
@@ -3133,7 +3102,7 @@ def _space_serve(model, params, meshes: dict, card: dict, label: str = "",
                 answers.setdefault(k, got)
             fps[k].append(float(np.median(passes)))
             forwards = srv.stats()["batches"] - b0
-            k1, k4 = _counts(K1, K4)
+            k1, k4 = _counts("K1", "K4")
             if (k1, k4) != (launches[0] * forwards, launches[1] * forwards):
                 fail(f"space server{label} {k}: K1 {k1}, K4 {k4} launches over {forwards} "
                      "forwards")
@@ -3243,8 +3212,6 @@ def _space_zoo(meshes: dict, loader, card: dict) -> dict:
     times in turns, and the mesh servers (answers 0 apart)."""
     from fastdepth_tpu_torch import Evaluator
     from fastdepth_tpu_torch.engine.aot import _prepare
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import head as K4
 
     model, params = _zoo_model(SPACE_ZOO)
     label = f" {SPACE_ZOO}"
@@ -3259,10 +3226,10 @@ def _space_zoo(meshes: dict, loader, card: dict) -> dict:
         want = f0(p0, x)
     for k, m in meshes.items():
         ev_m = Evaluator(model, params, batch_size=BATCH, mesh=m)
-        _reset(K1, K4)
+        _reset("K1", "K4")
         rows_m = [ev_m.fetch(ev_m(ev_m.put(r), ev_m.put(d))[1], dim=1) for r, d, _ in loader]
         torch.cuda.synchronize()
-        k1, k4 = _counts(K1, K4)
+        k1, k4 = _counts("K1", "K4")
         apart = sum(int((~((a == b) | (np.isnan(a) & np.isnan(b)))).sum())
                     for a, b in zip(rows_m, rows_p))
         pm, fm = _prepare(model, params, batch_size=BATCH, dtype=torch.float32, fold_bn=True,
@@ -3351,8 +3318,6 @@ def space_phase(model, params, kernels: dict, card: dict) -> dict:
     import torch.distributed as dist
 
     from fastdepth_tpu_torch import BatchLoader, Evaluator
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import head as K4
     from fastdepth_tpu_torch.parallel.distributed import init_group
     from fastdepth_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
 
@@ -3374,11 +3339,11 @@ def space_phase(model, params, kernels: dict, card: dict) -> dict:
             out["eval"] = {}
             for k, m in meshes.items():
                 ev_m = Evaluator(model, params, batch_size=BATCH, mesh=m)
-                _reset(K1, K4)
+                _reset("K1", "K4")
                 rows_m = [ev_m.fetch(ev_m(ev_m.put(r), ev_m.put(d))[1], dim=1)
                           for r, d, _ in loader]
                 torch.cuda.synchronize()
-                k1, k4 = _counts(K1, K4)
+                k1, k4 = _counts("K1", "K4")
                 forwards = len(rows_m)
                 apart = sum(int((~((a == b) | (np.isnan(a) & np.isnan(b)))).sum())
                             for a, b in zip(rows_m, rows_p))
@@ -3420,16 +3385,15 @@ def probe_phase() -> dict:
     from fastdepth_tpu_torch.cli import probe as probe_cli
     from fastdepth_tpu_torch.engine import probes as P
     from fastdepth_tpu_torch.engine.benchmark import kernel_names, launch_floor_us
-    from fastdepth_tpu_torch.ops.cuda import probes as KP
 
     device = torch.device("cuda")
-    KP.COPY_LAUNCHES = KP.STAGE_LAUNCHES = 0
+    _reset("K5", "K6")
     for tag in P.PROBES:
         out = P.run(tag, device)
         torch.cuda.synchronize()
         if not torch.isfinite(out.float()).all():
             fail(f"probe {tag}: non-finite output")
-    launches = {"K5": KP.COPY_LAUNCHES, "K6": KP.STAGE_LAUNCHES}
+    launches = dict(zip(("K5", "K6"), _counts("K5", "K6")))
     want = {k: sum(p.kernel_name == k for p in P.PROBES.values()) for k in launches}
     if launches != want:
         fail(f"probe path: launches {launches}, want one per tag {want}")
@@ -3618,186 +3582,6 @@ def visualize_check(model, params) -> dict:
         fail(f"visualize: PNG shapes {sizes}")
     print(f"visualize: rgb, depth, pred PNGs written, each {OUTPUT_HW[0]}x{OUTPUT_HW[1]}x3")
     return sizes
-
-
-BENCH_TIMEOUT_S = 600  # the bench's own budget (BENCH_BUDGET_S) is 420 s
-BENCH_KILL_S = 120  # the killed bench: its first row's line, then its exit
-BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "best_config", "detail"]
-
-
-def _bench_row_faults(detail: dict) -> list:
-    """What is wrong with a bench line's rows: an ``error: ...`` row, a
-    required row (and its b1 latency) missing or not a positive number,
-    an optional row or the train row neither measured nor skipped over
-    the budget."""
-    from fastdepth_tpu_torch import bench
-
-    bad = [f"{k}: {v}" for k, v in detail.items()
-           if isinstance(v, str) and v.startswith("error:")]
-    for required, rows in ((True, bench.REQUIRED), (False, bench.OPTIONAL)):
-        for tag, _, _, batch in rows:
-            keys = [f"{tag}_b{batch}_fps"] + ([f"{tag}_b{batch}_latency_ms"] if batch == 1
-                                              else [])
-            if not required and f"skipped_{tag}_b{batch}" in detail:
-                continue
-            bad += [f"{k}: {detail.get(k)!r}" for k in keys
-                    if not isinstance(detail.get(k), (int, float)) or not detail[k] > 0]
-    train = f"{bench.TRAIN_TAG}_b{bench.TRAIN_BATCH}"
-    if f"skipped_{train}" not in detail and not (
-            isinstance(detail.get(f"{train}_fps"), (int, float)) and detail[f"{train}_fps"] > 0):
-        bad.append(f"{train}_fps: {detail.get(f'{train}_fps', detail.get(train))!r}")
-    return bad
-
-
-def _bench_launches() -> dict:
-    """K1's and K4's launches over one forward of the bench's bf16 'pallas'
-    row (the row function the CLI times: ``bench.row_forward`` on
-    ``bench.cast``'s copy), counted in this process after a warm-up call,
-    and each of those launches held against its kernel's plain version
-    on the launch's own operands on the card (``engine.benchmark.
-    tolerance``: bf16 2^-7 * max|plain|), since K1's launch geometry
-    (threads, split-C groups, C chunk) follows the batch, and b32 runs
-    nowhere else in this script."""
-    from fastdepth_tpu_torch import bench
-    from fastdepth_tpu_torch.engine.benchmark import tolerance
-    from fastdepth_tpu_torch.ops.cuda import epilogue as K7
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import head as K4
-
-    tag, dtype, impl, batch = next(r for r in bench.OPTIONAL if r[2] == "pallas")
-    model, params32 = bench.flagship()
-    params = bench.cast(model, params32, getattr(torch, dtype), "cuda")
-    fn = bench.row_forward(model, params, impl, batch)
-    x = torch.from_numpy(np.random.RandomState(0).rand(batch, *OUTPUT_HW, 3)).to(
-        "cuda", getattr(torch, dtype))
-    fn(params, x)
-    torch.cuda.synchronize()
-    calls = []
-    stage, head = K1._stage_cuda, K4._head_cuda
-
-    def kept(label, kernel, plain):
-        def launch(*args):
-            out = kernel(*args)
-            calls.append((label, plain, args, out.clone()))
-            return out
-        return launch
-    K1._stage_cuda = kept("K1", stage, K1.fused_decoder_stage_reference)
-    K4._head_cuda = kept("K4", head, K4.pointwise_head_reference)
-    try:
-        _reset(K1, K4, K7)
-        y = fn(params, x)
-        torch.cuda.synchronize()
-        k1, k4, k7 = _counts(K1, K4, K7)
-    finally:
-        K1._stage_cuda, K4._head_cuda = stage, head
-    _check_k7(f"bench {tag}_b{batch}", k7, 1)
-    print(f"bench {tag}_b{batch} row forward ({impl} -> {bench.PORT_IMPL[impl]}): K1 {k1}, "
-          f"K4 {k4} launches a forward")
-    if (k1, k4) != (STAGES_PER_FORWARD, 1):
-        fail(f"bench {tag}_b{batch}: K1 launched {k1} and K4 {k4} times a forward, want "
-             f"{STAGES_PER_FORWARD} and 1")
-    if tuple(y.shape) != (batch, *OUTPUT_HW, 1) or not torch.isfinite(y.float()).all():
-        fail(f"bench {tag}_b{batch}: forward {tuple(y.shape)}, finite "
-             f"{bool(torch.isfinite(y.float()).all())}")
-    err = {"K1": 0.0, "K4": 0.0}
-    with torch.inference_mode():
-        for label, plain, args, got in calls:
-            want = plain(*args)
-            diff, tol = float((got.float() - want.float()).abs().max()), tolerance(want)
-            print(f"bench {tag}_b{batch} {label} {dtype} {tuple(args[0].shape)} -> "
-                  f"{tuple(got.shape)}: max|kernel - plain| {diff:.3e} (bound {tol:.3e})")
-            if not diff <= tol:
-                fail(f"bench {tag}_b{batch}: {label} at {tuple(args[0].shape)} disagrees with "
-                     f"its plain version: max|diff| {diff} > {tol}")
-            err[label] = max(err[label], diff)
-    return {"K1": k1, "K4": k4, "K7": k7, "row": f"{tag}_b{batch}", "max_abs_err": err}
-
-
-def _bench_killed() -> dict:
-    """``python -m fastdepth_tpu_torch.bench`` sent SIGTERM once its first
-    row is measured (its first ``#   <row>: ... fps`` line): exit 124 and
-    one JSON line with ``aborted``, that row a positive number, the value
-    and best row its own, and the line's derived fields (``best_us_per_
-    frame``; the roofline ratios, since that row is ``bench.ROOFLINE_ROW``)
-    made inside the handler."""
-    import signal
-    import threading
-
-    from fastdepth_tpu_torch import bench
-
-    tag, _, _, batch = bench.REQUIRED[0]
-    row = f"{tag}_b{batch}"
-    t0 = time.perf_counter()
-    proc = subprocess.Popen([sys.executable, "-m", "fastdepth_tpu_torch.bench"], cwd=REPO,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    measured = threading.Event()
-    err = []
-
-    def watch():
-        for text in proc.stderr:
-            err.append(text)
-            if text.startswith(f"#   {row}: ") and " fps" in text:
-                measured.set()
-    reader = threading.Thread(target=watch, daemon=True)
-    reader.start()
-    try:
-        if not measured.wait(BENCH_KILL_S):
-            fail(f"bench: no '#   {row}: ... fps' line within {BENCH_KILL_S} s")
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(BENCH_KILL_S)
-        out = proc.stdout.read()
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    reader.join(BENCH_KILL_S)
-    lines = [s for s in out.splitlines() if s.strip()]
-    got = json.loads(lines[-1]) if lines else {}
-    detail = got.get("detail", {})
-    print(f"bench killed after its {row} row: exit {rc}, {len(lines)} stdout line(s), "
-          f"{time.perf_counter() - t0:.1f} s: {out.strip()}")
-    fps = detail.get(f"{row}_fps")
-    if (rc != 124 or len(lines) != 1 or "aborted" not in detail
-            or not isinstance(fps, (int, float)) or not fps > 0 or got.get("value") != fps
-            or got.get("best_config") != row or "best_us_per_frame" not in detail
-            or (row == bench.ROOFLINE_ROW
-                and not {"x_roofline_spec", "x_roofline_measured"} <= set(detail))):
-        fail(f"bench under SIGTERM after its {row} row: exit {rc}, stdout {out!r}, stderr "
-             f"{''.join(err)[-3000:]}")
-    return {"rc": rc, "line": got}
-
-
-def bench_phase(card: dict) -> dict:
-    """``python -m fastdepth_tpu_torch.bench`` (the port's counterpart of
-    the root bench.py) in a fresh process: its last stdout line, printed
-    here, has bench.py's keys, every required row a positive number, the
-    optional rows and the train row measured or skipped over the budget,
-    no ``error:`` row and a positive value; K1 5 and K4 1 launches over
-    the bf16 'pallas' row's forward, each held against its plain version
-    (:func:`_bench_launches`); and a second run killed with SIGTERM once
-    its first row is measured (:func:`_bench_killed`)."""
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "fastdepth_tpu_torch.bench"],
-                          capture_output=True, text=True, cwd=REPO, timeout=BENCH_TIMEOUT_S)
-    seconds = time.perf_counter() - t0
-    for text in proc.stderr.splitlines():
-        print(f"bench: {text}")
-    lines = proc.stdout.strip().splitlines()
-    if proc.returncode != 0 or not lines:
-        fail(f"bench exited {proc.returncode}: {proc.stdout[-2000:]}{proc.stderr[-3000:]}")
-    print(f"bench line on {card['nvidia_smi']} ({seconds:.1f} s): {lines[-1]}")
-    got = json.loads(lines[-1])
-    if list(got) != BENCH_KEYS:
-        fail(f"bench line keys {list(got)}, want bench.py's {BENCH_KEYS}")
-    bad = _bench_row_faults(got["detail"])
-    if bad or "aborted" in got["detail"] or not got["value"] > 0:
-        fail(f"bench rows: {bad}, value {got['value']}, detail {got['detail']}")
-    ratios = [k for k in ("x_roofline_spec", "x_roofline_measured") if k in got["detail"]]
-    print(f"bench: best row {got['best_config']} ({got['value']} frames/s); roofline fields "
-          + (", ".join(ratios) if ratios else "absent (bench.py's rule: only when "
-                                              "bf16_opt_b128 wins)"))
-    return {"line": got, "seconds": seconds, "launches": _bench_launches(),
-            "killed": _bench_killed()}
 
 
 def graft_phase(card: dict) -> dict:
@@ -4127,7 +3911,6 @@ def main() -> None:
     timed(space_phase, model, params, kernels, card)
     kernels.update(timed(probe_phase))
     timed(tools_phase, model, params, card)
-    bench = timed(bench_phase, card)
     timed(graft_phase, card)
     scripts = timed(scripts_phase, card)
     print(f"scripts_phase: {phase_s['scripts_phase']} s on {card['nvidia_smi']}")
@@ -4147,8 +3930,7 @@ def main() -> None:
     # over the f32 server's counted run (serve phase); mixed_launches: over
     # the hand-mixed map's f32 validate() (tuned phase: 3 'pallas' levels);
     # bundle_launches: over the f32 bundle's cli.deploy --load-bundle run in
-    # a fresh process (bundle phase: BUNDLE_LOAD_CALLS calls); bench_launches:
-    # over one forward of the bench's bf16 'pallas' b32 row (bench phase);
+    # a fresh process (bundle phase: BUNDLE_LOAD_CALLS calls);
     # scripts_launches: over the soak server's run (scripts phase)
     launches = {"K1": e2e["f32"]["launches"], "K2": fwd["f32"]["v2"]["launches"],
                 "K3": fwd["f32"]["v3"]["launches"], "K4": dep["f32"]["k4_launches"],
@@ -4160,7 +3942,6 @@ def main() -> None:
                       "K4": tuned["mixed hand f32"]["k4_launches"],
                       "K7": tuned["mixed hand f32"]["k7_launches"]}
     bundle_launches = dict(zip(("K1", "K4", "K7"), bundle["f32"]["launches"]))
-    bench_launches = {k: bench["launches"][k] for k in ("K1", "K4", "K7")}
     scripts_launches = {k: scripts["soak_server_r4"]["launches"][k] for k in ("K1", "K4")}
     print(f"chip_smoke: seconds by phase {json.dumps(phase_s)}")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s")
@@ -4177,7 +3958,6 @@ def main() -> None:
         **({"serve_launches": serve_launches[key]} if key in serve_launches else {}),
         **({"mixed_launches": mixed_launches[key]} if key in mixed_launches else {}),
         **({"bundle_launches": bundle_launches[key]} if key in bundle_launches else {}),
-        **({"bench_launches": bench_launches[key]} if key in bench_launches else {}),
         **({"scripts_launches": scripts_launches[key]} if key in scripts_launches else {}),
     } for key, name, source, replaces in KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -152,14 +152,14 @@ def stage_sets(n, h, c, cout, skip, dtype, copies, seed=0):
 
 
 def level_row(name, n, h, c, cout, skip, dtype_name, kernel=None, **kwargs):
-    """One level at batch ``n``: K1 (or ``kernel``, a ``(module, wrapper)``
+    """One level at batch ``n``: K1 (or ``kernel``, a ``(label, wrapper)``
     of the stage family, called with ``kwargs``) against
     ``fused_decoder_stage_reference`` on the same inputs, both timed with
     the L2 cold (:func:`engine.benchmark.compare_and_time`), beside the
     level's bound on the published rates."""
     from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
 
-    mod, fn = kernel or (K1, K1.fused_decoder_stage)
+    label, fn = kernel or ("K1", K1.fused_decoder_stage)
     dtype = DTYPES[dtype_name]
     elem = torch.finfo(dtype).bits // 8
     # K1-K3 put bf16's pointwise product on the tensor cores
@@ -171,7 +171,7 @@ def level_row(name, n, h, c, cout, skip, dtype_name, kernel=None, **kwargs):
     row = {"level": name, "dtype": dtype_name, "batch": n, "H": h, "C": c, "Cout": cout,
            "skip": skip, "bytes": nbytes, "core_flops": core, "tensor_flops": tensor,
            **B.compare_and_time(lambda *a: fn(*a, **kwargs),
-                                K1.fused_decoder_stage_reference, sets, counter=mod)}
+                                K1.fused_decoder_stage_reference, sets, counter=label)}
     row["bound_us"], row["bound_by"] = B.bound_us(nbytes, core, tensor)
     row["share_of_bound"] = row["bound_us"] / row["us"]
     return row
@@ -252,11 +252,11 @@ def main(argv=None) -> int:
     for dtype_name in args.dtypes:
         for n in args.batches:
             for label in args.kernel:
-                mod, fn, _ = stage_kernel(label)
+                _, fn, _ = stage_kernel(label)
                 for name, h, c, cout, skip in LEVELS:
                     bb = level_block_batch(label, name)
                     kwargs = {} if bb is None else {"block_batch": bb}
-                    r = level_row(name, n, h, c, cout, skip, dtype_name, kernel=(mod, fn),
+                    r = level_row(name, n, h, c, cout, skip, dtype_name, kernel=(label, fn),
                                   **kwargs)
                     r["kernel"] = label
                     r["geometry"] = geometry(label, n, h, c, cout, dtype_name, bb)

@@ -207,8 +207,8 @@ def compile_forward(
     two calls share an answer's memory, all three on the current stream
     and under a lock.  Any other call (another tree, another dtype, the
     CPU) runs the forward eagerly.  A replay does not run K1's and K4's
-    Python wrappers, so their ``LAUNCHES`` do not move: it counts in
-    :data:`GRAPH_REPLAYS` instead.
+    Python wrappers, so their counts in ``ops/cuda/kernel.COUNTER`` do not
+    move: it counts in :data:`GRAPH_REPLAYS` instead.
 
     A call of ``fn`` is one ``engine/profiler.STEP`` span; a replay is
     one ``engine/profiler.GRAPH`` span inside it."""

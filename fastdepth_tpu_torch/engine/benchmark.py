@@ -193,15 +193,17 @@ def compare_and_time(fn: Callable, plain: Callable, arg_sets: Sequence[tuple], *
     ``arg_sets``, which should hold :func:`cold_copies` distinct sets) and
     both CUDA-event times of pipelined calls on the first set (host launch
     time included where a call is shorter than it).  ``counter``, a
-    module with a ``LAUNCHES`` count, must rise by one on the checked
-    call: a wrapper that did not launch its kernel raises.  Needs a CUDA
-    device."""
+    kernel's label ("K1" ... "K7"), must rise by one in
+    ``ops/cuda/kernel.COUNTER`` on the checked call: a wrapper that did
+    not launch its kernel raises.  Needs a CUDA device."""
+    from fastdepth_tpu_torch.ops.cuda.kernel import COUNTER
+
     if not torch.cuda.is_available():
         raise RuntimeError("compare_and_time needs a CUDA device")
     with torch.inference_mode():
-        before = counter.LAUNCHES if counter is not None else 0
+        before = COUNTER[counter]
         got = fn(*arg_sets[0])
-        if counter is not None and counter.LAUNCHES != before + 1:
+        if counter is not None and COUNTER[counter] != before + 1:
             raise RuntimeError(f"{getattr(fn, '__name__', fn)} did not launch its kernel")
         want = plain(*arg_sets[0])
         torch.cuda.synchronize()

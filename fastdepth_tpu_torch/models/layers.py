@@ -30,6 +30,7 @@ from torch import nn
 
 from fastdepth_tpu_torch.ops import blocks as B
 from fastdepth_tpu_torch.ops.cuda import epilogue as E
+from fastdepth_tpu_torch.ops.cuda import kernel
 from fastdepth_tpu_torch.parallel import spatial as S
 
 
@@ -188,7 +189,7 @@ def _k7_act(x: torch.Tensor, p: ConvBN, act: Optional[Callable], train: bool,
     one dtype on a device of :data:`K7_DEVICES`."""
     code = _K7_ACTS.get(act, -1) if not train and space is None else -1
     b = p.b if code >= 0 and p.bn is None else None
-    if b is None or x.dtype not in E.DTYPES or x.device.type not in K7_DEVICES:
+    if b is None or x.dtype not in kernel.DTYPES or x.device.type not in K7_DEVICES:
         return None
     for t in (x, p.w, b, residual):
         if t is not None and (t.dtype != x.dtype or t.requires_grad):

@@ -15,18 +15,16 @@ sequence.  The CUDA source is ``fastdepth_tpu_torch/csrc/conv_epilogue.cu``
 conv through it where the conv's leaf is folded and the forward is for
 inference.
 
-Dispatch: K7 is the custom op ``fastdepth::conv_epilogue``, registered
-at import as K1's and K4's are: its CPU kernel is
+Dispatch: K7 is the custom op ``fastdepth::conv_epilogue``
+(``kernel.register``, at import, as K1's and K4's are): its CPU kernel is
 :func:`conv_epilogue_reference`, its CUDA kernel launches K7 into a new
-output or raises.  :func:`conv_epilogue` checks the operands, calls the op
-under a trace, and in eager mode runs the implementation directly, on
-CUDA writing ``y`` in place, inside the span ``fastdepth::conv_epilogue``
-(``engine/profiler.K7``).  :func:`launch` is the same call for
-``apply_conv_bn``, which has already checked what it routes: it checks
-only the layout.  ``LAUNCHES`` counts the launches of K7 and nothing
-else, in the Python that makes them: a replay of
-``engine/aot.compile_forward``'s CUDA graph runs its K7 launches without
-it.
+output or raises.  :func:`launch`, the entry ``apply_conv_bn`` calls,
+checks the layout and calls :data:`EPILOGUE_OP`, the op's eager
+dispatch: under a trace the op, in eager mode the implementation
+directly, on CUDA writing ``y`` in place, inside the span
+``fastdepth::conv_epilogue``.
+:func:`conv_epilogue` checks every operand first.  Its launches count
+under "K7" in ``kernel.COUNTER``.
 """
 
 from __future__ import annotations
@@ -36,12 +34,7 @@ from typing import Optional
 
 import torch
 
-from fastdepth_tpu_torch.engine.profiler import K7 as K7_SPAN
-from fastdepth_tpu_torch.engine.profiler import annotate
-from fastdepth_tpu_torch.ops.cuda import _build
-from fastdepth_tpu_torch.ops.cuda.fused_decoder import DTYPES, check_layout, use_plain_version
-
-LAUNCHES = 0
+from fastdepth_tpu_torch.ops.cuda import kernel
 
 # the activation after the epilogue's sums: K7's codes
 NONE, RELU, RELU6 = 0, 1, 2
@@ -81,12 +74,8 @@ def conv_epilogue(y: torch.Tensor, b: torch.Tensor, residual: Optional[torch.Ten
         raise ValueError(f"residual must be {tuple(y.shape)}, got {tuple(residual.shape)}")
     if act not in (NONE, RELU, RELU6):
         raise ValueError(f"act must be NONE, RELU or RELU6, got {act!r}")
-    _check(y, b, residual)
-    if torch.compiler.is_compiling():
-        return EPILOGUE_OP(y, b, residual, act)
-    cpu = not y.is_cuda and use_plain_version("K7", y)
-    with annotate(K7_SPAN):
-        return _epilogue_cpu(y, b, residual, act) if cpu else _launch(y, b, residual, act, y)
+    kernel.check_operands("K7", {"y": y, "residual": residual}, {"b": b})
+    return launch(y, b, residual, act)
 
 
 def launch(y: torch.Tensor, b: torch.Tensor, residual: Optional[torch.Tensor],
@@ -94,38 +83,16 @@ def launch(y: torch.Tensor, b: torch.Tensor, residual: Optional[torch.Tensor],
     """:func:`conv_epilogue` for ``models/layers.apply_conv_bn``, whose
     routing has checked the dtypes, the devices and the gradients: checks
     only that ``y`` and ``residual`` are channels_last (the ops' stated
-    layout; raises otherwise), then K7 in place on CUDA, the plain version
-    on the CPU."""
-    if torch.compiler.is_compiling():
-        return EPILOGUE_OP(y, b, residual, act)
-    if not y.is_contiguous(memory_format=torch.channels_last) or (
-            residual is not None and not residual.is_contiguous(memory_format=torch.channels_last)):
-        raise ValueError("K7 reads channels_last (NHWC) activations: y "
-                         f"{tuple(y.stride())}, residual "
-                         f"{None if residual is None else tuple(residual.stride())}")
-    with annotate(K7_SPAN):
-        return _launch(y, b, residual, act, y) if y.is_cuda else _epilogue_cpu(
-            y, b, residual, act)
-
-
-def _check(y, b, residual):
-    """``fused_decoder.check_operands``'s checks, written out for the
-    three operands (K7 runs once a conv, so its host time counts): one
-    dtype (f32 or bf16) and one device, channels_last activations (a
-    trace's strides are FakeTensor's guess: the CUDA kernel checks the
-    run's), a contiguous bias, no gradient."""
-    acts = (y,) if residual is None else (y, residual)
-    if y.dtype not in DTYPES or any(t.dtype != y.dtype for t in (b, *acts)):
-        raise ValueError("K7 takes float32 or bfloat16, one dtype for every operand; got "
-                         + ", ".join(str(t.dtype) for t in (*acts, b)))
-    if b.device != y.device or (residual is not None and residual.device != y.device):
-        raise ValueError("K7's operands must lie on one device")
-    if not torch.compiler.is_compiling():
-        check_layout({"y": y, "residual": residual})
-    if not b.is_contiguous():
-        raise ValueError("b must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (b, *acts)):
-        raise ValueError("K7 is inference-only: it has no backward")
+    layout; a trace's strides are FakeTensor's guess, which the op's CUDA
+    kernel checks at the run), then K7 in place on CUDA, the plain
+    version on the CPU (``kernel.Op``).  K7 runs once a conv, so the
+    layout is read directly, and ``kernel.check_layout`` names the
+    operand only where it fails."""
+    if not (y.is_contiguous(memory_format=torch.channels_last) and (
+            residual is None or residual.is_contiguous(memory_format=torch.channels_last))
+            or torch.compiler.is_compiling()):
+        kernel.check_layout({"y": y, "residual": residual})
+    return EPILOGUE_OP(y, b, residual, act)
 
 
 def _epilogue_cpu(y, b, residual, act):
@@ -137,8 +104,8 @@ def _epilogue_cuda(y, b, residual, act):
     """``fastdepth::conv_epilogue`` on CUDA: K7 into a new output, so the
     op writes none of its inputs.  The layout is checked again here,
     where a saved program's run reaches the kernel without the wrapper."""
-    check_layout({"y": y, "residual": residual})
-    return _launch(y, b, residual, act, _epilogue_fake(y, b, residual, act))
+    kernel.check_layout({"y": y, "residual": residual})
+    return _run(y, b, residual, act, _epilogue_fake(y, b, residual, act))
 
 
 # fd_conv_epilogue(y, out, b, residual, pixels, C, act, dtype, stream)
@@ -146,27 +113,14 @@ _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_i
                                      ctypes.c_void_p]
 
 
-def _launch(y, b, residual, act, out):
-    """One launch of K7 from ``y`` into ``out`` (``y`` itself in place) on
-    the current stream of ``y``'s device; the caller checked the
-    operands.  K7 runs once a conv, so the launch keeps its host time
-    short: the device is switched only where it is not already current,
-    and the stream is read as the raw handle (``torch.cuda.
-    current_stream(...).cuda_stream`` builds a Stream object: 7 us a
-    call on the card's host, against 0.2)."""
-    global LAUNCHES
-    dev = y.get_device()
-    if dev != torch._C._cuda_getDevice():  # torch.cuda.current_device() less its lazy init
-        with torch.cuda.device(dev):
-            return _launch(y, b, residual, act, out)
+def _run(y, b, residual, act, out=None):
+    """One launch of K7 from ``y`` into ``out`` (by default ``y``
+    itself, in place: the eager call's CUDA implementation); the caller
+    checked the operands."""
+    out = y if out is None else out
     N, C, H, W = y.shape
-    fn = _build.function("fd_conv_epilogue", _ARGTYPES)
-    err = fn(y.data_ptr(), out.data_ptr(), b.data_ptr(),
-             residual.data_ptr() if residual is not None else None,
-             N * H * W, C, act, DTYPES[y.dtype], torch._C._cuda_getCurrentRawStream(dev))
-    if err != 0:
-        raise RuntimeError(f"K7 launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    kernel.launch("K7", "fd_conv_epilogue", _ARGTYPES, (y, out, b, residual), N * H * W, C, act,
+                  kernel.DTYPES[y.dtype])
     return out
 
 
@@ -175,12 +129,6 @@ def _epilogue_fake(y, b, residual, act):
     return torch.empty_like(y, memory_format=torch.channels_last)
 
 
-# K7 as the custom op fastdepth::conv_epilogue, registered as K1's is
-# (ops/cuda/fused_decoder.py): the plain version on the CPU, K7 on CUDA,
-# a fake for torch.export's trace, no autograd.
-LIBRARY = torch.library.Library("fastdepth", "FRAGMENT")
-LIBRARY.define("conv_epilogue(Tensor y, Tensor b, Tensor? residual, int act) -> Tensor")
-LIBRARY.impl("conv_epilogue", _epilogue_cpu, "CPU")
-LIBRARY.impl("conv_epilogue", _epilogue_cuda, "CUDA")
-torch.library.register_fake("fastdepth::conv_epilogue", _epilogue_fake, lib=LIBRARY)
-EPILOGUE_OP = torch.ops.fastdepth.conv_epilogue.default
+EPILOGUE_OP = kernel.register(
+    "K7", "conv_epilogue(Tensor y, Tensor b, Tensor? residual, int act) -> Tensor",
+    _epilogue_cpu, _epilogue_cuda, _epilogue_fake, eager=_run)

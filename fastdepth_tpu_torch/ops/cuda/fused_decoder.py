@@ -30,17 +30,13 @@ only the input rows the window duplicates, so a window costs its share
 of the level and no padded copy of the skip.
 
 Dispatch: K1 is the custom op ``fastdepth::fused_decoder_stage``
-(``torch.library``, registered when this module is imported), so that
+(``kernel.register``, when this module is imported), so that
 ``torch.export`` records a level as one node (``engine/aot.save_bundle``).
 Its CPU kernel is :func:`fused_decoder_stage_reference`, the plain
 PyTorch version of the same math; its CUDA kernel launches K1 or raises;
 any other device raises.  :func:`fused_decoder_stage` checks the
-operands, then calls the op under a trace and the same implementation
-directly in eager mode.  ``LAUNCHES`` counts the launches of K1 and
-nothing else, in the Python that makes them: a replay of
-``engine/aot.compile_forward``'s CUDA graph runs its K1 launches without
-it, so a count through that forward is the capture's launches plus
-``engine.aot.GRAPH_REPLAYS`` times the forward's.
+operands, then calls :data:`STAGE_OP`, the op's eager dispatch; its
+launches count under "K1" in ``kernel.COUNTER``.
 """
 
 from __future__ import annotations
@@ -53,18 +49,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from fastdepth_tpu_torch.engine.profiler import K1 as K1_SPAN
-from fastdepth_tpu_torch.engine.profiler import annotate
-from fastdepth_tpu_torch.ops.cuda import _build
+from fastdepth_tpu_torch.ops.cuda import kernel
+from fastdepth_tpu_torch.ops.cuda.kernel import DTYPES, MAX_SMEM, SMEM_PER_SM, SMS
 
-LAUNCHES = 0
-
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_YZ = 65535
-
-SMS = 132  # an H100 SXM's streaming multiprocessors
-MAX_SMEM = 232448  # the most shared memory a Hopper block may have (227 KB)
-SMEM_PER_SM = 233472  # 228 KB an SM
 # K1-K3 take at most 128 registers a thread (__launch_bounds__(256, 2)),
 # so an SM's 64 K registers hold 512 / threads blocks of a launch
 REG_THREADS_PER_SM = 512
@@ -303,74 +291,22 @@ def check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, label, out_rows):
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    check_operands(label, {"x": x, "skip": skip},
-                   {"dw_w": dw_w, "dw_b": dw_b, "pw_w": pw_w, "pw_b": pw_b})
+    kernel.check_operands(label, {"x": x, "skip": skip},
+                          {"dw_w": dw_w, "dw_b": dw_b, "pw_w": pw_w, "pw_b": pw_b})
     return N, C, H, W, Cout
 
 
-def check_operands(label, activations, weights):
-    """The checks every kernel wrapper makes: one dtype (f32 or bf16) and
-    one device for all operands, channels_last activations, contiguous
-    weights, no gradient.  ``None`` operands are skipped."""
-    tensors = [t for t in (*activations.values(), *weights.values()) if t is not None]
-    dtype = tensors[0].dtype
-    if dtype not in DTYPES or any(t.dtype != dtype for t in tensors):
-        raise ValueError(
-            f"{label} takes float32 or bfloat16, one dtype for every operand; got "
-            + ", ".join(str(t.dtype) for t in tensors))
-    if any(t.device != tensors[0].device for t in tensors):
-        raise ValueError(f"{label}'s operands must lie on one device")
-    if not torch.compiler.is_compiling():
-        # a trace's strides are FakeTensor's guess, which for cuDNN's
-        # convolutions is not always the card's choice: the op's CUDA
-        # kernel checks the layout the run gives (check_layout)
-        check_layout(activations)
-    for name, t in weights.items():
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise ValueError(f"{label} is inference-only: it has no backward yet")
-
-
-def check_layout(activations):
-    """Raise unless every activation (``None`` skipped) is channels_last
-    contiguous (NHWC memory), as the kernels read it."""
-    for name, t in activations.items():
-        if t is not None and not t.is_contiguous(memory_format=torch.channels_last):
-            raise ValueError(f"{name} must be channels_last contiguous (NHWC memory)")
-
-
-def use_plain_version(label, x):
-    """A wrapper's dispatch: True for a CPU tensor (take the plain
-    version), False for a CUDA tensor (launch the kernel), raise for any
-    other device."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type != "cuda":
-        raise ValueError(f"{label} runs on CUDA devices (or the plain version on "
-                         f"the CPU), got a {x.device.type} tensor")
-    return False
-
-
 def launch_stage(entry, label, x, dw_w, dw_b, pw_w, pw_b, skip, out_rows, extra=()):
-    """Allocate a stage's output of ``out_rows`` rows and launch the C entry ``entry`` of K1-K3 (seven pointers, N, H, W, C,
-    Cout, the ``extra`` ints, dtype, stream) on the current stream; raise
-    on a non-zero CUDA error."""
+    """Allocate a stage's output of ``out_rows`` rows and launch the C
+    entry ``entry`` of K1-K3 on it (seven pointers, N, H, W, C, Cout, the
+    ``extra`` ints, dtype, stream; ``kernel.launch``)."""
     N, C, H, W = x.shape
     Cout = pw_w.shape[1]
-    fn = _build.function(entry, [ctypes.c_void_p] * 7 + [ctypes.c_int] * (6 + len(extra))
-                         + [ctypes.c_void_p])
     out = torch.empty((N, Cout, out_rows, 2 * W),
                       dtype=x.dtype, device=x.device, memory_format=torch.channels_last)
-    with torch.cuda.device(x.device):
-        err = fn(
-            x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(),
-            pw_b.data_ptr(), skip.data_ptr() if skip is not None else None,
-            out.data_ptr(), N, H, W, C, Cout, *extra, DTYPES[x.dtype],
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"{label} launch failed: CUDA error {err}")
+    kernel.launch(label, entry, [ctypes.c_void_p] * 7 + [ctypes.c_int] * (6 + len(extra))
+                  + [ctypes.c_void_p], (x, dw_w, dw_b, pw_w, pw_b, skip, out),
+                  N, H, W, C, Cout, *extra, DTYPES[x.dtype])
     return out
 
 
@@ -391,17 +327,13 @@ def fused_decoder_stage(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
     (``torch.export``, ``torch.compile``) the call goes through the custom
     op ``fastdepth::fused_decoder_stage`` (:data:`STAGE_OP`), one node in
     the graph; an eager call goes straight to the op's implementation
-    for its device, without the dispatcher's host time (PERF.md §6),
-    inside a profiler span of the op's name (``engine/profiler.K1``)."""
+    for its device inside a profiler span of the op's name
+    (``kernel.Op``)."""
     rows = x.shape[-2]
-    window = (0, rows, 0, 2 * rows) if window is None else tuple(int(v) for v in window)
+    window = [0, rows, 0, 2 * rows] if window is None else [int(v) for v in window]
     check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, "K1", window[3] - window[2])
     window_rows(window, rows)
-    if torch.compiler.is_compiling():
-        return STAGE_OP(x, dw_w, dw_b, pw_w, pw_b, skip, list(window))
-    impl = _stage_cpu if use_plain_version("K1", x) else _stage_cuda
-    with annotate(K1_SPAN):
-        return impl(x, dw_w, dw_b, pw_w, pw_b, skip, window)
+    return STAGE_OP(x, dw_w, dw_b, pw_w, pw_b, skip, window)
 
 
 def _stage_cpu(x, dw_w, dw_b, pw_w, pw_b, skip, window):
@@ -413,8 +345,7 @@ def _stage_cuda(x, dw_w, dw_b, pw_w, pw_b, skip, window):
     """``fastdepth::fused_decoder_stage`` on CUDA: one launch of K1.  The
     caller checked the operands; the layout is checked again here, where
     a saved program's run reaches the kernel without the wrapper."""
-    global LAUNCHES
-    check_layout({"x": x, "skip": skip})
+    kernel.check_layout({"x": x, "skip": skip})
     N, C, H, W = x.shape
     Cout = pw_w.shape[1]
     window = (0, H, 0, 2 * H) if window is None else window
@@ -422,11 +353,9 @@ def _stage_cuda(x, dw_w, dw_b, pw_w, pw_b, skip, window):
     g = launch_geometry(N, c1 - c0, W, C, Cout, x.dtype)
     if g.grid[0] >= 2 ** 31 or g.grid[1] > _MAX_GRID_YZ:
         raise ValueError(f"K1's grid {g.grid} is too large for one launch")
-    out = launch_stage("fd_fused_decoder_stage", "K1", x, dw_w, dw_b, pw_w, pw_b, skip,
-                       window[3] - window[2], extra=(g.threads, g.tile_h, g.tile_w,
-                                                     g.cout_tile, g.chunk, g.groups, *window))
-    LAUNCHES += 1
-    return out
+    return launch_stage("fd_fused_decoder_stage", "K1", x, dw_w, dw_b, pw_w, pw_b, skip,
+                        window[3] - window[2], extra=(g.threads, g.tile_h, g.tile_w,
+                                                      g.cout_tile, g.chunk, g.groups, *window))
 
 
 def _stage_fake(x, dw_w, dw_b, pw_w, pw_b, skip, window):
@@ -436,15 +365,6 @@ def _stage_fake(x, dw_w, dw_b, pw_w, pw_b, skip, window):
                        device=x.device, memory_format=torch.channels_last)
 
 
-# K1 as the custom op fastdepth::fused_decoder_stage, registered when this
-# module is imported: the plain version on the CPU, K1 on CUDA, and a fake
-# (shapes, dtype and strides only) for torch.export's trace; no autograd
-# (the TPU kernel has no VJP either).  LIBRARY must stay referenced: the
-# registrations go with it.
-LIBRARY = torch.library.Library("fastdepth", "FRAGMENT")
-LIBRARY.define("fused_decoder_stage(Tensor x, Tensor dw_w, Tensor dw_b, Tensor pw_w, "
-               "Tensor pw_b, Tensor? skip, int[]? window) -> Tensor")
-LIBRARY.impl("fused_decoder_stage", _stage_cpu, "CPU")
-LIBRARY.impl("fused_decoder_stage", _stage_cuda, "CUDA")
-torch.library.register_fake("fastdepth::fused_decoder_stage", _stage_fake, lib=LIBRARY)
-STAGE_OP = torch.ops.fastdepth.fused_decoder_stage.default
+STAGE_OP = kernel.register(
+    "K1", "fused_decoder_stage(Tensor x, Tensor dw_w, Tensor dw_b, Tensor pw_w, Tensor pw_b, "
+    "Tensor? skip, int[]? window) -> Tensor", _stage_cpu, _stage_cuda, _stage_fake)

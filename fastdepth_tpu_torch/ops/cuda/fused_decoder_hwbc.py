@@ -15,7 +15,8 @@ in closed form, K1's rules over image groups.
 
 Dispatch: a CPU tensor takes the plain version (K1's,
 :func:`fused_decoder_stage_reference`); a CUDA tensor launches K2 or
-raises.  ``LAUNCHES`` counts the launches of K2 and nothing else.
+raises (``kernel.use_plain_version``).  Its launches count under "K2" in
+``kernel.COUNTER``.
 """
 
 from __future__ import annotations
@@ -25,15 +26,13 @@ from typing import Optional
 import torch
 
 from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+from fastdepth_tpu_torch.ops.cuda import kernel
 from fastdepth_tpu_torch.ops.cuda.fused_decoder import (
     Geometry,
     check_stage,
     fused_decoder_stage_reference,
     launch_stage,
-    use_plain_version,
 )
-
-LAUNCHES = 0
 
 MAX_BLOCK_BATCH = 8  # the kernels take image groups of 1, 2, 4 or 8
 
@@ -73,15 +72,12 @@ def fused_decoder_stage_hwbc(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Te
     Operands and result as :func:`fused_decoder.fused_decoder_stage`.  On
     the CPU this is the plain version; on a CUDA tensor it launches K2 or
     raises."""
-    global LAUNCHES
     N, C, H, W, Cout = check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, "K2", 2 * x.shape[-2])
     kernel_block_batch(block_batch, N)
-    if use_plain_version("K2", x):
+    if kernel.use_plain_version("K2", x):
         return fused_decoder_stage_reference(x, dw_w, dw_b, pw_w, pw_b, skip)
     g = launch_geometry(N, H, W, C, Cout, x.dtype, block_batch)
     if g.grid[0] >= 2 ** 31 or g.grid[1] > 65535:
         raise ValueError(f"K2's grid {g.grid} is too large for one launch")
-    out = launch_stage("fd_fused_decoder_stage_hwbc", "K2", x, dw_w, dw_b, pw_w, pw_b, skip,
-                       2 * H, extra=launch_args(g))
-    LAUNCHES += 1
-    return out
+    return launch_stage("fd_fused_decoder_stage_hwbc", "K2", x, dw_w, dw_b, pw_w, pw_b, skip,
+                        2 * H, extra=launch_args(g))

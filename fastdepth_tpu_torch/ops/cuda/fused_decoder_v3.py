@@ -16,7 +16,8 @@ computes.  Same function, operands and layouts as K1
 
 Dispatch: a CPU tensor takes the plain version (K1's,
 :func:`fused_decoder_stage_reference`); a CUDA tensor launches K3 or
-raises.  ``LAUNCHES`` counts the launches of K3 and nothing else.
+raises (``kernel.use_plain_version``).  Its launches count under "K3" in
+``kernel.COUNTER``.
 """
 
 from __future__ import annotations
@@ -26,16 +27,14 @@ from typing import Optional
 import torch
 
 from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+from fastdepth_tpu_torch.ops.cuda import kernel
 from fastdepth_tpu_torch.ops.cuda.fused_decoder import (
     Geometry,
     check_stage,
     fused_decoder_stage_reference,
     launch_stage,
-    use_plain_version,
 )
 from fastdepth_tpu_torch.ops.cuda.fused_decoder_hwbc import kernel_block_batch, launch_args
-
-LAUNCHES = 0
 
 
 def launch_geometry(N: int, H: int, W: int, C: int, Cout: int, dtype: torch.dtype,
@@ -51,7 +50,7 @@ def launch_geometry(N: int, H: int, W: int, C: int, Cout: int, dtype: torch.dtyp
 def resident_blocks(g: Geometry) -> int:
     """The blocks the card holds at once for launch ``g``: the SMs times
     the blocks an SM holds, by registers and shared memory."""
-    return K1.SMS * g.per_sm
+    return kernel.SMS * g.per_sm
 
 
 def fused_decoder_stage_v3(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
@@ -66,17 +65,14 @@ def fused_decoder_stage_v3(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tens
     each block walk more items).  Operands and result as
     :func:`fused_decoder.fused_decoder_stage`.  On the CPU this is the
     plain version; on a CUDA tensor it launches K3 or raises."""
-    global LAUNCHES
     N, C, H, W, Cout = check_stage(x, dw_w, dw_b, pw_w, pw_b, skip, "K3", 2 * x.shape[-2])
     kernel_block_batch(block_batch, N)
     if blocks is not None and blocks < 1:
         raise ValueError(f"blocks must be at least 1, got {blocks}")
-    if use_plain_version("K3", x):
+    if kernel.use_plain_version("K3", x):
         return fused_decoder_stage_reference(x, dw_w, dw_b, pw_w, pw_b, skip)
     g = launch_geometry(N, H, W, C, Cout, x.dtype, block_batch)
     if g.blocks >= 2 ** 31:
         raise ValueError(f"K3's {g.blocks} work items are too many for one launch")
-    out = launch_stage("fd_fused_decoder_stage_v3", "K3", x, dw_w, dw_b, pw_w, pw_b, skip,
-                       2 * H, extra=(*launch_args(g), blocks or resident_blocks(g)))
-    LAUNCHES += 1
-    return out
+    return launch_stage("fd_fused_decoder_stage_v3", "K3", x, dw_w, dw_b, pw_w, pw_b, skip,
+                        2 * H, extra=(*launch_args(g), blocks or resident_blocks(g)))

@@ -29,8 +29,8 @@ The probes' catalogue, with the scripts' inputs, is
 
 Dispatch: a CPU tensor takes the plain version
 (:func:`staged_copy_reference`, :func:`staged_compute_reference`); a CUDA
-tensor launches the kernel or raises.  ``COPY_LAUNCHES`` and
-``STAGE_LAUNCHES`` count the launches of K5 and K6 and nothing else.
+tensor launches the kernel or raises (``kernel.use_plain_version``).
+Their launches count under "K5" and "K6" in ``kernel.COUNTER``.
 """
 
 from __future__ import annotations
@@ -42,12 +42,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from fastdepth_tpu_torch.ops.cuda import _build
-from fastdepth_tpu_torch.ops.cuda.fused_decoder import (DTYPES, MAX_SMEM, SMEM_PER_SM, SMS,
-                                                        use_plain_version)
-
-COPY_LAUNCHES = 0
-STAGE_LAUNCHES = 0
+from fastdepth_tpu_torch.ops.cuda import kernel
+from fastdepth_tpu_torch.ops.cuda.kernel import DTYPES, MAX_SMEM, SMEM_PER_SM, SMS
 
 SMEM_BYTES = MAX_SMEM  # the shared memory a block can use on the H100 (227 KB)
 MODES = ("matmul", "matmul_up", "taps", "up_only")
@@ -140,6 +136,13 @@ def staged_copy_reference(x: torch.Tensor, scale: float = 2.0,
     return y.to(x.dtype)
 
 
+# fd_staged_copy(x, out, rows, row_len, chunk, scale, bcast_c, depth, prefetch,
+# blocks, dtype, stream)
+_COPY_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
+                  ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
 def staged_copy(x: torch.Tensor, *, scale: float = 2.0, chunk_bytes: Optional[int] = None,
                 depth: int = 2, prefetch: bool = True, bcast_c0: bool = False,
                 blocks: Optional[int] = None) -> torch.Tensor:
@@ -151,7 +154,6 @@ def staged_copy(x: torch.Tensor, *, scale: float = 2.0, chunk_bytes: Optional[in
     pass a small grid so that one block walks several items through its
     ring).  On the CPU this is the plain version; on a CUDA tensor it
     launches K5 or raises."""
-    global COPY_LAUNCHES
     if x.dtype not in DTYPES:
         raise ValueError(f"K5 takes float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
@@ -160,22 +162,13 @@ def staged_copy(x: torch.Tensor, *, scale: float = 2.0, chunk_bytes: Optional[in
         raise ValueError(f"blocks must be at least 1, got {blocks}")
     plan = plan_copy(x.shape, x.element_size(), chunk_bytes=chunk_bytes, depth=depth,
                      prefetch=prefetch, bcast_c0=bcast_c0)
-    if use_plain_version("K5", x):
+    if kernel.use_plain_version("K5", x):
         return staged_copy_reference(x, scale, bcast_c0)
     out = torch.empty_like(x)
-    fn = _build.function("fd_staged_copy", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
     if blocks is None:
         blocks = resident_copy_blocks(depth, plan.chunk * x.element_size())
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), out.data_ptr(), plan.rows, plan.row_len, plan.chunk, scale,
-                 plan.bcast_c, depth, int(prefetch), blocks, DTYPES[x.dtype],
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"K5 launch failed: CUDA error {err}")
-    COPY_LAUNCHES += 1
+    kernel.launch("K5", "fd_staged_copy", _COPY_ARGTYPES, (x, out), plan.rows, plan.row_len,
+                  plan.chunk, scale, plan.bcast_c, depth, int(prefetch), blocks, DTYPES[x.dtype])
     return out
 
 
@@ -285,7 +278,6 @@ def staged_compute(x: torch.Tensor, w: Optional[torch.Tensor], mode: str) -> tor
     (``matmul``), ``(N, 2H, 2W, Cout)`` (``matmul_up``), ``(N, H, W, C)``
     (``taps``) or ``(N, 2H, 2W, C)`` (``up_only``).  On the CPU this is
     the plain version; on a CUDA tensor it launches K6 or raises."""
-    global STAGE_LAUNCHES
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if x.dim() != 4:
@@ -307,17 +299,11 @@ def staged_compute(x: torch.Tensor, w: Optional[torch.Tensor], mode: str) -> tor
         raise ValueError("K6's operands must lie on one device")
     Cout = w.shape[1] if matmul else C
     g = stage_geometry(mode, N, H, W, C, Cout)
-    if use_plain_version("K6", x):
+    if kernel.use_plain_version("K6", x):
         return staged_compute_reference(x, w, mode)
     hw = (2 * H, 2 * W) if mode in ("matmul_up", "up_only") else (H, W)
     out = torch.empty((N, *hw, Cout), dtype=x.dtype, device=x.device)
-    fn = _build.function("fd_staged_compute", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
-                         + [ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr() if matmul else None, out.data_ptr(), N, H, W, C,
-                 Cout, MODES.index(mode), g.tile_m, g.tile_n, g.threads,
-                 torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"K6 launch failed: CUDA error {err}")
-    STAGE_LAUNCHES += 1
+    kernel.launch("K6", "fd_staged_compute", [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9
+                  + [ctypes.c_void_p], (x, w if matmul else None, out), N, H, W, C, Cout,
+                  MODES.index(mode), g.tile_m, g.tile_n, g.threads)
     return out

@@ -127,10 +127,9 @@ def kernel_counts():
     and nothing is captured).  A replay runs K1 and K4 without their
     wrappers, which count the launches."""
     from fastdepth_tpu_torch.engine import aot
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import head as K4
+    from fastdepth_tpu_torch.ops.cuda.kernel import COUNTER
 
-    return K1.LAUNCHES, K4.LAUNCHES, aot.GRAPH_REPLAYS
+    return COUNTER["K1"], COUNTER["K4"], aot.GRAPH_REPLAYS
 
 
 def launches(before, forwards: int) -> dict:

@@ -31,6 +31,7 @@ from fastdepth_tpu_torch.models import fused as F
 from fastdepth_tpu_torch.models.fastdepth import make_fastdepth
 from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
 from fastdepth_tpu_torch.ops.cuda import head as K4
+from fastdepth_tpu_torch.ops.cuda.kernel import COUNTER
 from torch_port_config import to_jax, to_port
 import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
@@ -186,10 +187,10 @@ def test_mixed_matches_jax(trees, rng, name):
     x = rng.rand(2, HW, HW, 3).astype(np.float32)
     want = np.asarray(JF.apply_fastdepth_mixed(jfolded, jnp.asarray(x), to_jax(CFG), MAPS[name],
                                                interpret=True))
-    counts = (K1.LAUNCHES, K4.LAUNCHES)
+    counts = (COUNTER["K1"], COUNTER["K4"])
     with torch.no_grad():
         got = F.apply_fastdepth_mixed(folded, torch.from_numpy(x), CFG, MAPS[name])
-    assert (K1.LAUNCHES, K4.LAUNCHES) == counts  # CPU: plain versions, no launch
+    assert (COUNTER["K1"], COUNTER["K4"]) == counts  # CPU: plain versions, no launch
     assert tuple(got.shape) == (2, HW, HW, 1) and got.std() > 0
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4)
 

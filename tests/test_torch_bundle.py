@@ -23,8 +23,10 @@ from fastdepth_tpu_torch.config import ModelConfig
 from fastdepth_tpu_torch.engine import aot as A
 from fastdepth_tpu_torch.models import build
 from fastdepth_tpu_torch.models.fastdepth import make_fastdepth
+from fastdepth_tpu_torch.ops.cuda import epilogue as K7
 from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
 from fastdepth_tpu_torch.ops.cuda import head as K4
+from fastdepth_tpu_torch.ops.cuda.kernel import COUNTER
 from torch_port_config import to_jax, to_port
 from torch_zoo import port_model, random_tree
 import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
@@ -94,9 +96,9 @@ def test_f32_round_trip_matches_jax_and_compile_forward(tiny, bundles):
     assert spec == jspec == {"bundle": True, "batch_size": 1, "image_size": list(HW),
                              "dtype": "float32"}
     x = _rgb()
-    counts = (K1.LAUNCHES, K4.LAUNCHES)
+    counts = (COUNTER["K1"], COUNTER["K4"])
     got = call(loaded, torch.from_numpy(x))
-    assert (K1.LAUNCHES, K4.LAUNCHES) == counts  # CPU: the plain versions, no launch
+    assert (COUNTER["K1"], COUNTER["K4"]) == counts  # CPU: the plain versions, no launch
     assert got.dtype == torch.float32 and tuple(got.shape) == (1, *HW, 1)
     np.testing.assert_allclose(got.numpy(), np.asarray(jcall(jloaded, jnp.asarray(x))),
                                atol=1e-4)
@@ -224,20 +226,28 @@ def _k1_operands(skip, window):
     ("K1", dict(skip=False, window=None)),
     ("K1", dict(skip=True, window=[0, 8, 2, 8])),  # rows 2-7 of a 16-row output
     ("K4", {}),
-], ids=["k1_skip", "k1_no_skip", "k1_window", "k4"])
+    ("K7", {}),
+], ids=["k1_skip", "k1_no_skip", "k1_window", "k4", "k7"])
 def test_opcheck_on_cpu_tensors(op, args):
     if op == "K1":
         a = _k1_operands(**args)
         # the window's tile holds image rows 0-5 of 8, all that output rows 2-7 read
-        torch.library.opcheck(K1.STAGE_OP, a)
-        torch.testing.assert_close(K1.STAGE_OP(*a),
+        torch.library.opcheck(K1.STAGE_OP.overload, a)
+        torch.testing.assert_close(K1.STAGE_OP.overload(*a),
                                    K1.fused_decoder_stage_reference(*a), rtol=0, atol=0)
-    else:
+    elif op == "K4":
         x = torch.randn(2, 12, 6, 5).contiguous(memory_format=torch.channels_last)
         a = (x, torch.randn(12), torch.randn(1))
-        torch.library.opcheck(K4.HEAD_OP, a)
-        torch.testing.assert_close(K4.HEAD_OP(*a), K4.pointwise_head_reference(*a),
-                                   rtol=0, atol=0)
+        torch.library.opcheck(K4.HEAD_OP.overload, a)
+        torch.testing.assert_close(K4.HEAD_OP.overload(*a),
+                                   K4.pointwise_head_reference(*a), rtol=0, atol=0)
+    else:
+        y, r = (torch.randn(2, 12, 6, 5).contiguous(memory_format=torch.channels_last)
+                for _ in range(2))
+        a = (y, torch.randn(12), r, K7.RELU6)
+        torch.library.opcheck(K7.EPILOGUE_OP.overload, a)
+        torch.testing.assert_close(K7.EPILOGUE_OP.overload(*a),
+                                   K7.conv_epilogue_reference(*a), rtol=0, atol=0)
 
 
 def test_the_ops_fakes_give_the_kernels_output_strides():
@@ -249,8 +259,10 @@ def test_the_ops_fakes_give_the_kernels_output_strides():
 
     with FakeTensorMode() as mode:
         fx = mode.from_tensor(x)
-        out = K1.STAGE_OP(fx, *(mode.from_tensor(t) for t in (dw, db, pw, pb, sk)), None)
-        head = K4.HEAD_OP(out, mode.from_tensor(torch.zeros(8)), mode.from_tensor(torch.zeros(1)))
+        out = K1.STAGE_OP.overload(fx, *(mode.from_tensor(t) for t in (dw, db, pw, pb, sk)),
+                                   None)
+        head = K4.HEAD_OP.overload(out, mode.from_tensor(torch.zeros(8)),
+                                   mode.from_tensor(torch.zeros(1)))
     assert tuple(out.shape) == (2, 8, 12, 10) and out.dtype == torch.float32
     assert out.stride() == torch.empty(2, 8, 12, 10).contiguous(
         memory_format=torch.channels_last).stride()

@@ -25,6 +25,7 @@ from fastdepth_tpu_torch.engine.aot import compile_forward
 from fastdepth_tpu_torch.models import layers as L
 from fastdepth_tpu_torch.ops import blocks as B
 from fastdepth_tpu_torch.ops.cuda import epilogue as E
+from fastdepth_tpu_torch.ops.cuda import kernel
 from perfbench import harness, program
 import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
@@ -99,31 +100,18 @@ def test_the_wrapper_refuses_what_k7_does_not_take():
         E.conv_epilogue(y.contiguous(), b)
 
 
-def test_the_op_under_a_trace_is_one_node():
-    """torch.export records the epilogue as the custom op, as a deploy
-    bundle holds it, and the exported program gives the plain version."""
-    y, b, r = _operands(2, 16, 5, 7, torch.float32, True)
-
-    class M(torch.nn.Module):
-        def forward(self, y, b, r):
-            return E.conv_epilogue(y, b, r, E.RELU6)
-
-    ep = torch.export.export(M(), (y, b, r))
-    targets = [n.target for n in ep.graph.nodes if n.op == "call_function"]
-    assert E.EPILOGUE_OP in targets
-    assert torch.equal(ep.module()(y, b, r), _aten_sequence(y, b, r, E.RELU6))
-
-
 @pytest.fixture
 def cpu_calls(monkeypatch):
-    """The CPU implementation's calls, as (y's shape, residual given, act)."""
+    """The CPU implementation's calls, as (y's shape, residual given, act):
+    an eager call runs the op's CPU implementation that ``kernel.Op``
+    holds."""
     seen = []
 
     def counted(y, b, residual, act):
         seen.append((tuple(y.shape), residual is not None, act))
         return E.conv_epilogue_reference(y, b, residual, act)
 
-    monkeypatch.setattr(E, "_epilogue_cpu", counted)
+    monkeypatch.setattr(E.EPILOGUE_OP, "cpu", counted)
     return seen
 
 
@@ -317,16 +305,16 @@ def test_k7_is_its_plain_version_at_every_epilogue_of_the_cells(monkeypatch, nam
         return got
 
     monkeypatch.setattr(E, "launch", checked)  # after the graph's capture
-    before = E.LAUNCHES
+    before = kernel.COUNTER["K7"]
     with torch.inference_mode():
         eager = fn(copy.copy(prepared), x)  # another tree object: the eager forward
     torch.cuda.synchronize()
-    assert len(seen) == ROUTED[name] and E.LAUNCHES - before == ROUTED[name]
+    assert len(seen) == ROUTED[name] and kernel.COUNTER["K7"] - before == ROUTED[name]
     assert all(ok for *_, ok in seen), [s for s in seen if not s[-1]]
     monkeypatch.setattr(L, "_k7_act", lambda *a: None)
     with torch.inference_mode():
         unrouted = fn(copy.copy(prepared), x)
-    assert E.LAUNCHES - before == ROUTED[name]
+    assert kernel.COUNTER["K7"] - before == ROUTED[name]
     assert torch.equal(eager, unrouted)
 
 
@@ -338,11 +326,11 @@ def test_k7_is_its_plain_version_on_the_vector_and_scalar_paths(dtype, c, residu
     _need_cuda()
     y, b, r = _operands(3, c, 17, 9, dtype, residual, "cuda")
     want = E.conv_epilogue_reference(y, b, r, act)
-    before = E.LAUNCHES
+    before = kernel.COUNTER["K7"]
     got = E.conv_epilogue(y, b, r, act)
-    assert got.data_ptr() == y.data_ptr() and E.LAUNCHES == before + 1
+    assert got.data_ptr() == y.data_ptr() and kernel.COUNTER["K7"] == before + 1
     assert torch.equal(got, want)
-    out = E.EPILOGUE_OP(want.clone(), b, r, act)  # the op's CUDA kernel: a new output
+    out = E.EPILOGUE_OP.overload(want.clone(), b, r, act)  # the op's CUDA kernel: new output
     assert torch.equal(out, E.conv_epilogue_reference(want, b, r, act))
 
 
@@ -373,9 +361,9 @@ def test_compile_forwards_graph_replays_k7_bit_for_bit(name, dtype):
     from fastdepth_tpu_torch.engine import aot
 
     fn, prepared, x = _forward(harness.config(name), 1, dtype, "cuda")
-    before, replays = E.LAUNCHES, aot.GRAPH_REPLAYS
+    before, replays = kernel.COUNTER["K7"], aot.GRAPH_REPLAYS
     replayed = fn(prepared, x)
-    assert aot.GRAPH_REPLAYS == replays + 1 and E.LAUNCHES == before
+    assert aot.GRAPH_REPLAYS == replays + 1 and kernel.COUNTER["K7"] == before
     eager = fn(copy.copy(prepared), x)
-    assert E.LAUNCHES == before + ROUTED[name]
+    assert kernel.COUNTER["K7"] == before + ROUTED[name]
     assert torch.equal(replayed, eager)

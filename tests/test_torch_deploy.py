@@ -30,18 +30,17 @@ def rgb_npy(tmp_path):
 def test_deploy_cli_matches_jax_deploy_cli(tiny_ckpt, rgb_npy, tmp_path, capsys):  # noqa: F811
     from fastdepth_tpu.cli import deploy as jax_cli
     from fastdepth_tpu_torch.cli import deploy as port_cli
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import head as K4
+    from fastdepth_tpu_torch.ops.cuda.kernel import COUNTER
 
     common = ["--model", tiny_ckpt, "--input-fp", rgb_npy, "--warmup", "1", "--run", "2",
               "--randomized-input-timing"]
     jax_out, port_out = str(tmp_path / "jax.npy"), str(tmp_path / "port.npy")
     jax_cli.main(common + ["--output-fp", jax_out])
     capsys.readouterr()
-    counts = (K1.LAUNCHES, K4.LAUNCHES)
+    counts = (COUNTER["K1"], COUNTER["K4"])
     stats = port_cli.main(common + ["--output-fp", port_out, "--device", "cpu"])
     out = capsys.readouterr().out
-    assert (K1.LAUNCHES, K4.LAUNCHES) == counts  # the CPU runs the plain versions
+    assert (COUNTER["K1"], COUNTER["K4"]) == counts  # the CPU runs the plain versions
     for line in ("=> loading model", "=> compiling for (1, 64, 64, 3) (float32, cpu)",
                  "GFLOP/frame", "=> saved prediction", "=> [timed] mean=", "=> [randomized] mean="):
         assert line in out, line
@@ -295,10 +294,9 @@ def _frame(seed):
 
 def _counts():
     from fastdepth_tpu_torch.engine import aot
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-    from fastdepth_tpu_torch.ops.cuda import head as K4
+    from fastdepth_tpu_torch.ops.cuda.kernel import COUNTER
 
-    return aot.GRAPH_REPLAYS, K1.LAUNCHES, K4.LAUNCHES
+    return aot.GRAPH_REPLAYS, COUNTER["K1"], COUNTER["K4"]
 
 
 @pytest.mark.cuda
@@ -382,7 +380,7 @@ def test_a_replay_is_one_graph_span_inside_the_step_on_the_card():
     assert set(spans) == {P.STEP, P.GRAPH}
     assert spans[P.STEP].start <= spans[P.GRAPH].start <= spans[P.GRAPH].end <= spans[
         P.STEP].end
-    assert not {P.ENCODER, P.DECODER, P.K1} & {e.name for e in prof.events()}
+    assert not {P.ENCODER, P.DECODER, P.K1, P.K4, P.K7} & {e.name for e in prof.events()}
 
 
 @pytest.mark.cuda

@@ -15,10 +15,7 @@ from fastdepth_tpu_torch.config import ModelConfig
 from fastdepth_tpu_torch.models import build
 from fastdepth_tpu_torch.models.fastdepth import make_fastdepth
 from fastdepth_tpu_torch.models import fused as F
-from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-from fastdepth_tpu_torch.ops.cuda import fused_decoder_hwbc as K2
-from fastdepth_tpu_torch.ops.cuda import fused_decoder_v3 as K3
-from fastdepth_tpu_torch.ops.cuda import head as K4
+from fastdepth_tpu_torch.ops.cuda.kernel import COUNTER
 from torch_port_config import to_jax
 import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
@@ -42,23 +39,23 @@ def folded():
 
 
 FORWARDS = {
-    "fused": (JF.apply_fastdepth_fused, F.apply_fastdepth_fused, K1),
-    "v2": (JF.apply_fastdepth_fused_v2, F.apply_fastdepth_fused_v2, K2),
-    "v3": (JF.apply_fastdepth_fused_v3, F.apply_fastdepth_fused_v3, K3),
+    "fused": (JF.apply_fastdepth_fused, F.apply_fastdepth_fused, "K1"),
+    "v2": (JF.apply_fastdepth_fused_v2, F.apply_fastdepth_fused_v2, "K2"),
+    "v3": (JF.apply_fastdepth_fused_v3, F.apply_fastdepth_fused_v3, "K3"),
 }
 
 
 @pytest.mark.parametrize("name", list(FORWARDS))
 def test_fused_forwards_match_jax(rng, folded, name):
     """batch 3: a ragged last image group at every level with B > 1."""
-    jax_fwd, port_fwd, mod = FORWARDS[name]
+    jax_fwd, port_fwd, stage = FORWARDS[name]
     jfolded, tree = folded
     x = rng.rand(3, 64, 64, 3).astype(np.float32)
     want = np.asarray(jax_fwd(jfolded, jnp.asarray(x), to_jax(CFG), interpret=True))
-    counts = (mod.LAUNCHES, K4.LAUNCHES)
+    counts = (COUNTER[stage], COUNTER["K4"])
     with torch.no_grad():
         got = port_fwd(tree, torch.from_numpy(x), CFG)
-    assert (mod.LAUNCHES, K4.LAUNCHES) == counts  # CPU: plain versions, no launch
+    assert (COUNTER[stage], COUNTER["K4"]) == counts  # CPU: plain versions, no launch
     assert tuple(got.shape) == (3, 64, 64, 1)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
 

@@ -1,23 +1,32 @@
 """K1, the port's fused decoder stage, against the JAX package's Pallas
 kernel (interpret mode on the CPU), and the CPU-side logic around it:
-dispatch, operand checks, launch counting and the nvcc build; on a card
-also the ``space`` axis's halo rules through cuDNN
-(``parallel/halo_check.py``).
+operand checks and the nvcc build; the one launch path every kernel
+takes (``ops/cuda/kernel.py``: the device rule, the custom ops under a
+trace, the launch and its count), for K1-K7; on a card also the
+``space`` axis's halo rules through cuDNN (``parallel/halo_check.py``).
 
 JAX is imported inside the one test that needs it, so that on a GPU host
 without JAX the card's tests run alone:
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 """
 
+import contextlib
 import os
 
 import numpy as np
 import pytest
 import torch
 
+from fastdepth_tpu_torch.engine import profiler as P
 from fastdepth_tpu_torch.ops import blocks as TB
 from fastdepth_tpu_torch.ops.cuda import _build
+from fastdepth_tpu_torch.ops.cuda import epilogue as K7
 from fastdepth_tpu_torch.ops.cuda import fused_decoder as K
+from fastdepth_tpu_torch.ops.cuda import fused_decoder_hwbc as K2
+from fastdepth_tpu_torch.ops.cuda import fused_decoder_v3 as K3
+from fastdepth_tpu_torch.ops.cuda import head as K4
+from fastdepth_tpu_torch.ops.cuda import kernel
+from fastdepth_tpu_torch.ops.cuda import probes as KP
 from fastdepth_tpu_torch.parallel import halo_check as H
 import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
@@ -81,31 +90,199 @@ def test_wrapper_on_cpu_takes_the_plain_version(rng, dtype):
            for t in _port_operands(*_jax_operands(rng, 2, 7, 7, 12, 6, True))]
     ops[0] = ops[0].contiguous(memory_format=torch.channels_last)
     ops[5] = ops[5].contiguous(memory_format=torch.channels_last)
-    before = K.LAUNCHES
+    before = kernel.COUNTER["K1"]
     got = K.fused_decoder_stage(*ops)
-    assert K.LAUNCHES == before
+    assert kernel.COUNTER["K1"] == before
     assert got.dtype == dtype and tuple(got.shape) == (2, 6, 14, 14)
     assert torch.equal(got, K.fused_decoder_stage_reference(*ops))
 
 
-def test_wrapper_on_a_cuda_tensor_without_a_card_raises(rng, monkeypatch):
-    """A CUDA tensor launches K1 or raises: with no card (and no nvcc)
-    the wrapper must raise, never fall back to the plain version."""
+# each kernel's wrapper on tiny operands: label -> (the module that holds
+# its plain version, that function's name, the operands' shapes (a "cl"
+# shape stored channels_last), the wrapper called on them, the index of
+# its output's pointer among the C entry's arguments)
+WRAPPERS = {
+    "K1": (K, "fused_decoder_stage_reference",
+           [("cl", 2, 12, 7, 7), (25, 12), (12,), (12, 6), (6,), ("cl", 2, 6, 14, 14)],
+           K.fused_decoder_stage, 6),
+    "K2": (K2, "fused_decoder_stage_reference",
+           [("cl", 2, 12, 7, 7), (25, 12), (12,), (12, 6), (6,), ("cl", 2, 6, 14, 14)],
+           lambda *a: K2.fused_decoder_stage_hwbc(*a, block_batch=2), 6),
+    "K3": (K3, "fused_decoder_stage_reference",
+           [("cl", 2, 12, 7, 7), (25, 12), (12,), (12, 6), (6,), ("cl", 2, 6, 14, 14)],
+           lambda *a: K3.fused_decoder_stage_v3(*a, block_batch=2), 6),
+    "K4": (K4, "pointwise_head_reference", [("cl", 2, 12, 5, 5), (12,), (1,)],
+           K4.pointwise_head, 3),
+    "K5": (KP, "staged_copy_reference", [(3, 5, 4, 8)],
+           lambda x: KP.staged_copy(x, chunk_bytes=64), 1),
+    "K6": (KP, "staged_compute_reference", [(2, 4, 3, 6), (6, 5)],
+           lambda x, w: KP.staged_compute(x, w, "matmul"), 2),
+    "K7": (K7, "conv_epilogue_reference", [("cl", 2, 16, 5, 7), (16,), ("cl", 2, 16, 5, 7)],
+           lambda y, b, r: K7.conv_epilogue(y, b, r, K7.RELU6), 1),
+}
+
+
+def _wrapper_operands(label, device):
+    """The wrapper's operands on ``device``: seeded on the CPU, empty on
+    any other device."""
+    torch.manual_seed(0)
+    out = []
+    for shape in WRAPPERS[label][2]:
+        cl = shape[0] == "cl"
+        fmt = torch.channels_last if cl else torch.contiguous_format
+        shape = shape[1:] if cl else shape
+        out.append(torch.randn(*shape).contiguous(memory_format=fmt) if device == "cpu"
+                   else torch.empty(*shape, device=device, memory_format=fmt))
+    return out
+
+
+def _plain(label, ops):
+    """The wrapper's result by its plain version."""
+    mod, name, _, _, _ = WRAPPERS[label]
+    extra = {"K5": (2.0, False), "K6": ("matmul",), "K7": (K7.RELU6,)}.get(label, ())
+    return getattr(mod, name)(*ops, *extra)
+
+
+@pytest.mark.parametrize("label", list(WRAPPERS))
+def test_wrapper_on_a_cuda_tensor_without_a_card_raises(label, monkeypatch):
+    """The device rule every wrapper keeps (``kernel.use_plain_version``):
+    a CPU tensor takes the plain version and launches nothing; a tensor
+    of any other device but CUDA is refused; a CUDA tensor launches the
+    kernel or raises: with no card (and no nvcc) the wrapper must raise,
+    never fall back to the plain version."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    mod, plain, _, wrapper, _ = WRAPPERS[label]
+    before = kernel.COUNTER[label]
+    ops = _wrapper_operands(label, "cpu")
+    assert torch.equal(wrapper(*ops), _plain(label, ops))
+    with pytest.raises(ValueError, match="CUDA devices"):
+        wrapper(*_wrapper_operands(label, "meta"))
+
     def no_fallback(*a, **k):
         raise AssertionError("fell back to the plain version")
 
-    monkeypatch.setattr(K, "fused_decoder_stage_reference", no_fallback)
-    before = K.LAUNCHES
+    monkeypatch.setattr(mod, plain, no_fallback)
     with FakeTensorMode():
-        x = torch.empty(2, 12, 7, 7, device="cuda", memory_format=torch.channels_last)
-        w = [torch.empty(s, device="cuda") for s in ((25, 12), (12,), (12, 6), (6,))]
-        with pytest.raises(RuntimeError):
-            K.fused_decoder_stage(x, *w)
-    assert K.LAUNCHES == before
+        ops = _wrapper_operands(label, "cuda")
+        with pytest.raises(RuntimeError, match="nvcc"):
+            wrapper(*ops)
+    assert kernel.COUNTER[label] == before
+
+
+@pytest.fixture
+def fake_entries(monkeypatch):
+    """Every wrapper on CPU tensors takes its kernel's path, whose C entry
+    is a stand-in that records its call and returns ``code[0]``: the
+    library, the device and the stream are the card's stand-ins too."""
+    calls, code = [], [0]
+
+    def function(name, argtypes):
+        def entry(*args):
+            calls.append((name, argtypes, args))
+            return code[0]
+        return entry
+
+    monkeypatch.setattr(kernel, "use_plain_version", lambda label, x: False)
+    monkeypatch.setattr(_build, "function", function)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: -1, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda dev: 4242, raising=False)
+    return calls, code
+
+
+ENTRIES = {"K1": "fd_fused_decoder_stage", "K2": "fd_fused_decoder_stage_hwbc",
+           "K3": "fd_fused_decoder_stage_v3", "K4": "fd_pointwise_head",
+           "K5": "fd_staged_copy", "K6": "fd_staged_compute", "K7": "fd_conv_epilogue"}
+
+
+@pytest.mark.parametrize("fails", [False, True], ids=["ok", "cuda_error"])
+@pytest.mark.parametrize("label", list(WRAPPERS))
+def test_each_kernel_launches_through_the_one_launch_path(label, fails, fake_entries):
+    """``kernel.launch`` for every wrapper: one call of the kernel's C
+    entry with as many arguments as its C types, the operands' pointers
+    first (the output's among them), the stream last; the launch counted
+    once under the kernel's label.  A non-zero CUDA error raises with the
+    label and counts nothing."""
+    calls, code = fake_entries
+    code[0] = 700 if fails else 0
+    ops = _wrapper_operands(label, "cpu")
+    before = kernel.COUNTER[label]
+    if fails:
+        with pytest.raises(RuntimeError, match=f"^{label} launch failed: CUDA error 700$"):
+            WRAPPERS[label][3](*ops)
+    else:
+        out = WRAPPERS[label][3](*ops)
+        assert calls[0][2][WRAPPERS[label][4]] == out.data_ptr()
+    (name, argtypes, args), = calls
+    assert name == ENTRIES[label] and len(args) == len(argtypes)
+    assert args[0] == ops[0].data_ptr() and args[-1] == 4242
+    assert kernel.COUNTER[label] == before + (0 if fails else 1)
+
+
+# the registered ops: label -> the op
+OPS = {"K1": K.STAGE_OP.overload, "K4": K4.HEAD_OP.overload,
+       "K7": K7.EPILOGUE_OP.overload}
+
+
+@pytest.mark.parametrize("label", list(OPS))
+def test_the_op_under_a_trace_is_one_node(label):
+    """torch.export records each registered op's eager entry as the custom
+    op, one node, as a deploy bundle holds it; the node's fake output has
+    the eager output's shape, dtype and strides, and the exported program
+    gives the plain version."""
+    wrapper = WRAPPERS[label][3]
+    ops = _wrapper_operands(label, "cpu")
+
+    class M(torch.nn.Module):
+        def forward(self, *args):
+            return wrapper(*args)
+
+    ep = torch.export.export(M(), tuple(ops))
+    nodes = [n for n in ep.graph.nodes if n.op == "call_function" and n.target == OPS[label]]
+    assert len(nodes) == 1
+    fake, eager = nodes[0].meta["val"], wrapper(*ops)
+
+    def layout(t):  # a dim of one element has no stride that matters
+        return t.shape, t.dtype, [st for st, n in zip(t.stride(), t.shape) if n > 1]
+    assert layout(fake) == layout(eager)
+    assert torch.equal(ep.module()(*ops), _plain(label, ops))
+
+
+class _Flag:
+    """A stand-in for ``torch.autograd.profiler`` whose profiler flag is
+    ``on`` and counts its reads."""
+
+    def __init__(self, on):
+        self.on, self.reads = on, 0
+
+    @property
+    def _is_profiler_enabled(self):
+        self.reads += 1
+        return self.on
+
+
+@pytest.mark.parametrize("on", [False, True], ids=["no_profiler", "profiler"])
+@pytest.mark.parametrize("label", list(OPS))
+def test_an_eager_op_call_opens_its_span_only_under_a_profiler(label, on, monkeypatch):
+    """The eager dispatch (``kernel.Op``) reads the profiler's flag once a
+    call: with no profiler running it opens no span; with one running it
+    opens one span of the op's name (``engine/profiler``) around the
+    implementation.  The output is the plain version's either way."""
+    opened = []
+
+    def record_function(name):
+        opened.append(name)
+        return contextlib.nullcontext()
+
+    flag = _Flag(on)
+    monkeypatch.setattr(kernel, "_autograd_profiler", flag)
+    monkeypatch.setattr(torch.profiler, "record_function", record_function)
+    ops = _wrapper_operands(label, "cpu")
+    assert torch.equal(WRAPPERS[label][3](*ops), _plain(label, ops))
+    assert flag.reads == 1
+    assert opened == ([{"K1": P.K1, "K4": P.K4, "K7": P.K7}[label]] if on else [])
 
 
 def test_wrapper_rejects_what_k1_does_not_take(rng):
@@ -235,9 +412,9 @@ def test_k1_matches_plain_version_on_the_card(shape, dtype, monkeypatch):
     ops[0] = ops[0].contiguous(memory_format=torch.channels_last)
     if has_skip:
         ops[5] = ops[5].contiguous(memory_format=torch.channels_last)
-    before = K.LAUNCHES
+    before = kernel.COUNTER["K1"]
     got = K.fused_decoder_stage(*ops)
-    assert K.LAUNCHES == before + 1
+    assert kernel.COUNTER["K1"] == before + 1
     want = K.fused_decoder_stage_reference(*ops).float()
     scale = float(want.abs().max())
     bound = 1e-4 * max(1.0, scale) if dtype == torch.float32 else 2.0 ** -7 * scale
@@ -284,20 +461,18 @@ OP_CASES = {"k1_no_skip": (1, 7, 7, 512, 200, False, None),
 @pytest.mark.parametrize("case", [*OP_CASES, "k4"])
 def test_custom_ops_launch_their_kernels_and_pass_opcheck_on_the_card(case):
     """On a CUDA device: one call of fastdepth::fused_decoder_stage or
-    fastdepth::pointwise_head launches K1 or K4 once (``LAUNCHES``), and
+    fastdepth::pointwise_head launches K1 or K4 once (``kernel.COUNTER``), and
     ``torch.library.opcheck`` passes on the CUDA tensors (schema, fake
     against real output metadata, strides included, and the op under
     AOT dispatch)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (on a GPU host: python -m pytest "
                     "--noconftest tests/test_torch_kernels.py -m cuda)")
-    from fastdepth_tpu_torch.ops.cuda import head as K4
-
     rng = np.random.RandomState(0)
     if case == "k4":
         x = torch.from_numpy(rng.rand(1, 224, 224, 16).astype(np.float32)).cuda()
-        args, mod, op = (TB.from_nhwc(x), torch.randn(16, device="cuda"),
-                         torch.randn(1, device="cuda")), K4, K4.HEAD_OP
+        args, label, op = (TB.from_nhwc(x), torch.randn(16, device="cuda"),
+                           torch.randn(1, device="cuda")), "K4", K4.HEAD_OP.overload
     else:
         n, h, w, c, cout, has_skip, window = OP_CASES[case]
         ops = [t.cuda() if t is not None else None
@@ -306,11 +481,12 @@ def test_custom_ops_launch_their_kernels_and_pass_opcheck_on_the_card(case):
             r0, _, o0, o1 = window
             ops[0] = ops[0][:, :, r0:].contiguous(memory_format=torch.channels_last)
             ops[5] = ops[5][:, :, o0:o1].contiguous(memory_format=torch.channels_last)
-        args, mod, op = (*ops, None if window is None else list(window)), K, K.STAGE_OP
-    before = mod.LAUNCHES
+        args, label, op = ((*ops, None if window is None else list(window)), "K1",
+                           K.STAGE_OP.overload)
+    before = kernel.COUNTER[label]
     out = op(*args)
     torch.cuda.synchronize()
-    assert mod.LAUNCHES == before + 1
+    assert kernel.COUNTER[label] == before + 1
     assert out.is_contiguous(memory_format=torch.channels_last)
     torch.library.opcheck(op, args)
 

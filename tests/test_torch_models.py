@@ -21,7 +21,7 @@ from fastdepth_tpu_torch.models import build, from_name
 from fastdepth_tpu_torch.models import fused as F
 from fastdepth_tpu_torch.models.registry import fastdepth_pruned, fastdepth_unpruned
 from fastdepth_tpu_torch.ops import blocks as TB
-from fastdepth_tpu_torch.ops.cuda import fused_decoder as K
+from fastdepth_tpu_torch.ops.cuda.kernel import COUNTER
 import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -125,10 +125,10 @@ def test_folded_forwards_match_jax(rng, tiny, impl, size):
     want = np.asarray(jmodel.apply(folded, jnp.asarray(x)))
     model, p = _port(cfg, folded)
     p = model.fold(p)
-    before = K.LAUNCHES
+    before = COUNTER["K1"]
     with torch.no_grad():
         got = _pick_apply(model, p, impl, 2)(p, torch.from_numpy(x))
-    assert K.LAUNCHES == before  # CPU: K1's plain version, never a launch
+    assert COUNTER["K1"] == before  # CPU: K1's plain version, never a launch
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
 
 

@@ -12,6 +12,7 @@ import pytest
 
 from fastdepth_tpu.config import FASTDEPTH_PRUNED, FASTDEPTH_UNPRUNED, ModelConfig
 from fastdepth_tpu.engine import roofline as JRL
+from fastdepth_tpu_torch.config import FASTDEPTH_PRUNED as PORT_PRUNED
 from fastdepth_tpu_torch.engine import calibrate
 from fastdepth_tpu_torch.engine import roofline as RL
 from torch_port_config import to_port
@@ -116,3 +117,18 @@ def test_the_measurement_path_imports_no_jax():
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)\n")
     env = child_env(PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=120)
+
+
+def test_spec_aggregate_is_the_layer_bounds_at_the_data_sheet_rates():
+    """By hand: every layer's bf16 bytes (the head's at a quarter) at the
+    data sheet's 3,350 GB/s, its pointwise MACs at 989 TFLOP/s bf16 and
+    its depthwise MACs at 67 TFLOP/s, the largest of the three a layer."""
+    with open(RL.CEILINGS_PATH) as f:
+        probe = json.load(f)
+    ds = probe["data_sheet"]
+    assert (ds["hbm_GBs"], ds["bf16_tensor_tflops"], ds["f32_tflops"]) == (3350.0, 989.0, 67.0)
+    total = 0.0
+    for key, _macs, hbm, mxu, dw in RL.layer_bounds(PORT_PRUNED):
+        nbytes = 2 * hbm / (4 if key == "dec.head" else 1)
+        total += max(nbytes / 3350e9, 2 * mxu / 989e12, 2 * dw / 67e12)
+    assert RL.spec_composite_us(PORT_PRUNED, probe) == pytest.approx(total * 1e6, rel=1e-12)

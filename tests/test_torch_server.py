@@ -54,8 +54,7 @@ from fastdepth_tpu_torch.engine.server import (
 )
 from fastdepth_tpu_torch.models import build
 from fastdepth_tpu_torch.models.fastdepth import make_fastdepth
-from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
-from fastdepth_tpu_torch.ops.cuda import head as K4
+from fastdepth_tpu_torch.ops.cuda.kernel import COUNTER
 import torch_threads  # noqa: F401  (torch's CPU threads: a share per xdist worker)
 from torch_port_config import to_jax
 
@@ -167,11 +166,11 @@ def test_server_matches_direct_forward(rng, tiny):
     kernels' plain versions run (no launch)."""
     frames = _frames(rng, 5)
     ref = _ref(tiny, frames)
-    counts = (K1.LAUNCHES, K4.LAUNCHES)
+    counts = (COUNTER["K1"], COUNTER["K4"])
     with _server(tiny, batch_size=4) as srv:
         futs = [srv.submit(f) for f in frames]
         preds = [f.result(timeout=RESULT_S) for f in futs]
-    assert (K1.LAUNCHES, K4.LAUNCHES) == counts
+    assert (COUNTER["K1"], COUNTER["K4"]) == counts
     for i, p in enumerate(preds):
         assert p.shape == (HW, HW, 1) and p.dtype == np.float32
         np.testing.assert_allclose(p, ref[i], atol=1e-5)

@@ -1,5 +1,5 @@
 """The program's profiler spans (``engine/profiler``): free with no
-profiler running, and under one the six names, nested as the layers
+profiler running, and under one the seven names, nested as the layers
 are, around the forwards ``engine/aot._pick_apply`` picks for FastDepth
 and ResNet-UpProj and around an ``Evaluator`` step, with the outputs
 bit for bit those of an unprofiled run.  On the CPU: the kernels' plain
@@ -23,10 +23,10 @@ FLAGSHIP = ModelConfig(encoder_channels=TINY_ENC, decoder_channels=TINY_DEC,
                        output_size=(64, 64))
 UPPROJ = ModelConfig(encoder="resnet18", decoder="upproj", skip=None,
                      decoder_channels=(64, 32, 16, 8, 4), output_size=(64, 64))
-SPANS = (P.STEP, P.ENCODER, P.DECODER, P.METRICS, P.K1, P.GRAPH)
+SPANS = (P.STEP, P.ENCODER, P.DECODER, P.METRICS, P.K1, P.K4, P.GRAPH)
 # span -> the span it nests in
 PARENT = {P.ENCODER: P.STEP, P.DECODER: P.STEP, P.METRICS: P.STEP, P.K1: P.DECODER,
-          P.GRAPH: P.STEP}
+          P.K4: P.DECODER, P.GRAPH: P.STEP}
 # (config, impl, tuning) of every forward _pick_apply returns for the two families
 FORWARDS = {
     "flagship-auto": (FLAGSHIP, "auto", None),
@@ -36,6 +36,7 @@ FORWARDS = {
     "upproj-auto": (UPPROJ, "auto", None),
 }
 K1_LEVELS = {"flagship-auto": 5, "flagship-mixed": 2}
+K4_HEADS = {"flagship-auto": 1, "flagship-mixed": 1}
 
 
 def model_and_params(cfg, seed=0):
@@ -44,7 +45,7 @@ def model_and_params(cfg, seed=0):
 
 
 def spans_of(prof):
-    """[(name, parent name or None)] of the six spans the profile
+    """[(name, parent name or None)] of the seven spans the profile
     recorded, in start order: a span's parent is the innermost of them
     open around it on its thread."""
     events = sorted((e for e in prof.events() if e.name in SPANS),
@@ -120,9 +121,9 @@ def test_a_forward_records_its_spans_and_the_same_output(name):
         on = fn(prepared, x)
     assert torch.equal(off, on)
     assert torch.equal(off, fn(prepared, x))
-    k1 = K1_LEVELS.get(name, 0)
+    k1, k4 = K1_LEVELS.get(name, 0), K4_HEADS.get(name, 0)
     assert spans_of(prof) == ([(P.STEP, None), (P.ENCODER, P.STEP), (P.DECODER, P.STEP)]
-                              + [(P.K1, P.DECODER)] * k1)
+                              + [(P.K1, P.DECODER)] * k1 + [(P.K4, P.DECODER)] * k4)
 
 
 @pytest.mark.parametrize("cfg", [FLAGSHIP, UPPROJ], ids=["flagship", "upproj"])
@@ -140,6 +141,7 @@ def test_an_evaluator_step_records_its_spans_and_the_same_outputs(cfg):
     found = spans_of(prof)
     assert found == ([(P.STEP, None), (P.ENCODER, P.STEP), (P.DECODER, P.STEP)]
                      + [(P.K1, P.DECODER)] * (5 if cfg is FLAGSHIP else 0)
+                     + [(P.K4, P.DECODER)] * (1 if cfg is FLAGSHIP else 0)
                      + [(P.METRICS, P.STEP)])
     assert all(PARENT.get(n) == p for n, p in found)
 

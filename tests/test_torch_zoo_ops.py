@@ -322,7 +322,7 @@ def test_evaluator_compile_forward_and_server_run_zoo_models(rng, name, impl):
     from fastdepth_tpu_torch.engine.evaluator import Evaluator, validate
     from fastdepth_tpu_torch.engine.server import InferenceServer
     from fastdepth_tpu_torch.models import fused as F
-    from fastdepth_tpu_torch.ops.cuda import fused_decoder as K1
+    from fastdepth_tpu_torch.ops.cuda.kernel import COUNTER
 
     from torch_zoo import assert_close
 
@@ -338,7 +338,7 @@ def test_evaluator_compile_forward_and_server_run_zoo_models(rng, name, impl):
     ev = Evaluator(model, params, batch_size=2, device="cpu")
     assert (ev._apply == model.apply) == (impl == "straight")
     assert F.supports_opt(model.config) == (impl == "opt")
-    launches = K1.LAUNCHES
+    launches = COUNTER["K1"]
     avg = validate(_Loader([(x[:2], depth[:2], 2), (x[2:], depth[2:], 2)]), ev, print_freq=0,
                    make_images=False, log=lambda s: None)
     assert np.isfinite([avg.rmse, avg.mae, avg.delta1]).all()
@@ -353,4 +353,4 @@ def test_evaluator_compile_forward_and_server_run_zoo_models(rng, name, impl):
     finally:
         srv.close()
     assert_close(got, want)
-    assert K1.LAUNCHES == launches
+    assert COUNTER["K1"] == launches
