@@ -26,7 +26,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    from the forward: bit for bit its plain version, and the whole set's
    device time beside its byte bound, the plain version's and the
    library's (ATen's in-place bias add_, then the residual add and the
-   activation, the ops K7 replaces);
+   activation, the ops K7 replaces); then K8, the metric sums, at the
+   benchmark cells' metric shapes (b128 at 224x224, b64 at 518x518, one
+   224x224 pair) on seeded maps with zeros, negative predictions, an
+   all-zero target and an image with no valid pixel: its counts and
+   delta sums equal to its plain version's, its float sums within 1e-5
+   relative, two launches the same bits, and its device time beside its
+   byte bound and the plain version's;
 4. eval path: the committed trained weights (docs/rehearsal_model_r5.npz)
    -> build -> fold -> Evaluator(impl='auto') -> validate() over seeded
    raw 480x640 frames put through the shared val pipeline, at f32 and
@@ -395,6 +401,7 @@ def kernel_phase() -> dict:
               f"({row['bound_by']}); events {row['events_ms']:.4f} ms, plain "
               f"{row['plain_events_ms']:.4f} ms")
     out["K7"] = epilogue_rows()
+    out["K8"] = metric_sums_rows()
     return out
 
 
@@ -508,6 +515,114 @@ def epilogue_rows() -> dict:
                                      "plain_events_ms")}}
 
 
+# the benchmark cells' metric sums, (images, H = W, where): the first is
+# the kernel table's
+METRIC_SHAPES = [(128, 224, "the flagship's and UpProj's b128"), (64, 518, "DA-V2's b64"),
+                 (1, 224, "metrics.evaluate's one pair, deploy's check")]
+
+
+def _metric_maps(n: int, hw: int, seed: int, holes: bool = True):
+    """Seeded (prediction, target) (n, hw, hw, 1) f32 on the card, in
+    metres; with ``holes`` zeros in both (20% and 30%), negative
+    predictions, and from n = 3 on an image whose target is all zero and
+    one with no valid pixel; without, as the benchmark's cells draw them
+    (0.5-10 m, every pixel valid)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(lo, span):
+        return torch.rand((n, hw, hw, 1), generator=g, device="cuda") * span + lo
+
+    if not holes:
+        return draw(0.5, 9.5), draw(0.5, 9.5)
+    out, tgt = draw(0.2, 7.8), draw(0.5, 8.5)
+    out[draw(0.0, 1.0) < 0.2] = 0.0
+    out[draw(0.0, 1.0) < 0.05] *= -1.0
+    tgt[draw(0.0, 1.0) < 0.3] = 0.0
+    if n >= 3:
+        tgt[1] = 0.0
+        out[2] = 0.0
+        tgt[2] = 0.0
+    return out, tgt
+
+
+def metric_sums_rows() -> dict:
+    """K8's row: at each of :data:`METRIC_SHAPES`, K8 against its plain
+    version on :func:`_metric_maps` with holes: the counts and delta sums
+    equal, the float sums within 1e-5 relative (NaN and inf where the
+    plain version's are), two launches the same bits, one launch a call;
+    then on maps drawn as the cells draw them its device time
+    (``time_graph`` over copies that together exceed the L2), its bound
+    (8 bytes a pixel read, 40 an image written, at 3.35 TB/s), the plain
+    version's time (ATen, op by op) and both event times, and its device
+    time on the maps with holes.  Returns the first shape's numbers as
+    the kernel table's, every shape's under ``rows``, and the largest
+    absolute and relative gaps from the plain version's finite sums over
+    all shapes, as measured here (the counts and delta sums are equal)."""
+    from fastdepth_tpu_torch import metrics as M
+    from fastdepth_tpu_torch.engine.benchmark import (bound_us, cold_copies, time_graph,
+                                                      time_pipelined)
+    from fastdepth_tpu_torch.ops.cuda import metric_sums as K8
+
+    exact = [M.SUM_FIELDS.index(f) for f in ("delta1", "delta2", "delta3")] + [K8.FIELDS - 1]
+    floats = [i for i in range(K8.FIELDS) if i not in exact]
+    rows = []
+    for n, hw, where in METRIC_SHAPES:
+        nbytes = 8 * n * hw * hw + 4 * K8.FIELDS * n
+        copies = cold_copies(nbytes)
+        out, tgt = _metric_maps(n, hw, 0)
+        (before,) = _counts("K8")
+        got, again = M.metric_sums(out, tgt), M.metric_sums(out, tgt)
+        plain = M.metric_sums_reference(out, tgt)
+        torch.cuda.synchronize()
+        g, p = got[floats].double(), plain[floats].double()
+        finite = torch.isfinite(p)
+        gap = (g - p).abs()[finite]
+        rel = float((gap / p.abs()[finite].clamp_min(1e-30)).max())
+        abs_err = float(gap.max())
+        if (_counts("K8") != (before + 2,)
+                or not torch.equal(got.view(torch.int32), again.view(torch.int32))
+                or not torch.equal(got[exact], plain[exact]) or not rel <= 1e-5
+                or not torch.equal(torch.isfinite(g), finite)
+                or not torch.equal(g[~finite].nan_to_num(), p[~finite].nan_to_num())):
+            fail(f"K8 b{n} {hw}x{hw}: not its plain version (launches "
+                 f"{_counts('K8')[0] - before}, same bits twice "
+                 f"{torch.equal(got.view(torch.int32), again.view(torch.int32))}, counts and "
+                 f"deltas equal {torch.equal(got[exact], plain[exact])}, float sums' largest "
+                 f"relative gap {rel:.3e})")
+        holes_ms = time_graph(M.metric_sums,
+                              [_metric_maps(n, hw, seed) for seed in range(copies)]) * 1e3
+        torch.cuda.empty_cache()
+        sets = [_metric_maps(n, hw, seed, holes=False) for seed in range(copies)]
+        out, tgt = sets[0]
+        with torch.inference_mode():
+            row = {"images": n, "H": hw, "W": hw, "where": where, "chunks":
+                   K8.chunks(out, tgt), "bytes": nbytes, "max_abs_err": abs_err,
+                   "max_rel_err": rel, "holes_ms": holes_ms,
+                   "bound_ms": bound_us(nbytes)[0] / 1e3,
+                   "ms": time_graph(M.metric_sums, sets) * 1e3,
+                   "plain_ms": time_graph(M.metric_sums_reference, sets, calls=len(sets)) * 1e3,
+                   "events_ms": time_pipelined(M.metric_sums, (out, tgt))["mean_s"] * 1e3,
+                   "plain_events_ms": time_pipelined(M.metric_sums_reference,
+                                                     (out, tgt))["mean_s"] * 1e3}
+        row["bound_pct"] = 100 * row["bound_ms"] / row["ms"]
+        rows.append(row)
+        print(f"K8 b{n} {hw}x{hw} ({where}): {row['chunks']} chunks an image, counts and "
+              f"deltas equal to the plain version's, float sums within {abs_err:.3e} "
+              f"({rel:.3e} relative) of it, the same bits twice; device {row['ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"(bytes; {row['bound_pct']:.1f}% of it), plain {row['plain_ms']:.4f} ms; "
+              f"events {row['events_ms']:.4f} ms, plain {row['plain_events_ms']:.4f} ms; with "
+              f"holes {holes_ms:.4f} ms")
+        del sets, out, tgt, got, again, plain
+        torch.cuda.empty_cache()
+    first = rows[0]
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+            "max_rel_err": max(r["max_rel_err"] for r in rows), "bound_by": "bytes",
+            "rows": rows, "library_ms": None,
+            "replaces": "none: XLA fused the metric ops on the TPU",
+            **{k: first[k] for k in ("ms", "plain_ms", "bound_ms", "events_ms",
+                                     "plain_events_ms")}}
+
+
 class _Frames:
     """A loader over host batches already in memory: (rgb, depth, count)."""
 
@@ -543,7 +658,7 @@ def load_weights():
 
 
 def _counts(*labels):
-    """The launches so far of the kernels ``labels`` ("K1" ... "K7"),
+    """The launches so far of the kernels ``labels`` ("K1" ... "K8"),
     as ``ops/cuda/kernel.COUNTER`` counts them."""
     from fastdepth_tpu_torch.ops.cuda.kernel import COUNTER
 
@@ -576,16 +691,17 @@ def e2e_phase(model, params) -> dict:
     for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
         ev = Evaluator(model, params, batch_size=BATCH, dtype=dtype, impl="auto",
                        device="cuda")
-        _reset("K1", "K4", "K7")
+        _reset("K1", "K4", "K7", "K8")
         avg = validate(loader, ev, print_freq=0, make_images=False,
                        log=lambda s: print(s.strip().replace("\n", " ")))
         torch.cuda.synchronize()
-        k1, k4, k7 = _counts("K1", "K4", "K7")
-        if (k1, k4) != (STAGES_PER_FORWARD * forwards, forwards):
-            fail(f"{name}: K1 launched {k1} and K4 {k4} times over {forwards} forwards, "
-                 f"want {STAGES_PER_FORWARD} and 1 per forward")
+        k1, k4, k7, k8 = _counts("K1", "K4", "K7", "K8")
+        if (k1, k4, k8) != (STAGES_PER_FORWARD * forwards, forwards, forwards):
+            fail(f"{name}: K1 launched {k1}, K4 {k4} and K8 {k8} times over {forwards} "
+                 f"steps, want {STAGES_PER_FORWARD}, 1 and 1 per step")
         _check_k7(name, k7, forwards)
-        print(f"eval {name}: K1 {k1}, K4 {k4}, K7 {k7} launches over {forwards} forwards")
+        print(f"eval {name}: K1 {k1}, K4 {k4}, K7 {k7}, K8 {k8} launches over {forwards} "
+              "steps")
         x, d = ev.put(rgb0), ev.put(depth0)
         pred, _ = ev(x, d)
         torch.cuda.synchronize()
@@ -596,7 +712,8 @@ def e2e_phase(model, params) -> dict:
         if name == "f32":
             _check_evaluator_uint8(ev)
         row = {k: getattr(avg, k) for k in ("rmse", "mae", "delta1", "absrel", "lg10")}
-        out[name] = {"launches": k1, "k4_launches": k4, "k7_launches": k7, "forwards": forwards,
+        out[name] = {"launches": k1, "k4_launches": k4, "k7_launches": k7, "k8_launches": k8,
+                     "forwards": forwards,
                      "metrics": row,
                      "validate_fps": 1.0 / avg.gpu_time, "step_fps": fps}
         if name == "f32":
@@ -3881,6 +3998,7 @@ KERNELS = [
     ("K5", "staged_copy", "fastdepth_tpu_torch/csrc/probe_copy.cu", None),
     ("K6", "staged_compute", "fastdepth_tpu_torch/csrc/probe_stage.cu", None),
     ("K7", "conv_epilogue", "fastdepth_tpu_torch/csrc/conv_epilogue.cu", None),
+    ("K8", "metric_sums", "fastdepth_tpu_torch/csrc/metric_sums.cu", None),
 ]
 
 
@@ -3916,12 +4034,15 @@ def main() -> None:
     print(f"scripts_phase: {phase_s['scripts_phase']} s on {card['nvidia_smi']}")
     # launches: each kernel's count on the f32 run of its path (K1: the
     # eval path, K2/K3: the v2/v3 forwards, K4: the deploy path, K5/K6:
-    # the probe catalogue's run; K7: the eval path's f32 run, as K1, its
-    # count zeroed just before the run); ms /
+    # the probe catalogue's run; K7 and K8: the eval path's f32 run, as
+    # K1, their counts zeroed just before the run); ms /
     # plain_ms: device time (events_ms beside it), f32, batch 8, summed
     # over the pruned flagship's five levels (K4: its head; K5/K6: over
-    # their probe tags; K7: bf16 b128, its 27 encoder epilogues), with the worst
-    # f32 error over the checked shapes; bound_ms the least time for the
+    # their probe tags; K7: bf16 b128, its 27 encoder epilogues; K8: b128
+    # at 224x224), with the worst
+    # f32 error over the checked shapes (K8: its float sums' largest gap
+    # from the plain version's, absolute and max_rel_err relative, as
+    # measured at METRIC_SHAPES); bound_ms the least time for the
     # same calls' work at the H100's published rates (summed likewise),
     # bound_by the term that binds most of it; library_ms one PyTorch call
     # per call where one computes the same function, else null (K5 and K6:
@@ -3935,7 +4056,7 @@ def main() -> None:
     launches = {"K1": e2e["f32"]["launches"], "K2": fwd["f32"]["v2"]["launches"],
                 "K3": fwd["f32"]["v3"]["launches"], "K4": dep["f32"]["k4_launches"],
                 "K5": kernels["K5"]["launches"], "K6": kernels["K6"]["launches"],
-                "K7": e2e["f32"]["k7_launches"]}
+                "K7": e2e["f32"]["k7_launches"], "K8": e2e["f32"]["k8_launches"]}
     serve_launches = {"K1": srv["f32"]["launches"], "K4": srv["f32"]["k4_launches"],
                       "K7": srv["f32"]["k7_launches"]}
     mixed_launches = {"K1": tuned["mixed hand f32"]["launches"],
@@ -3953,7 +4074,7 @@ def main() -> None:
         "bound_by": kernels[key]["bound_by"], "library_ms": kernels[key]["library_ms"],
         "events_ms": kernels[key]["events_ms"],
         "plain_events_ms": kernels[key]["plain_events_ms"],
-        **{f: kernels[key][f] for f in ("library_tags", "ms_over_library_tags")
+        **{f: kernels[key][f] for f in ("max_rel_err", "library_tags", "ms_over_library_tags")
            if f in kernels[key]},
         **({"serve_launches": serve_launches[key]} if key in serve_launches else {}),
         **({"mixed_launches": mixed_launches[key]} if key in mixed_launches else {}),

@@ -5,7 +5,7 @@ card's kernels when CUDA is available (CUPTI).  The trace is written as
 a Chrome trace (``trace.json``, viewable in Perfetto) and a table of
 time by op (``ops.txt``).  Timing itself lives in ``engine/benchmark.py``.
 
-The program marks its layers with :func:`annotate`, nine spans in all,
+The program marks its layers with :func:`annotate`, ten spans in all,
 each a ``record_function`` range of its host thread in a
 ``torch.profiler`` trace, in which the kernels launched inside it are
 found by their launches' correlation ids:
@@ -29,12 +29,15 @@ found by their launches' correlation ids:
 * :data:`K7` (``fastdepth::conv_epilogue``): one eager K7 epilogue, the
   bias, residual and activation after a routed conv, under the name the
   op has in the dispatcher;
+* :data:`K8` (``fastdepth::metric_sums``): one eager K8, an evaluation
+  step's masked metric sums, inside its metrics span, under the name the
+  op has in the dispatcher;
 * :data:`GRAPH` (``fastdepth.graph``): one replay of the CUDA graph of
   ``compile_forward``'s forward, inside its step.  A replay runs the
   forward's kernels without its Python, so no encoder, decoder, K1, K4
   or K7 span opens inside it.
 
-The three kernel spans are opened by ``ops/cuda/kernel.Op``, the eager
+The four kernel spans are opened by ``ops/cuda/kernel.Op``, the eager
 dispatch of the custom ops, under each op's name.
 
 A span nests in the one open around it on the same thread; the step is
@@ -58,6 +61,7 @@ ATTENTION = "fastdepth.attention"
 K1 = "fastdepth::fused_decoder_stage"
 K4 = "fastdepth::pointwise_head"
 K7 = "fastdepth::conv_epilogue"
+K8 = "fastdepth::metric_sums"
 GRAPH = "fastdepth.graph"
 
 _OFF = contextlib.nullcontext()

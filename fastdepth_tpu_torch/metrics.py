@@ -13,8 +13,9 @@ Reproduced precisely — do not "fix" these for parity's sake:
 :func:`evaluate_batch` computes all 10 metrics for a whole batch on the
 device in one pass of masked sums (no boolean indexing), so only 10
 scalars per image leave the device.  It is two steps: each image's
-masked sums and valid-pixel count (:func:`metric_sums`), then the
-divide and, for the RMSEs, the square root (:func:`finish`).  Under a
+masked sums and valid-pixel count (:func:`metric_sums`; on the card one
+launch of K8, ``ops/cuda/metric_sums.py``), then the divide and, for the
+RMSEs, the square root (:func:`finish`).  Under a
 height-sharded mesh each rank holds some rows of every image, so the
 sums and counts are all-reduced over the space group between the two
 steps, as JAX's partitioner closed them.
@@ -27,6 +28,9 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from fastdepth_tpu_torch.ops.cuda import kernel
+from fastdepth_tpu_torch.ops.cuda import metric_sums as K8
 
 METRIC_FIELDS = (
     "irmse", "imae", "mse", "rmse", "mae", "absrel", "lg10",
@@ -76,7 +80,23 @@ def metric_sums(output: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """The first step of :func:`evaluate_batch`: for an (N, H, W, 1)
     batch, each image's masked sums (:data:`SUM_FIELDS`, f32) and its
     valid-pixel count, stacked ``(len(SUM_FIELDS) + 1, N)``: union mask,
-    millimeter scaling, as the reference's ``Result.evaluate``."""
+    millimeter scaling, as the reference's ``Result.evaluate``.  The
+    custom op ``fastdepth::metric_sums`` (:data:`METRIC_SUMS_OP`): on a
+    CUDA tensor one launch of K8 (``ops/cuda/metric_sums.py``), on the
+    CPU :func:`metric_sums_reference`.  ``output`` and ``target`` must
+    share their shape and device."""
+    if output.dim() != 4 or output.shape[-1] != 1:
+        raise ValueError(f"output must be (N, H, W, 1), got {tuple(output.shape)}")
+    if target.shape != output.shape:
+        raise ValueError(f"target must be {tuple(output.shape)}, got {tuple(target.shape)}")
+    if target.device != output.device:
+        raise ValueError("output and target must lie on one device")
+    return METRIC_SUMS_OP(output, target)
+
+
+def metric_sums_reference(output: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`metric_sums` (same arguments and
+    output), ATen op by op."""
     output = output.float()
     target = target.float()
     mask = (target > 0) | (output > 0)
@@ -97,6 +117,12 @@ def metric_sums(output: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
             inv_diff * inv_diff, inv_diff]
     count = mask.sum(dim=tuple(range(1, mask.dim()))).float()
     return torch.stack([_masked_sum(x, mask) for x in sums] + [count])
+
+
+# K8 as the custom op fastdepth::metric_sums: the plain version on the CPU
+METRIC_SUMS_OP = kernel.register(
+    "K8", "metric_sums(Tensor output, Tensor target) -> Tensor",
+    metric_sums_reference, K8.metric_sums_cuda, K8.metric_sums_fake)
 
 
 def finish(sums: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -1,4 +1,4 @@
-"""How Python calls the port's hand-written kernels (K1-K7).
+"""How Python calls the port's hand-written kernels (K1-K8).
 
 Each kernel's wrapper module holds what is its own: the shapes it takes,
 its launch geometry, its plain PyTorch version and, for a custom op, the
@@ -21,7 +21,7 @@ fake that gives a trace its output's metadata.  What they share is here:
   without the dispatcher's host time, inside a profiler span of the
   op's name (``engine/profiler``).
 
-:data:`COUNTER` counts launches by label ("K1" ... "K7") in the Python
+:data:`COUNTER` counts launches by label ("K1" ... "K8") in the Python
 that makes them: a replay of ``engine/aot.compile_forward``'s CUDA graph
 runs its launches without it, so a count through that forward is the
 capture's launches plus ``engine.aot.GRAPH_REPLAYS`` times the forward's.

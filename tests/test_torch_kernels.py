@@ -2,7 +2,7 @@
 kernel (interpret mode on the CPU), and the CPU-side logic around it:
 operand checks and the nvcc build; the one launch path every kernel
 takes (``ops/cuda/kernel.py``: the device rule, the custom ops under a
-trace, the launch and its count), for K1-K7; on a card also the
+trace, the launch and its count), for K1-K8; on a card also the
 ``space`` axis's halo rules through cuDNN (``parallel/halo_check.py``).
 
 JAX is imported inside the one test that needs it, so that on a GPU host
@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from fastdepth_tpu_torch import metrics as M
 from fastdepth_tpu_torch.engine import profiler as P
 from fastdepth_tpu_torch.ops import blocks as TB
 from fastdepth_tpu_torch.ops.cuda import _build
@@ -119,12 +120,14 @@ WRAPPERS = {
            lambda x, w: KP.staged_compute(x, w, "matmul"), 2),
     "K7": (K7, "conv_epilogue_reference", [("cl", 2, 16, 5, 7), (16,), ("cl", 2, 16, 5, 7)],
            lambda y, b, r: K7.conv_epilogue(y, b, r, K7.RELU6), 1),
+    "K8": (M, "metric_sums_reference", [(2, 5, 7, 1), (2, 5, 7, 1)], M.metric_sums, 3),
 }
 
 
 def _wrapper_operands(label, device):
     """The wrapper's operands on ``device``: seeded on the CPU, empty on
-    any other device."""
+    any other device.  K8's depths are not negative: a negative one makes
+    a NaN sum, which ``torch.equal`` never holds equal."""
     torch.manual_seed(0)
     out = []
     for shape in WRAPPERS[label][2]:
@@ -133,7 +136,7 @@ def _wrapper_operands(label, device):
         shape = shape[1:] if cl else shape
         out.append(torch.randn(*shape).contiguous(memory_format=fmt) if device == "cpu"
                    else torch.empty(*shape, device=device, memory_format=fmt))
-    return out
+    return [t.abs() for t in out] if label == "K8" and device == "cpu" else out
 
 
 def _plain(label, ops):
@@ -194,7 +197,8 @@ def fake_entries(monkeypatch):
 
 ENTRIES = {"K1": "fd_fused_decoder_stage", "K2": "fd_fused_decoder_stage_hwbc",
            "K3": "fd_fused_decoder_stage_v3", "K4": "fd_pointwise_head",
-           "K5": "fd_staged_copy", "K6": "fd_staged_compute", "K7": "fd_conv_epilogue"}
+           "K5": "fd_staged_copy", "K6": "fd_staged_compute", "K7": "fd_conv_epilogue",
+           "K8": "fd_metric_sums"}
 
 
 @pytest.mark.parametrize("fails", [False, True], ids=["ok", "cuda_error"])
@@ -223,7 +227,7 @@ def test_each_kernel_launches_through_the_one_launch_path(label, fails, fake_ent
 
 # the registered ops: label -> the op
 OPS = {"K1": K.STAGE_OP.overload, "K4": K4.HEAD_OP.overload,
-       "K7": K7.EPILOGUE_OP.overload}
+       "K7": K7.EPILOGUE_OP.overload, "K8": M.METRIC_SUMS_OP.overload}
 
 
 @pytest.mark.parametrize("label", list(OPS))
@@ -282,7 +286,7 @@ def test_an_eager_op_call_opens_its_span_only_under_a_profiler(label, on, monkey
     ops = _wrapper_operands(label, "cpu")
     assert torch.equal(WRAPPERS[label][3](*ops), _plain(label, ops))
     assert flag.reads == 1
-    assert opened == ([{"K1": P.K1, "K4": P.K4, "K7": P.K7}[label]] if on else [])
+    assert opened == ([{"K1": P.K1, "K4": P.K4, "K7": P.K7, "K8": P.K8}[label]] if on else [])
 
 
 def test_wrapper_rejects_what_k1_does_not_take(rng):
