@@ -27,16 +27,28 @@ SERVE_CELL = {
                       ("batch_fill_pct.serve", "higher", "program_counter", "engine")]],
 }
 
+# the flagship's b128 cell, which fastdepth.batch-b512 replaced in
+# BENCHMARK.json and which tests outside perfbench/ still run (PERF.md,
+# Open questions): its file stays, and the copy lists it after the cells
+# and in every metric list that names the cell that replaced it
+RETIRED_CELL, SUCCESSOR = "fastdepth.batch-b128", "fastdepth.batch-b512"
+
 
 def tiny_root(dst: str) -> str:
-    """A copy of ``BENCHMARK.json``, with the serving cell's lines added,
-    and of ``perfbench/``, whose configurations take 64 x 64 frames and
-    whose cells run a few frames a step."""
+    """A copy of ``BENCHMARK.json``, with the serving cell's and the
+    retired flagship cell's lines added, and of ``perfbench/``, whose
+    configurations take 64 x 64 frames and whose cells run a few frames
+    a step."""
     shutil.copytree(os.path.join(harness.ROOT, "perfbench"), os.path.join(dst, "perfbench"),
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bench = harness.bench()
     for key, entries in SERVE_CELL.items():
         bench[key] += entries
+    successor = next(w for w in bench["workloads"] if w["name"] == SUCCESSOR)
+    bench["workloads"].append(dict(successor, name=RETIRED_CELL, traffic="batch-b128"))
+    for m in bench["end_to_end"] + bench["per_layer"]:
+        if SUCCESSOR in m.get("workloads", ()):
+            m["workloads"].append(RETIRED_CELL)
     with open(os.path.join(dst, "BENCHMARK.json"), "w") as f:
         json.dump(bench, f)
     for name in os.listdir(os.path.join(dst, "perfbench", "configs")):

@@ -44,7 +44,7 @@ def broken(fault):
 MODULES = {"batch": "fastdepth_tpu_torch.engine.evaluator._prepare",
            "deploy": "fastdepth_tpu_torch.engine.aot._prepare",
            "serve_socket": "fastdepth_tpu_torch.engine.server._prepare"}
-FAULTS = [("fastdepth.batch-b128", "half_batch"), ("fastdepth.batch-b128", "altered"),
+FAULTS = [("fastdepth.batch-b512", "half_batch"), ("fastdepth.batch-b512", "altered"),
           ("fastdepth.deploy-b1", "altered"), ("fastdepth.deploy-b1", "stale"),
           ("fastdepth.serve-socket", "altered"), ("fastdepth.serve-socket", "half_batch")]
 
@@ -68,14 +68,14 @@ def test_a_broken_path_is_not_correct(root, monkeypatch, cell, fault):
     assert any(c["value"] > c["limit"] for c in r["compared"].values())
 
 
-@pytest.mark.parametrize("cell", ["fastdepth.batch-b128", "fastdepth.deploy-b1",
+@pytest.mark.parametrize("cell", ["fastdepth.batch-b512", "fastdepth.deploy-b1",
                                   "fastdepth.serve-socket"])
 def test_an_unbroken_path_is_correct(root, cell):
     r = run.measure(cell, SEED, 0.5, False, root=root, device="cpu", check_device=False)
     assert r["correct"] is True
 
 
-@pytest.mark.parametrize("cell", ["fastdepth.batch-b128", "resnet50-upproj.batch-b128",
+@pytest.mark.parametrize("cell", ["fastdepth.batch-b512", "resnet50-upproj.batch-b128",
                                   "fastdepth.serve-socket"])
 def test_the_fp8_control_is_not_correct(root, cell):
     wl = harness.workload(cell, root)

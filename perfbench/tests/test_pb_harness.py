@@ -22,7 +22,7 @@ def read(run):
 
 
 def add_files(root):
-    wl = harness.workload("fastdepth.batch-b128", root)
+    wl = harness.workload("fastdepth.batch-b512", root)
     with open(os.path.join(root, "perfbench", "workloads", "dummy.cell.json"), "w") as f:
         json.dump(dict(wl, batch=2), f)
     with open(os.path.join(root, "perfbench", "metrics", "dummy_metric.x.py"), "w") as f:
@@ -94,6 +94,38 @@ def test_benchmark_json_keeps_to_the_contract():
         assert len(wanted["end_to_end"]) >= 2 and wanted["per_layer"]
 
 
+# the metrics whose lists named fastdepth.batch-b128 first, as
+# fastdepth.batch-b512 replaced it
+FLAGSHIP_METRICS = ("frames_per_s", "device_idle_pct.throughput", "mfu_pct",
+                    "decoder_roofline_pct", "encoder_mfu_pct", "metrics_us_per_frame",
+                    "decoder_roofline_pct.spans", "launch_idle_pct.throughput")
+
+
+def test_the_b512_flagship_cell_stands_where_the_b128_one_stood():
+    from perfbench.tests.conftest import RETIRED_CELL, SUCCESSOR
+
+    b = harness.bench()
+    first = b["workloads"][0]
+    assert (first["name"], first["config"], first["traffic"], first["chips"]) == (
+        SUCCESSOR, "fastdepth-pruned-224", "batch-b512", 1)
+    wl = harness.workload(SUCCESSOR)
+    assert (wl["entry"], wl["batch"], wl["dtype"], wl["impl"], wl["ring"]) == (
+        "batch", 512, "bfloat16", "auto", 8)
+    assert (wl["warmup_steps"], wl["sample_steps"], wl["sample_from"], wl["trace_seconds"]) == (
+        3, 3, 64, 2)
+    assert set(wl["limits"]) == {"pred_rel_l2", "metric_gap"}
+    for m in b["end_to_end"] + b["per_layer"]:
+        listed = m.get("workloads", [])
+        assert (SUCCESSOR in listed) == (m["name"] in FLAGSHIP_METRICS)
+        assert SUCCESSOR not in listed or listed.index(SUCCESSOR) == 0
+        assert RETIRED_CELL not in listed
+    assert RETIRED_CELL not in harness.cells()
+    folder = os.path.join(harness.ROOT, "perfbench", "workloads")
+    for name in os.listdir(folder):
+        with open(os.path.join(folder, name)) as f:
+            assert RETIRED_CELL not in f.read()
+
+
 def fake_traced(python=False):
     import contextlib
 
@@ -148,7 +180,7 @@ def test_breakdown_names_ops_and_gaps():
 
 def run_of(trace, **kw):
     ctx = SimpleNamespace(config=harness.config("fastdepth-pruned-224"),
-                          workload=harness.workload("fastdepth.batch-b128"))
+                          workload=harness.workload("fastdepth.batch-b512"))
     outcome = SimpleNamespace(end_to_end={"frames_per_s": 1000.0}, counters=kw)
     from perfbench.work import mobilenet_skipadd
 
@@ -177,5 +209,5 @@ def test_readers_on_a_trace():
     from perfbench.work import mobilenet_skipadd
 
     least = sum(peaks.least_time_s(b, f, "bfloat16")
-                for b, f in mobilenet_skipadd.decoder_levels(r.ctx.config, 128, 2))
+                for b, f in mobilenet_skipadd.decoder_levels(r.ctx.config, 512, 2))
     assert m("decoder_roofline_pct") == pytest.approx(100 * least / 5 / 2e-3)
